@@ -1,0 +1,126 @@
+"""v1 DiT estimator, the CFM vector-field network (port of
+``seedvc_tpu/models/dit.py``), channels-last (B, T, C).
+
+[x ‖ prompt_x ‖ projected cond ‖ repeated style] are merged by one linear
+(``cond_x_merge_linear``); classifier-free dropout is a per-sample
+``cond_drop`` mask zeroing every merged feature except x; a U-ViT trunk
+conditioned on the time embedding; a long skip from the input; a WaveNet
+post-net head with an adaLN final layer, or an MLP head.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from seedvc_tpu_torch.core.config import ModelParams
+from seedvc_tpu_torch.core.utils import sequence_mask
+from seedvc_tpu_torch.nn.layers import TimestepEmbedder
+from seedvc_tpu_torch.nn.transformer import Transformer, TransformerConfig
+from seedvc_tpu_torch.nn.wavenet import WaveNet
+
+
+class SplitDense(nn.Module):
+    """A linear layer whose input is applied in slices of ONE (out, total_in)
+    weight, so the step-invariant slice (prompt/cond/style) is computed once
+    outside the sampler loop and the noisy-mel slice every step."""
+
+    def __init__(self, total_in: int, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features, total_in))
+        self.bias = nn.Parameter(torch.zeros(features))
+        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+
+    def forward(self, x: torch.Tensor, start: int, with_bias: bool) -> torch.Tensor:
+        w = self.weight[:, start: start + x.shape[-1]]
+        return F.linear(x, w, self.bias if with_bias else None)
+
+
+class FinalLayer(nn.Module):
+    """LayerNorm (no affine, eps 1e-6) + adaLN shift/scale + linear."""
+
+    def __init__(self, hidden_size: int, out_channels: int, cond_size: int):
+        super().__init__()
+        self.adaLN_modulation = nn.Linear(cond_size, 2 * hidden_size)
+        self.norm_final = nn.LayerNorm(hidden_size, eps=1e-6, elementwise_affine=False)
+        self.linear = nn.Linear(hidden_size, out_channels)
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        shift, scale = self.adaLN_modulation(F.silu(c)).chunk(2, dim=-1)
+        x = self.norm_final(x) * (1 + scale[:, None, :]) + shift[:, None, :]
+        return self.linear(x)
+
+
+class DiT(nn.Module):
+    def __init__(self, mp: ModelParams):
+        super().__init__()
+        dc = mp.DiT
+        if dc.f0_condition or dc.time_as_token or dc.style_as_token:
+            raise NotImplementedError("F0 conditioning and prefix tokens are not ported")
+        self.mp = mp
+        C = dc.in_channels
+        static_in = C + C + dc.hidden_dim
+        if dc.style_condition:
+            static_in += mp.style_encoder.dim
+        self.cond_projection = nn.Linear(dc.content_dim, dc.hidden_dim)
+        self.cond_x_merge_linear = SplitDense(static_in, dc.hidden_dim)
+        self.t_embedder = TimestepEmbedder(dc.hidden_dim)
+        self.transformer = Transformer(TransformerConfig(
+            dim=dc.hidden_dim, n_layer=dc.depth, n_head=dc.num_heads,
+            head_dim=dc.hidden_dim // dc.num_heads, rope_base=dc.rope_base,
+            norm_eps=dc.norm_eps, uvit_skip_connection=dc.uvit_skip_connection))
+        if dc.long_skip_connection:
+            self.skip_linear = nn.Linear(dc.hidden_dim + C, dc.hidden_dim)
+        if dc.final_layer_type == "wavenet":
+            wn = mp.wavenet
+            self.conv1 = nn.Linear(dc.hidden_dim, wn.hidden_dim)
+            self.t_embedder2 = TimestepEmbedder(wn.hidden_dim)
+            self.wavenet = WaveNet(wn.hidden_dim, wn.kernel_size, wn.dilation_rate,
+                                   wn.num_layers, gin_channels=wn.hidden_dim)
+            self.res_projection = nn.Linear(dc.hidden_dim, wn.hidden_dim)
+            self.final_layer = FinalLayer(wn.hidden_dim, wn.hidden_dim, dc.hidden_dim)
+            self.conv2 = nn.Linear(wn.hidden_dim, dc.in_channels)
+        else:
+            self.final_mlp0 = nn.Linear(dc.hidden_dim, dc.hidden_dim)
+            self.final_mlp2 = nn.Linear(dc.hidden_dim, dc.in_channels)
+
+    def forward(self, x, prompt_x, x_lens, t, style, cond, cond_drop=None,
+                return_static: bool = False, static_cond: Optional[dict] = None):
+        """x, prompt_x: (B, T, C_mel); x_lens: (B,) int or None (every frame
+        valid); t: (B,); style: (B, S); cond: (B, T, content_dim);
+        cond_drop: (B,) 1.0 = null branch.
+
+        ``return_static=True`` returns only the step-invariant conditioning as
+        a dict; passing it back as ``static_cond`` skips recomputing it."""
+        dc = self.mp.DiT
+        B, T, C = x.shape
+        if static_cond is None:
+            keep = 1.0 if cond_drop is None else (1.0 - cond_drop)[:, None, None].to(x.dtype)
+            parts = [prompt_x * keep, self.cond_projection(cond) * keep]
+            if dc.style_condition:
+                parts.append(style[:, None, :].expand(B, T, style.shape[-1]) * keep)
+            merged_static = self.cond_x_merge_linear(torch.cat(parts, dim=-1), C, True)
+            if return_static:
+                return {"merged": merged_static}
+        else:
+            merged_static = static_cond["merged"]
+
+        t1 = self.t_embedder(t)
+        x_in = self.cond_x_merge_linear(x, 0, False) + merged_static
+        lens = None if x_lens is None else torch.clamp(x_lens, max=T).to(torch.int32)
+        x_res = self.transformer(x_in, t1[:, None, :], lens)
+
+        if dc.long_skip_connection:
+            x_res = self.skip_linear(torch.cat([x_res, x], dim=-1))
+        if dc.final_layer_type == "wavenet":
+            h = self.conv1(x_res)
+            t2 = self.t_embedder2(t)
+            mask = None if x_lens is None else sequence_mask(x_lens, T)[..., None].to(x.dtype)
+            h = self.wavenet(h, mask, g=t2[:, None, :])
+            h = h + self.res_projection(x_res)
+            h = self.final_layer(h, t1)
+            return self.conv2(h)
+        return self.final_mlp2(F.silu(self.final_mlp0(x_res)))

@@ -1,0 +1,87 @@
+"""Length regulator: content features -> mel-rate conditioning
+(port of ``seedvc_tpu/models/regulator.py``, continuous content, no F0).
+
+Project the content, nearest-interpolate it along time to ``ylens.max()``,
+then a conv -> GroupNorm(1) -> Mish stack and a 1x1 projection. The output
+buffer has a fixed length ``target_len``; positions past ``ylens.max()`` are
+zeroed before every conv and excluded from the GroupNorm statistics, so the
+result equals running on a tensor that really ends there.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from seedvc_tpu_torch.core.config import LengthRegulatorConfig
+from seedvc_tpu_torch.core.utils import sequence_mask
+
+
+def nearest_interpolate_to(x: torch.Tensor, out_len: torch.Tensor, target_len: int,
+                           in_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, T_in, C) -> (B, target_len, C), nearest, with torch's float
+    ``floor(j * float(in/out))`` index rule; only the first ``in_len`` input
+    frames are read. Positions >= out_len are garbage for the caller to mask."""
+    t_in = in_len if in_len is not None else torch.tensor(x.shape[1], device=x.device)
+    t_in = t_in.to(torch.float32)
+    scale = t_in / torch.clamp(out_len.to(torch.float32), min=1.0)
+    j = torch.arange(target_len, dtype=torch.float32, device=x.device)
+    idx = torch.floor(j * scale).long()
+    idx = torch.minimum(idx, t_in.long() - 1)
+    return x[:, idx]
+
+
+class MaskedGroupNorm(nn.Module):
+    """GroupNorm(1, C) whose statistics span only the first ``out_len`` time
+    positions of a padded buffer. Input (B, C, T)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, h: torch.Tensor, valid: torch.Tensor,
+                out_len: torch.Tensor) -> torch.Tensor:
+        C = h.shape[1]
+        hf = h.float()
+        n = torch.clamp(out_len.float(), min=1.0) * C
+        mean = (hf * valid).sum(dim=(1, 2), keepdim=True) / n
+        var = (((hf - mean) ** 2) * valid).sum(dim=(1, 2), keepdim=True) / n
+        normed = (hf - mean) * torch.rsqrt(var + self.eps)
+        return (normed * self.weight[:, None] + self.bias[:, None]).to(h.dtype)
+
+
+class InterpolateRegulator(nn.Module):
+    def __init__(self, cfg: LengthRegulatorConfig):
+        super().__init__()
+        if cfg.is_discrete or cfg.f0_condition or cfg.vector_quantize:
+            raise NotImplementedError(
+                "discrete content, F0 conditioning and VQ are not ported")
+        self.cfg = cfg
+        self.content_in_proj = nn.Linear(cfg.in_channels, cfg.channels)
+        for i in range(len(cfg.sampling_ratios)):
+            self.add_module(f"conv_{i}", nn.Conv1d(cfg.channels, cfg.channels, 3, padding=1))
+            self.add_module(f"norm_{i}", MaskedGroupNorm(cfg.channels))
+        self.out_proj = nn.Linear(cfg.channels, cfg.channels)
+
+    def forward(self, x: torch.Tensor, ylens: torch.Tensor, target_len: int,
+                x_lens: Optional[torch.Tensor] = None):
+        """x: (B, T_in, C_in) content; ylens: (B,) target lengths; target_len:
+        the output buffer length; x_lens: () true content length or None.
+        Returns (out (B, target_len, channels), ylens)."""
+        h = self.content_in_proj(x)
+        out_len = ylens.max()
+        h = nearest_interpolate_to(h, out_len, target_len, in_len=x_lens)
+        valid = (torch.arange(target_len, device=x.device) < out_len).to(h.dtype)[None, None]
+        h = h.transpose(1, 2) * valid
+        for i in range(len(self.cfg.sampling_ratios)):
+            h = getattr(self, f"conv_{i}")(h)
+            h = getattr(self, f"norm_{i}")(h, valid, out_len)
+            h = h * torch.tanh(F.softplus(h)) * valid  # Mish
+        out = self.out_proj(h.transpose(1, 2))
+        mask = sequence_mask(ylens, target_len)[..., None].to(out.dtype)
+        return out * mask, ylens

@@ -1,0 +1,149 @@
+"""Core transformer building blocks, channels-last (B, T, C).
+
+Port of ``seedvc_tpu/nn/layers.py``: RMSNorm in fp32, interleaved-pair RoPE,
+fused-QKV attention, SwiGLU FFN, 2-parameter adaptive RMS norm, sinusoidal
+timestep embedder with scale 1000. Submodule names follow the flax ones so
+``seedvc_tpu_torch.weights.load_jax_params`` can walk a flax tree onto them.
+
+``Attention`` always goes through ``ops.attention.dit_attention_fused``: the
+CUDA kernel for CUDA tensors, its plain twin for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from seedvc_tpu_torch.ops.attention import dit_attention_fused
+
+
+class RMSNorm(nn.Module):
+    """RMS norm computed in fp32, cast back, then scaled."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        normed = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + self.eps)
+        return normed.to(x.dtype) * self.weight
+
+
+class AdaptiveRMSNorm(nn.Module):
+    """RMSNorm with weight/bias projected from a conditioning embedding."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.norm = RMSNorm(dim, eps)
+        self.project_layer = nn.Linear(dim, 2 * dim)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        weight, bias = self.project_layer(emb).chunk(2, dim=-1)
+        return weight * self.norm(x) + bias
+
+
+def _rope_freqs(head_dim: int, base: float) -> np.ndarray:
+    return 1.0 / (base ** (np.arange(0, head_dim, 2)[: head_dim // 2] / head_dim))
+
+
+def rope_cache(seq_len: int, head_dim: int, base: float = 10000.0) -> np.ndarray:
+    """(seq_len, head_dim//2, 2) cos/sin cache."""
+    ang = np.outer(np.arange(seq_len), _rope_freqs(head_dim, base))
+    return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+
+
+def rope_full_cache(seq_len: int, head_dim: int,
+                    base: float = 10000.0) -> tuple[np.ndarray, np.ndarray]:
+    """(T, head_dim) caches: cos_full[:, 2i] = cos_full[:, 2i+1] = cos(t f_i),
+    sin_signed[:, 2i] = -sin(t f_i), sin_signed[:, 2i+1] = +sin(t f_i), so that
+    ``x*cos_full + pair_swap(x)*sin_signed`` is interleaved-pair RoPE."""
+    ang = np.outer(np.arange(seq_len), _rope_freqs(head_dim, base))
+    cos_full = np.repeat(np.cos(ang), 2, axis=1)
+    sin_signed = np.repeat(np.sin(ang), 2, axis=1)
+    sin_signed[:, 0::2] *= -1.0
+    return cos_full.astype(np.float32), sin_signed.astype(np.float32)
+
+
+def apply_rope(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved pairs in fp32. x: (B, T, H, D); freqs: (T, D//2, 2)."""
+    xf = x.float().reshape(*x.shape[:-1], -1, 2)
+    cos = freqs[None, :, None, :, 0]
+    sin = freqs[None, :, None, :, 1]
+    out = torch.stack([xf[..., 0] * cos - xf[..., 1] * sin,
+                       xf[..., 1] * cos + xf[..., 0] * sin], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+class Attention(nn.Module):
+    """Fused-QKV multi-head attention with in-kernel RoPE and key padding.
+
+    Grouped KV heads (GQA) reach a different TPU kernel (``dit_attention``,
+    K3) that is not ported; no preset uses them.
+    """
+
+    def __init__(self, dim: int, n_head: int, n_local_heads: int | None = None,
+                 head_dim: int | None = None):
+        super().__init__()
+        if (n_local_heads or n_head) != n_head:
+            raise NotImplementedError("grouped KV heads (GQA) are not ported")
+        self.n_head = n_head
+        self.head_dim = head_dim or dim // n_head
+        self.wqkv = nn.Linear(dim, 3 * n_head * self.head_dim, bias=False)
+        self.wo = nn.Linear(n_head * self.head_dim, dim, bias=False)
+
+    def forward(self, x: torch.Tensor, rope_full: tuple[torch.Tensor, torch.Tensor],
+                lens: Optional[torch.Tensor]) -> torch.Tensor:
+        """x: (B, T, dim); rope_full: (T, head_dim) f32 cos/sin; lens: (B,)
+        int32 valid key counts or None."""
+        B, T, _ = x.shape
+        H, hd = self.n_head, self.head_dim
+        q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2).contiguous()
+                   for t in self.wqkv(x).split(H * hd, dim=-1))
+        cos, sin = rope_full
+        out = dit_attention_fused(q, k, v, cos, sin, lens)
+        return self.wo(out.transpose(1, 2).reshape(B, T, H * hd))
+
+
+class FeedForward(nn.Module):
+    """SwiGLU: w2(silu(w1 x) * w3 x)."""
+
+    def __init__(self, dim: int, intermediate: int):
+        super().__init__()
+        self.w1 = nn.Linear(dim, intermediate, bias=False)
+        self.w3 = nn.Linear(dim, intermediate, bias=False)
+        self.w2 = nn.Linear(intermediate, dim, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+
+
+def ffn_intermediate_size(dim: int) -> int:
+    """gpt-fast default intermediate size."""
+    hidden = int(2 * (4 * dim) / 3)
+    return -(-hidden // 256) * 256
+
+
+class TimestepEmbedder(nn.Module):
+    """Sinusoidal timestep embedding (scale 1000) -> MLP(SiLU)."""
+
+    def __init__(self, hidden_size: int, freq_embed_size: int = 256):
+        super().__init__()
+        self.freq_embed_size = freq_embed_size
+        self.mlp0 = nn.Linear(freq_embed_size, hidden_size)
+        self.mlp2 = nn.Linear(hidden_size, hidden_size)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        half = self.freq_embed_size // 2
+        freqs = torch.exp(-math.log(10000.0)
+                          * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+        args = 1000.0 * t[:, None].float() * freqs[None]
+        emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+        emb = emb.to(self.mlp0.weight.dtype)
+        return self.mlp2(F.silu(self.mlp0(emb)))

@@ -1,0 +1,75 @@
+"""Carry a flax parameter tree onto a port module.
+
+The port's submodule names mirror the flax names (``layers_0``, ``wqkv``,
+``resblocks_2_1``, ``act1_0``, ...), so the walk is mechanical. Layout rules:
+
+- Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in); the SplitDense
+  kernel stays whole;
+- Conv ``kernel`` (k, in, out) -> Conv1d ``weight`` (out, in, k), and
+  (kh, kw, in, out) -> Conv2d (out, in, kh, kw);
+- ``ups_i_kernel`` (K, in, out) -> ConvTranspose1d ``ups_i.weight`` (in, out, K);
+- norms: ``scale`` -> ``weight``; EvalBatchNorm ``mean``/``var`` -> the
+  ``running_mean``/``running_var`` buffers;
+- any other leaf (``alpha``, ``beta``, ``embed_positions``, ``weight``) is
+  copied as it is.
+
+Every parameter and buffer of the module must be filled, or this raises.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+
+
+def _convert(mod: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+    if name != "kernel":
+        return _RENAME.get(name, name), arr
+    if isinstance(mod, nn.ConvTranspose1d):
+        return "weight", arr.transpose(1, 2, 0)
+    if isinstance(mod, (nn.Conv1d, nn.Conv2d)):
+        return "weight", arr.transpose(arr.ndim - 1, arr.ndim - 2, *range(arr.ndim - 2))
+    return "weight", arr.T  # Dense / SplitDense
+
+
+def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
+    """Fill ``module`` in place from a flax ``params`` tree of numpy arrays."""
+    filled: set[int] = set()
+
+    def walk(mod: nn.Module, sub: Mapping, path: str):
+        for name, value in sub.items():
+            where = f"{path}/{name}"
+            if isinstance(value, Mapping):
+                child = getattr(mod, name, None)
+                if not isinstance(child, nn.Module):
+                    raise KeyError(f"no submodule for {where}")
+                walk(child, value, where)
+                continue
+            target, leaf = mod, name
+            if ("_" in name and not hasattr(mod, name)
+                    and name.rsplit("_", 1)[-1] in ("kernel", "bias")):
+                base, leaf = name.rsplit("_", 1)
+                target = getattr(mod, base, None)
+                if not isinstance(target, nn.Module):
+                    raise KeyError(f"no submodule for {where}")
+            attr, arr = _convert(target, leaf, np.asarray(value))
+            dest = getattr(target, attr, None)
+            if not isinstance(dest, torch.Tensor):
+                raise KeyError(f"no tensor for {where}")
+            if tuple(dest.shape) != arr.shape:
+                raise ValueError(f"{where}: shape {arr.shape} does not fit {tuple(dest.shape)}")
+            with torch.no_grad():
+                dest.copy_(torch.from_numpy(np.array(arr)))
+            filled.add(id(dest))
+
+    walk(module, tree, "")
+    missing = [n for n, t in [*module.named_parameters(), *module.named_buffers()]
+               if id(t) not in filled]
+    if missing:
+        raise KeyError(f"parameters not in the tree: {missing[:8]}")
+    return module

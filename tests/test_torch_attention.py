@@ -1,0 +1,110 @@
+"""Port K1 (seedvc_tpu_torch/ops/attention.py) against the JAX package.
+
+The port's plain twin is held to the JAX Pallas kernel ``dit_attention_fused``
+run in interpret mode on the CPU (same shapes and block_q as
+tests/test_pallas_attention.py); the port's ``Attention`` module to the JAX
+one with the same weights. The CUDA kernel itself is held to the twin in
+tests/test_torch_cuda.py, on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seedvc_tpu.nn.layers import Attention as JAttention
+from seedvc_tpu.nn.layers import rope_cache as j_rope_cache
+from seedvc_tpu.nn.layers import rope_full_cache as j_rope_full_cache
+from seedvc_tpu.ops.pallas.attention import dit_attention_fused as j_fused
+from seedvc_tpu_torch.nn.layers import Attention, apply_rope, rope_cache, rope_full_cache
+from seedvc_tpu_torch.ops import attention as port
+from seedvc_tpu_torch.weights import load_jax_params
+from torch_port_helpers import jax_init
+
+torch.set_num_threads(1)
+
+
+def _inputs(seed, B, H, T, d, dtype):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, H, T, d)).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("lens", [None, (200, 256)])
+def test_twin_matches_jax_kernel_f32(lens):
+    """f32: same math, different summation order -> 1e-5."""
+    q, k, v = _inputs(3, 2, 4, 256, 64, np.float32)
+    cos, sin = rope_full_cache(256, 64)
+    lens_j = None if lens is None else jnp.asarray(lens)
+    ref = j_fused(*(jnp.asarray(a) for a in (q, k, v, cos, sin)), lens_j, block_q=128)
+    out = port.dit_attention_fused(*(torch.from_numpy(a) for a in (q, k, v, cos, sin)),
+                                   None if lens is None else torch.tensor(lens))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_twin_matches_jax_kernel_bf16():
+    """bf16: the TPU kernel rounds P to bf16 after a global max, the twin's
+    softmax is fp32 then PV in fp32 -> the JAX file's bf16 tolerance 3e-2."""
+    q, k, v = _inputs(4, 1, 2, 256, 64, np.float32)
+    cos, sin = rope_full_cache(256, 64)
+    ref = j_fused(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                  jnp.asarray(cos), jnp.asarray(sin), jnp.array([250]), block_q=128)
+    out = port.dit_attention_fused(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+                                   torch.from_numpy(cos), torch.from_numpy(sin),
+                                   torch.tensor([250]))
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               atol=3e-2)
+
+
+def test_twin_ignores_padded_keys():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(5, 1, 2, 256, 64, np.float32))
+    cos, sin = (torch.from_numpy(a) for a in rope_full_cache(256, 64))
+    lens = torch.tensor([128])
+    out1 = port.dit_attention_fused(q, k, v, cos, sin, lens)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 128:] = 99.0
+    v2[:, :, 128:] = -99.0
+    out2 = port.dit_attention_fused(q, k2, v2, cos, sin, lens)
+    torch.testing.assert_close(out1, out2, atol=1e-6, rtol=0)
+
+
+def test_rope_caches_match_jax():
+    np.testing.assert_array_equal(rope_cache(100, 64), j_rope_cache(100, 64))
+    for a, b in zip(rope_full_cache(100, 64), j_rope_full_cache(100, 64)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_apply_rope_equals_full_cache_form():
+    """Interleaved-pair RoPE two ways: apply_rope and the kernel's cos /
+    signed-sin form."""
+    x = torch.from_numpy(_inputs(6, 1, 3, 50, 64, np.float32)[0])  # (B, H, T, d)
+    freqs = torch.from_numpy(rope_cache(50, 64))
+    a = apply_rope(x.transpose(1, 2), freqs).transpose(1, 2)
+    cos, sin = (torch.from_numpy(c) for c in rope_full_cache(50, 64))
+    b = x * cos + port._pair_swap(x) * sin
+    torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("lens", [None, (37, 64)])
+def test_attention_module_matches_jax(lens):
+    """Port Attention (twin on CPU) vs the JAX module's einsum path, same
+    weights, f32 -> 1e-5."""
+    B, T, dim, H = 2, 64, 128, 2
+    x = np.random.default_rng(7).standard_normal((B, T, dim)).astype(np.float32)
+    jm = JAttention(dim, H)
+    freqs = jnp.asarray(j_rope_cache(T, dim // H))
+    mask = None
+    if lens is not None:
+        mask = (jnp.arange(T)[None, :] < jnp.asarray(lens)[:, None])[:, None, None, :]
+    params = jax_init(jm, jnp.asarray(x), freqs, mask)
+    ref = jm.apply({"params": params}, jnp.asarray(x), freqs, mask)
+    pm = load_jax_params(Attention(dim, H), params)
+    rope = tuple(torch.from_numpy(a) for a in rope_full_cache(T, dim // H))
+    out = pm(torch.from_numpy(x), rope,
+             None if lens is None else torch.tensor(lens, dtype=torch.int32))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_attention_rejects_grouped_heads():
+    with pytest.raises(NotImplementedError):
+        Attention(128, 4, n_local_heads=2)

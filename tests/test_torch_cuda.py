@@ -1,0 +1,87 @@
+"""The port's CUDA kernels on the card (every test here is marked ``cuda``
+and skips without a CUDA device).
+
+This file imports nothing of JAX, so it runs where only PyTorch is
+installed: ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``.
+Each kernel is held to its plain PyTorch twin on the same CUDA inputs.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from seedvc_tpu_torch.nn.layers import rope_full_cache
+from seedvc_tpu_torch.ops import anti_alias, attention
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _randn(seed, *shape):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape)
+                            .astype(np.float32)).cuda()
+
+
+@pytest.mark.parametrize("T,lens", [(777, (700, 300)), (2048, None), (64, (1, 64))])
+@pytest.mark.parametrize("dtype,tol,rel_tol", [(torch.float32, 1e-4, 1e-4),
+                                               (torch.bfloat16, 1e-2, 2e-2)])
+def test_attention_kernel_matches_twin(T, lens, dtype, tol, rel_tol):
+    """f32: summation order only -> 1e-4. bf16: P and the output round to
+    bf16 after a running rather than a global max; measured up to 4e-3 on an
+    output whose std is about sqrt(e/T) (0.036 at T = 2048) -> 1e-2, and a
+    relative L2 norm of 2e-2, which dropping one 64-key tile exceeds."""
+    q, k, v = (_randn(s, 2, 8, T, 64).to(dtype) for s in range(3))
+    cos, sin = (torch.from_numpy(a).cuda() for a in rope_full_cache(T, 64))
+    lens_t = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = attention.LAUNCHES
+    out = attention.dit_attention_fused(q, k, v, cos, sin, lens_t)
+    assert attention.LAUNCHES == before + 1
+    ref = attention.dit_attention_fused_reference(q, k, v, cos, sin, lens_t)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    rel = (out.float() - ref.float()).norm() / ref.float().norm()
+    assert rel <= rel_tol
+
+
+@pytest.mark.parametrize("B,C,T", [(1, 768, 6144), (2, 24, 3001), (1, 48, 7), (1, 8, 1)])
+def test_anti_alias_kernel_matches_twin(B, C, T):
+    """fp32 FIR sums in another order -> 2e-5."""
+    x = _randn(3, B, C, T)
+    alpha, beta = 0.3 * _randn(4, C), 0.3 * _randn(5, C)
+    before = anti_alias.LAUNCHES
+    out = anti_alias.anti_alias_snake(x, alpha, beta)
+    assert anti_alias.LAUNCHES == before + 1
+    torch.testing.assert_close(out, anti_alias.anti_alias_snake_reference(x, alpha, beta),
+                               atol=2e-5, rtol=0)
+
+
+def test_wrappers_raise_when_build_fails(monkeypatch):
+    """No fallback to the twin: a CUDA tensor with no kernel is an error."""
+    def broken(name):
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(attention, "load_library", broken)
+    monkeypatch.setattr(anti_alias, "load_library", broken)
+    x = torch.zeros((1, 1, 64, 64), device="cuda", dtype=torch.bfloat16)
+    cs = torch.zeros((64, 64), device="cuda")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        attention.dit_attention_fused(x, x, x, cs, cs)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        anti_alias.anti_alias_snake(torch.zeros((1, 4, 16), device="cuda"),
+                                    torch.zeros(4, device="cuda"), torch.zeros(4, device="cuda"))
+
+
+def test_wrappers_check_inputs():
+    q = torch.zeros((1, 1, 64, 32), device="cuda", dtype=torch.bfloat16)
+    cs = torch.zeros((64, 32), device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.dit_attention_fused(q, q, q, cs, cs)
+    with pytest.raises(ValueError, match="f32"):
+        anti_alias.anti_alias_snake(torch.zeros((1, 4, 16), device="cuda").half(),
+                                    torch.zeros(4, device="cuda"), torch.zeros(4, device="cuda"))

@@ -1,0 +1,63 @@
+"""The PyTorch port stands alone: no JAX, no fallbacks.
+
+- neither ``chip_smoke.py`` nor any module of ``seedvc_tpu_torch`` imports
+  ``jax``, ``flax`` or ``seedvc_tpu`` (AST scan, so lazy imports count too);
+- ``VoiceConverter()`` with no device raises when CUDA is absent;
+- the kernel build raises without ``nvcc``, and the wrappers refuse tensors
+  that are on neither the CPU nor CUDA (the CUDA side of this is in
+  tests/test_torch_cuda.py).
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from seedvc_tpu_torch.ops import anti_alias, attention, build
+from seedvc_tpu_torch.pipelines import convert
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "flax", "seedvc_tpu")
+PORT_FILES = sorted((ROOT / "seedvc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_voice_converter_needs_cuda_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.VoiceConverter()
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load_library("attention")
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on CUDA gets an error, not
+    the plain twin."""
+    q = torch.empty((1, 1, 64, 64), device="meta")
+    cs = torch.empty((64, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention.dit_attention_fused(q, q, q, cs, cs)
+    with pytest.raises(ValueError, match="unsupported device"):
+        anti_alias.anti_alias_snake(torch.empty((1, 4, 16), device="meta"),
+                                    torch.empty(4, device="meta"), torch.empty(4, device="meta"))
