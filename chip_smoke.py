@@ -7,17 +7,26 @@ failure exits non-zero:
 1. device: require CUDA, print the card's name and power limit;
 2. build: compile every CUDA kernel of the port from ``seedvc_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch twin, on the card, at the
-   main path's shapes plus ragged ones, with the tolerance printed;
+   main path's shapes plus ragged ones, with the tolerance printed: K1 and
+   K3 (one source, RoPE on and off) in bf16 and f32 with a planted fault
+   that must fail the limits; ``Attention(use_flash=True)`` at a T that is
+   no multiple of 512, which must launch K1 (or K3 with grouped KV heads)
+   and agree with its plain twins; and K2;
 4. small: a small-config conversion on cuda (kernels) and on cpu (plain
    twins), f32, same weights and noise, compared; then the same config in
    bf16 (the main path's DiT precision) on cuda, kernels against the plain
-   twins swapped in on the card;
+   twins swapped in on the card; then a bf16 conversion whose DiT has
+   grouped KV heads (4 query heads, 2 KV heads), kernels against twins: K3
+   must launch and K1 must not;
 5. full: the ``whisper_small_wavenet`` preset at full width, random weights,
    30 s source + 5 s reference, 25 steps, cfg 0.7, run cold, warm, and warm
    with a device synchronise after each stage (for the stage times); launch
-   counts are checked against the plan (2 chunks: 650 attention and 218
-   anti-alias launches);
-6. the ``{"kernels": [...]}`` line: times of kernel, plain twin and library
+   counts are checked against the plan (2 chunks: 650 K1, 218 K2, 0 K3);
+6. microbench: every component of ``seedvc_tpu_torch.apps.microbench`` at
+   full width, its JSON rows printed, and each component's launch counts
+   checked (``attention`` K3 only, ``dit`` 13 K1 a call, ``vocoder`` 109 K2
+   a call, ``serving*`` 25 x 13 K1 a sample, the rest none);
+7. the ``{"kernels": [...]}`` line: times of kernel, plain twin and library
    call at the main-path shapes, with each kernel's bound on an H100 SXM.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
@@ -64,21 +73,6 @@ def log(*args):
 def fail(msg: str):
     log(f"FAILED: {msg}")
     sys.exit(1)
-
-
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(ops: float, peak_ops: float, nbytes: float) -> tuple[float, str]:
@@ -142,30 +136,35 @@ def phase_kernels() -> dict:
 
     from seedvc_tpu_torch.ops import anti_alias, attention
 
-    errs = {"k1": 0.0, "k2": 0.0}
-    for dtype in (torch.bfloat16, torch.float32):
-        atol, rtol = K1_TOL[str(dtype).split(".")[1]]
-        for T in (512, 2048, 2560, 777):
-            for lens in (None, (T - T // 7, T // 2)):
-                q, k, v, cos, sin, lens_t = _k1_inputs(T, dtype, lens)
-                out = attention.dit_attention_fused(q, k, v, cos, sin, lens_t)
-                ref = attention.dit_attention_fused_reference(q, k, v, cos, sin, lens_t)
-                # planted fault: the twin with the last valid key tile dropped
-                n_valid = lens_t if lens_t is not None else torch.full(
-                    (2,), T, dtype=torch.int32, device="cuda")
-                bad = attention.dit_attention_fused_reference(
-                    q, k, v, cos, sin, n_valid - K1_FAULT_KEYS)
-                err, rel = k1_errors(out, ref)
-                f_err, f_rel = k1_errors(bad, ref)
-                log(f"K1 dit_attention_fused (2,8,{T},64) {dtype} lens={lens}: "
-                    f"max_abs_err {err:.3e} tol {atol:g}, rel_l2 {rel:.3e} tol {rtol:g}; "
-                    f"planted fault max_abs {f_err:.3e} rel_l2 {f_rel:.3e}")
-                if not (err <= atol and rel <= rtol):
-                    fail(f"K1 disagrees with its plain twin at T={T} {dtype} lens={lens}")
-                if f_err <= atol and f_rel <= rtol:
-                    fail(f"K1 limit passes a planted fault at T={T} {dtype} lens={lens}")
-                if dtype == torch.bfloat16:
-                    errs["k1"] = max(errs["k1"], err)
+    errs = {"k1": 0.0, "k2": 0.0, "k3": 0.0}
+    # K1 and K3 share one source (RoPE on / off) and one set of limits
+    for key, rope, kernel, twin in (
+            ("k1", True, attention.dit_attention_fused, attention.dit_attention_fused_reference),
+            ("k3", False, attention.dit_attention, attention.dit_attention_reference)):
+        for dtype in (torch.bfloat16, torch.float32):
+            atol, rtol = K1_TOL[str(dtype).split(".")[1]]
+            for T in (512, 2048, 2560, 777):
+                for lens in (None, (T - T // 7, T // 2)):
+                    q, k, v, cos, sin, lens_t = _k1_inputs(T, dtype, lens)
+                    args = (q, k, v, cos, sin) if rope else (q, k, v)
+                    out = kernel(*args, lens_t)
+                    ref = twin(*args, lens_t)
+                    # planted fault: the twin with the last valid key tile dropped
+                    n_valid = lens_t if lens_t is not None else torch.full(
+                        (2,), T, dtype=torch.int32, device="cuda")
+                    bad = twin(*args, n_valid - K1_FAULT_KEYS)
+                    err, rel = k1_errors(out, ref)
+                    f_err, f_rel = k1_errors(bad, ref)
+                    what = f"{key.upper()} {kernel.__name__} (2,8,{T},64) {dtype} lens={lens}"
+                    log(f"{what}: max_abs_err {err:.3e} tol {atol:g}, rel_l2 {rel:.3e} "
+                        f"tol {rtol:g}; planted fault max_abs {f_err:.3e} rel_l2 {f_rel:.3e}")
+                    if not (err <= atol and rel <= rtol):
+                        fail(f"{what}: kernel disagrees with its plain twin")
+                    if f_err <= atol and f_rel <= rtol:
+                        fail(f"{what}: the limit passes a planted fault")
+                    if dtype == torch.bfloat16:
+                        errs[key] = max(errs[key], err)
+    attention_module_check()
     g = torch.Generator(device="cuda").manual_seed(1)
     for shape in main_path_shapes() + [(2, 96, 1000), (1, 24, 3), (1, 48, 7)]:
         B, C, T = shape
@@ -181,6 +180,41 @@ def phase_kernels() -> dict:
             fail(f"K2 disagrees with its plain twin at {shape}")
         errs["k2"] = max(errs["k2"], err)
     return errs
+
+
+def attention_module_check(T: int = 777):
+    """``Attention(use_flash=True)`` at a T that is no multiple of 512 takes
+    K1 (heads not grouped, rope_full given) or K3 (2 KV heads for 8 query
+    heads), once, and agrees with the same module through the plain twins;
+    f32, K1's f32 limits."""
+    import torch
+
+    from seedvc_tpu_torch.nn.layers import Attention, rope_cache, rope_full_cache
+
+    atol, rtol = K1_TOL["float32"]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((2, T, 512), generator=g, device="cuda")
+    freqs = torch.from_numpy(rope_cache(T, 64)).cuda()
+    lens = torch.tensor([T - T // 7, T // 2], dtype=torch.int32, device="cuda")
+    for n_kv, key in ((None, "k1"), (2, "k3")):
+        torch.manual_seed(0)
+        m = Attention(512, 8, n_local_heads=n_kv, use_flash=True).cuda()
+        rope_full = None if n_kv else tuple(torch.from_numpy(a).cuda()
+                                            for a in rope_full_cache(T, 64))
+        reset_counts()
+        with torch.no_grad():
+            out = m(x, freqs, lens, rope_full)
+            counts = read_counts()
+            with plain_twins():
+                ref = m(x, freqs, lens, rope_full)
+        err, rel = k1_errors(out, ref)
+        expect = {"k1": 0, "k2": 0, "k3": 0, key: 1}
+        log(f"Attention(use_flash) T={T} {n_kv or 8} KV heads f32: launches {counts}, "
+            f"max_abs_err {err:.3e} tol {atol:g}, rel_l2 {rel:.3e} tol {rtol:g}")
+        if counts != expect:
+            fail(f"Attention at T={T}: launches {counts}, expected {expect}")
+        if not (err <= atol and rel <= rtol):
+            fail(f"Attention at T={T}: kernels and plain twins disagree")
 
 
 def main_path_shapes():
@@ -204,38 +238,54 @@ def reset_counts():
     from seedvc_tpu_torch.ops import anti_alias, attention
 
     attention.LAUNCHES = 0
+    attention.DIT_ATTENTION_LAUNCHES = 0
     anti_alias.LAUNCHES = 0
 
 
 def read_counts() -> dict:
     from seedvc_tpu_torch.ops import anti_alias, attention
 
-    return {"k1": attention.LAUNCHES, "k2": anti_alias.LAUNCHES}
+    return {"k1": attention.LAUNCHES, "k2": anti_alias.LAUNCHES,
+            "k3": attention.DIT_ATTENTION_LAUNCHES}
 
 
 SMALL_TOL = 2e-3  # f16 output wave: one f16 step near 1.0 is 4.9e-4
 
 
-def small_converter(device: str, dtype=None):
+def small_converter(device: str, dtype=None, kv_heads=None):
+    """The small v1 converter, flash attention on (K1; the einsum path runs
+    no kernel). With ``kv_heads`` its DiT has 4 query heads of 64 and a trunk
+    with that many KV heads, so its attention takes K3."""
+    import dataclasses
+
     import torch
 
     from seedvc_tpu_torch.core import config as c
     from seedvc_tpu_torch.models.bigvgan import BigVGANConfig
     from seedvc_tpu_torch.models.whisper import WhisperEncoderConfig
+    from seedvc_tpu_torch.nn.transformer import Transformer
     from seedvc_tpu_torch.pipelines.convert import VoiceConverter
 
+    heads = 2 if kv_heads is None else 4
     cfg = c.SeedVCConfig(model_params=c.ModelParams(
         length_regulator=c.LengthRegulatorConfig(channels=128, in_channels=64,
                                                  sampling_ratios=(1, 1)),
-        DiT=c.DiTConfig(hidden_dim=128, num_heads=2, depth=3, content_dim=128,
-                        final_layer_type="wavenet"),
+        DiT=c.DiTConfig(hidden_dim=64 * heads, num_heads=heads, depth=3, content_dim=128,
+                        final_layer_type="wavenet", use_flash_attention=True),
         wavenet=c.WavenetConfig(hidden_dim=64, num_layers=2)))
-    return VoiceConverter(
+    vc = VoiceConverter(
         cfg, whisper_cfg=WhisperEncoderConfig(d_model=64, n_layers=1, n_heads=4, ffn_dim=128),
         vocoder_cfg=BigVGANConfig(upsample_initial_channel=128, resblock_kernel_sizes=(3,),
                                   resblock_dilation_sizes=((1, 3),)),
         prompt_cap_frames=128, context_frames=512,
         compute_dtype=torch.float32 if dtype is None else dtype, seed=0, device=device)
+    if kv_heads is not None:
+        dit = vc.vc.cfm.estimator
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(1)
+            trunk = Transformer(dataclasses.replace(dit.transformer.cfg, n_local_heads=kv_heads))
+        dit.transformer = trunk.requires_grad_(False).eval().to(vc.device, vc.compute_dtype)
+    return vc
 
 
 @contextlib.contextmanager
@@ -244,13 +294,14 @@ def plain_twins():
     from seedvc_tpu_torch.nn import layers, snake
     from seedvc_tpu_torch.ops import anti_alias, attention
 
-    saved = layers.dit_attention_fused, snake.anti_alias_snake
+    saved = layers.dit_attention_fused, layers.dit_attention, snake.anti_alias_snake
     layers.dit_attention_fused = attention.dit_attention_fused_reference
+    layers.dit_attention = attention.dit_attention_reference
     snake.anti_alias_snake = anti_alias.anti_alias_snake_reference
     try:
         yield
     finally:
-        layers.dit_attention_fused, snake.anti_alias_snake = saved
+        layers.dit_attention_fused, layers.dit_attention, snake.anti_alias_snake = saved
 
 
 def compare_waves(what: str, a: np.ndarray, b: np.ndarray) -> tuple[float, float]:
@@ -261,6 +312,9 @@ def compare_waves(what: str, a: np.ndarray, b: np.ndarray) -> tuple[float, float
     return err, snr
 
 
+SMALL_STEPS, SMALL_DEPTH = 10, 3
+
+
 def phase_small():
     import torch
 
@@ -268,20 +322,26 @@ def phase_small():
     ref = synthetic_audio(1.5, 22050, 220.0, seed=2)
     noise = np.random.default_rng(3).standard_normal((512, 80)).astype(np.float32)
 
-    def run(device, dtype=None, twins=False):
-        vc = small_converter(device, dtype)
+    def run(device, dtype=None, twins=False, kv_heads=None):
+        vc = small_converter(device, dtype, kv_heads)
         reset_counts()
         with plain_twins() if twins else contextlib.nullcontext():
             _, wave, stats = vc.convert(
-                src, 22050, ref, 22050, diffusion_steps=10, cfg_rate=0.7,
+                src, 22050, ref, 22050, diffusion_steps=SMALL_STEPS, cfg_rate=0.7,
                 noise_fn=lambda s: torch.from_numpy(noise[: s[1]][None]))
         counts = read_counts()
         log(f"small conversion on {device} {vc.compute_dtype}"
+            f"{f' GQA {kv_heads} KV heads' if kv_heads else ''}"
             f"{' (plain twins)' if twins else ''}: {len(wave)} samples, "
             f"{stats['chunks']} chunks, launches {counts}")
-        ran_kernels = counts["k1"] > 0 and counts["k2"] > 0
-        if device == "cuda" and ran_kernels == twins:
-            fail(f"small cuda conversion launched the wrong code: {counts}")
+        attn, other = ("k1", "k3") if kv_heads is None else ("k3", "k1")
+        if device == "cuda" and not twins:
+            expect = stats["chunks"] * SMALL_STEPS * SMALL_DEPTH
+            if counts[attn] != expect or counts[other] != 0 or counts["k2"] == 0:
+                fail(f"small cuda conversion launched the wrong code: {counts}, "
+                     f"expected {attn} = {expect}, {other} = 0, k2 > 0")
+        elif any(counts.values()):
+            fail(f"small conversion through the plain twins launched kernels: {counts}")
         return wave
 
     err, snr = compare_waves("small f32 conversion", run("cpu"), run("cuda"))
@@ -293,12 +353,15 @@ def phase_small():
     # adds little to the DiT's residual stream, so this guards the call
     # (layout, masking lens, finite output), while a subtle fault such as a
     # dropped key tile is caught per kernel in phase 3
-    err, snr = compare_waves("small bf16 conversion", run("cuda", torch.bfloat16, twins=True),
-                             run("cuda", torch.bfloat16))
-    log(f"small bf16 conversion on cuda, kernels vs plain twins: max_abs_err {err:.3e} "
-        f"tol {SMALL_TOL:g}, SNR {snr:.1f} dB")
-    if not err <= SMALL_TOL:
-        fail("small bf16 conversion: kernels and plain twins disagree")
+    for kv_heads in (None, 2):
+        what = "small bf16" + ("" if kv_heads is None else f" GQA ({kv_heads} KV heads)")
+        err, snr = compare_waves(f"{what} conversion",
+                                 run("cuda", torch.bfloat16, True, kv_heads),
+                                 run("cuda", torch.bfloat16, False, kv_heads))
+        log(f"{what} conversion on cuda, kernels vs plain twins: max_abs_err {err:.3e} "
+            f"tol {SMALL_TOL:g}, SNR {snr:.1f} dB")
+        if not err <= SMALL_TOL:
+            fail(f"{what} conversion: kernels and plain twins disagree")
 
 
 def phase_full(card: str, profile: bool = False) -> dict:
@@ -319,7 +382,7 @@ def phase_full(card: str, profile: bool = False) -> dict:
     log(f"full: plan (prompt_cap, context, W) = {plan}")
     if plan[1:] != (MAIN_CONTEXT, MAIN_W):
         fail(f"unexpected plan {plan}")
-    expect = {"k1": MAIN_CHUNKS * 25 * vc.cfg.dit.depth, "k2": MAIN_CHUNKS * 109}
+    expect = {"k1": MAIN_CHUNKS * 25 * vc.cfg.dit.depth, "k2": MAIN_CHUNKS * 109, "k3": 0}
     result = {}
     # "warm" is the end-to-end number; "warm, stages synced" ends every stage
     # in a device synchronise so its stage times split the device time
@@ -378,10 +441,38 @@ def profile_conversion(vc, src, ref, sr, warm_wall: float):
         f"unprofiled warm wall {warm_wall:.3f} s (idle share {1 - busy / warm_wall:.3f})")
 
 
-def phase_kernel_line(errs: dict, full: dict) -> dict:
+# Kernel launches per call of each microbench component at full width
+# (13 DiT layers, 109 BigVGAN activations, 25 Euler steps); the rest none.
+MB_DEPTH, MB_ACTS, MB_STEPS = 13, 109, 25
+MB_LAUNCHES = {"attention": {"k3": 1}, "dit": {"k1": MB_DEPTH}, "vocoder": {"k2": MB_ACTS},
+               "serving": {"k1": MB_STEPS * MB_DEPTH}, "serving_b1": {"k1": MB_STEPS * MB_DEPTH},
+               "serving_b2": {"k1": MB_STEPS * MB_DEPTH}}
+
+
+def phase_microbench() -> dict:
+    """Every ported microbench component at full width; launch counts are
+    zeroed before and read after each, and must be calls x the plan."""
+    from seedvc_tpu_torch.apps import microbench as mb
+
+    counts = {}
+    for name, fn in mb.ALL.items():
+        reset_counts()
+        out = fn()
+        got = read_counts()
+        calls = sum(r["calls"] for r in (out if isinstance(out, list) else [out]))
+        expect = {k: MB_LAUNCHES.get(name, {}).get(k, 0) * calls for k in got}
+        log(f"  microbench {name}: {calls} calls, launches {got}")
+        if got != expect:
+            fail(f"microbench {name}: launches {got}, expected {expect}")
+        counts[name] = got
+    return counts
+
+
+def phase_kernel_line(errs: dict, full: dict, mb_counts: dict) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from seedvc_tpu_torch.core.profiling import cuda_time_ms
     from seedvc_tpu_torch.ops import anti_alias, attention
 
     # K1 at the main path's shape: CFG-stacked (2, 8, context, 64) bf16, keys
@@ -399,6 +490,17 @@ def phase_kernel_line(errs: dict, full: dict) -> dict:
     B, H, _, d = q.shape
     k1_bound, k1_by = bound(4.0 * d * T * H * n_valid * B, PEAK_BF16,
                             4 * B * H * T * d * 2 + 2 * T * d * 4 + B * 4)
+
+    # K3 at its entry point's shape: the microbench attention component,
+    # q/k/v (2, 8, 2560, 64) bf16 after RoPE, every key valid
+    T3 = 2560
+    q3, k3, v3, _, _, _ = _k1_inputs(T3, torch.bfloat16, None, seed=9)
+    k3_ms = cuda_time_ms(lambda: attention.dit_attention(q3, k3, v3))
+    k3_plain = cuda_time_ms(lambda: attention.dit_attention_reference(q3, k3, v3), iters=5)
+    k3_lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(q3, k3, v3))
+    k3_bound, k3_by = bound(4.0 * B * H * T3 * T3 * d, PEAK_BF16, 4 * B * H * T3 * d * 2)
+    log(f"K3 {tuple(q3.shape)} bf16 lens=None: kernel {k3_ms:.4f} ms, plain {k3_plain:.4f} ms, "
+        f"sdpa {k3_lib:.4f} ms, bound {k3_bound:.4f} ms ({k3_by})")
 
     # K2 at the main path's most frequent launch shape (stages 1-5 and the
     # post activation all move 6144*W elements); per-stage times printed too
@@ -437,6 +539,14 @@ def phase_kernel_line(errs: dict, full: dict) -> dict:
          "max_abs_err": errs["k2"], "tol": K2_TOL,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
+        {"name": "dit_attention", "route": "cuda",
+         "source": "seedvc_tpu_torch/csrc/attention.cu",
+         "replaces": "seedvc_tpu/ops/pallas/attention.py:247",
+         "shape": f"q/k/v {tuple(q3.shape)} bf16, lens None",
+         "launches": mb_counts["attention"]["k3"],
+         "max_abs_err": errs["k3"], "tol": K1_TOL["bfloat16"][0],
+         "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": k3_lib},
     ]}
 
 
@@ -456,7 +566,8 @@ def main(argv=None) -> int:
     errs = phase_kernels()
     phase_small()
     full = phase_full(card, args.profile)
-    line = phase_kernel_line(errs, full)
+    mb_counts = phase_microbench()
+    line = phase_kernel_line(errs, full, mb_counts)
     log(card)
     print(json.dumps(line), flush=True)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

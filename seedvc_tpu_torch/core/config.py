@@ -95,8 +95,9 @@ class DiTConfig:
     # RoPE base used by the gpt-fast transformer (reference default, `:61`).
     rope_base: float = 10000.0
     norm_eps: float = 1e-5
-    # Kept so configs match the JAX package's field for field; the port's
-    # attention always runs the fused kernel and reads none of these three.
+    # Attention branch (K1/K3 kernels or einsum, see nn.layers.Attention).
+    # The block sizes are kept so configs match the JAX package's field for
+    # field; the port's kernels read neither.
     use_flash_attention: bool = False
     flash_block_q: int = 1024
     flash_block_k: int = 512

@@ -1,9 +1,18 @@
-"""Per-stage wall-clock accounting for the pipelines."""
+"""Stage timing and device timing (port of ``seedvc_tpu/core/profiling.py``).
+
+- :class:`StageTimer`: per-stage wall-clock accounting for the pipelines,
+  each stage also a named span in a ``torch.profiler`` trace;
+- :func:`annotate`: a named span (``torch.profiler.record_function``);
+- :func:`probe_ready`: wait for a tensor's device work to finish;
+- :func:`cuda_time_ms`: a function's device time per call, by CUDA events.
+"""
 
 from __future__ import annotations
 
 import contextlib
 import time
+
+import torch
 
 
 class StageTimer:
@@ -23,7 +32,8 @@ class StageTimer:
     def __call__(self, stage: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with annotate(stage):
+                yield
         finally:
             self._acc[stage] = self._acc.get(stage, 0.0) + time.perf_counter() - t0
             self._calls[stage] = self._calls.get(stage, 0) + 1
@@ -31,3 +41,33 @@ class StageTimer:
     def report(self) -> dict:
         return {stage: {"seconds": self._acc[stage], "calls": self._calls[stage]}
                 for stage in self._acc}
+
+
+def probe_ready(x):
+    """Wait until the device work behind ``x`` has finished (a device
+    synchronise for a CUDA tensor; nothing otherwise). Returns ``x``."""
+    if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+        torch.cuda.synchronize(x.device)
+    return x
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """Named span inside a ``torch.profiler`` trace (cheap when none runs)."""
+    with torch.profiler.record_function(name):
+        yield
+
+
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds per call of ``fn`` over ``iters`` calls
+    bracketed by CUDA events, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters

@@ -1,18 +1,29 @@
-// DiT attention with in-kernel interleaved-pair RoPE, for Hopper (sm_90a).
+// DiT attention for Hopper (sm_90a), with or without in-kernel
+// interleaved-pair RoPE (a compile-time ROPE flag on both kernels).
 //
-// Replaces the TPU kernel seedvc_tpu/ops/pallas/attention.py::dit_attention_fused
-// (body _attn_kernel_v2). Same function: q and k are roped in fp32 from the
+// ROPE on replaces the TPU kernel seedvc_tpu/ops/pallas/attention.py::
+// dit_attention_fused (body _attn_kernel_v2): q and k are roped in fp32 from the
 // (T, d) cos / signed-sin caches, q is scaled by 1/sqrt(d) and rounded to the
-// input type, logits are fp32, keys >= lens[b] get a -1e30 bias, the softmax is
-// fp32 with its normalisation deferred to the output, and P is rounded to the
-// input type before the P.V product, which sums in fp32.
+// input type. ROPE off replaces seedvc_tpu/ops/pallas/attention.py::
+// dit_attention (body _attn_kernel): q/k arrive roped, the Q and K tiles are
+// plain 16-byte copies, no cos/sin pointer is read, and q is scaled by
+// 1/sqrt(d) = 2^-3 as it is copied. The TPU kernel scales the fp32 logits
+// instead; at head_dim 64 the scale is a power of two, so folding it into q
+// is exact and the two agree bit for bit. In both modes logits are fp32, keys
+// >= lens[b] get a -1e30 bias, the softmax is fp32 with its normalisation
+// deferred to the output, and P is rounded to the input type before the P.V
+// product, which sums in fp32. The rounding order is therefore not the TPU
+// K3's: _attn_kernel divides P by the full row sum and then rounds it to bf16,
+// while this kernel rounds the unnormalised exp(s - m_running) and divides the
+// fp32 output at the end (the TPU K1 defers it too, after a global max).
 //
-// Design. The TPU kernel keeps one head's whole K and V resident in VMEM; at
+// Design. The TPU kernels keep one head's whole K and V resident in VMEM; at
 // T = 2560, d = 64 that is 320 KB of bf16 for K alone, more than the 227 KB of
 // shared memory a Hopper block may use. So this kernel streams K/V: one block
 // per (batch*head, 64-row query tile) loops over 64-key tiles with an online
 // softmax (running max and sum in fp32, started at -1e30 so exp(m_old - m_new)
-// never sees inf - inf). Each key tile is roped as it enters shared memory.
+// never sees inf - inf). With ROPE on, each key tile is roped as it enters
+// shared memory.
 //
 // Bound: 4*B*H*T^2*d operations (17.2 GFLOP at (2, 8, 2048, 64)) against 8.4 MB
 // of q/k/v/o, so the work is compute-bound and belongs on the tensor cores.
@@ -20,12 +31,12 @@
 // with mma.sync m16n8k16 (bf16 in, fp32 accumulate): 4 warps per block, each
 // owning 16 query rows; S, P and the running output stay in registers (the S
 // accumulator re-packs into P's A fragment), so the online-softmax rescale is
-// a per-register multiply. K is roped and V transposed into shared memory
-// once per key tile for all four warps. The fp32 kernel (used by tests and
-// parity runs) keeps scalar fp32 FMAs: 256 threads, each owning a 4x4 patch of
-// the 64x64 logit and output tiles (rows ty + 16*i, columns tx + 16*j), so shared-memory
-// reads are broadcasts along one index and conflict-free along the other.
-// wgmma/TMA pipelining is later work.
+// a per-register multiply. K is loaded (and roped) and V transposed into
+// shared memory once per key tile for all four warps. The fp32 kernel (used by
+// tests and parity runs) keeps scalar fp32 FMAs: 256 threads, each owning a
+// 4x4 patch of the 64x64 logit and output tiles (rows ty + 16*i, columns
+// tx + 16*j), so shared-memory reads are broadcasts along one index and
+// conflict-free along the other. wgmma/TMA pipelining is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,14 +52,15 @@ constexpr int LD = D + 1;  // padded row stride of the shared tiles
 constexpr float NEG = -1e30f;
 constexpr size_t SMEM_BYTES = sizeof(float) * (BQ * LD + BK * LD + BK * D + BQ * LD);
 
+template <bool ROPE>
 __global__ void __launch_bounds__(NT)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ cosb,
                 const float* __restrict__ sinb, const int* __restrict__ lens,
                 float* __restrict__ out, int H, int T_len, float scale) {
   extern __shared__ float smem[];
-  float* Qs = smem;            // [BQ][LD] roped, scaled q
-  float* Ks = Qs + BQ * LD;    // [BK][LD] roped k
+  float* Qs = smem;            // [BQ][LD] (roped,) scaled q
+  float* Ks = Qs + BQ * LD;    // [BK][LD] (roped) k
   float* Vs = Ks + BK * LD;    // [BK][D]
   float* Ps = Vs + BK * D;     // [BQ][LD] probabilities of this key tile
 
@@ -66,7 +78,10 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float val = 0.f;
     if (t < T_len) {
       const float* row = q + base + (size_t)t * D;
-      val = (row[dd] * cosb[t * D + dd] + row[dd ^ 1] * sinb[t * D + dd]) * scale;
+      if constexpr (ROPE)
+        val = (row[dd] * cosb[t * D + dd] + row[dd ^ 1] * sinb[t * D + dd]) * scale;
+      else
+        val = row[dd] * scale;
     }
     Qs[r * LD + dd] = val;
   }
@@ -89,7 +104,10 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float kval = 0.f, vval = 0.f;
       if (t < T_len) {
         const float* row = k + base + (size_t)t * D;
-        kval = row[dd] * cosb[t * D + dd] + row[dd ^ 1] * sinb[t * D + dd];
+        if constexpr (ROPE)
+          kval = row[dd] * cosb[t * D + dd] + row[dd ^ 1] * sinb[t * D + dd];
+        else
+          kval = row[dd];
         vval = v[base + (size_t)t * D + dd];
       }
       Ks[c * LD + dd] = kval;
@@ -229,13 +247,38 @@ __device__ __forceinline__ void rope8(const bf16* row, const float* cosb, const 
   *reinterpret_cast<uint4*>(dst) = res;
 }
 
+// Features d0..d0+7 of row t into shared memory: roped (ROPE) or a plain
+// 16-byte copy; times scale (exact for a power of two); zeros past the end.
+template <bool ROPE>
+__device__ __forceinline__ void load8(const bf16* row, const float* cosb, const float* sinb,
+                                      int t, int d0, float scale, bool valid, bf16* dst) {
+  if constexpr (ROPE) {
+    rope8(row, cosb, sinb, t, d0, scale, valid, dst);
+  } else {
+    uint4 res = make_uint4(0, 0, 0, 0);
+    if (valid) {
+      res = *reinterpret_cast<const uint4*>(row + d0);
+      if (scale != 1.f) {
+        const bf16* x = reinterpret_cast<const bf16*>(&res);
+        uint32_t o[4];
+#pragma unroll
+        for (int i = 0; i < 8; i += 2)
+          o[i / 2] = pack_bf16(__bfloat162float(x[i]) * scale, __bfloat162float(x[i + 1]) * scale);
+        res = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    }
+    *reinterpret_cast<uint4*>(dst) = res;
+  }
+}
+
+template <bool ROPE>
 __global__ void __launch_bounds__(MNT)
 attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const float* __restrict__ cosb,
                     const float* __restrict__ sinb, const int* __restrict__ lens,
                     bf16* __restrict__ out, int H, int T_len, float scale) {
-  __shared__ __align__(16) bf16 Qs[BQ * LDK];  // roped, scaled q
-  __shared__ __align__(16) bf16 Ks[BK * LDK];  // roped k, [key][d]
+  __shared__ __align__(16) bf16 Qs[BQ * LDK];  // (roped,) scaled q
+  __shared__ __align__(16) bf16 Ks[BK * LDK];  // (roped) k, [key][d]
   __shared__ __align__(16) bf16 Vt[D * LDK];   // v transposed, [d][key]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -248,7 +291,8 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int idx = tid; idx < BQ * 8; idx += MNT) {
     const int r = idx >> 3, d0 = (idx & 7) * 8, t = q0 + r;
-    rope8(q + base + (size_t)t * D, cosb, sinb, t, d0, scale, t < T_len, Qs + r * LDK + d0);
+    load8<ROPE>(q + base + (size_t)t * D, cosb, sinb, t, d0, scale, t < T_len,
+                Qs + r * LDK + d0);
   }
   __syncthreads();
 
@@ -273,7 +317,8 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // every warp is done with the previous K/V tile
     for (int idx = tid; idx < BK * 8; idx += MNT) {
       const int key = idx >> 3, d0 = (idx & 7) * 8, t = k0 + key;
-      rope8(k + base + (size_t)t * D, cosb, sinb, t, d0, 1.f, t < T_len, Ks + key * LDK + d0);
+      load8<ROPE>(k + base + (size_t)t * D, cosb, sinb, t, d0, 1.f, t < T_len,
+                  Ks + key * LDK + d0);
     }
     for (int idx = tid; idx < BK * 8; idx += MNT) {
       const int key = idx & (BK - 1), d0 = (idx / BK) * 8, t = k0 + key;
@@ -375,25 +420,27 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <bool ROPE>
 int launch_mma(const void* q, const void* k, const void* v, const float* cosb,
                const float* sinb, const int* lens, void* out, int B, int H, int T_len,
                void* stream) {
   dim3 grid((T_len + BQ - 1) / BQ, B * H);
-  attn_fwd_mma_kernel<<<grid, MNT, 0, (cudaStream_t)stream>>>(
+  attn_fwd_mma_kernel<ROPE><<<grid, MNT, 0, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, cosb, sinb, lens, (bf16*)out, H, T_len,
       0.125f /* 1/sqrt(64) */);
   return (int)cudaGetLastError();
 }
 
+template <bool ROPE>
 int launch_f32(const void* q, const void* k, const void* v, const float* cosb,
                const float* sinb, const int* lens, void* out, int B, int H, int T_len,
                void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<ROPE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T_len + BQ - 1) / BQ, B * H);
-  attn_fwd_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
+  attn_fwd_kernel<ROPE><<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, cosb, sinb, lens, (float*)out, H, T_len,
       0.125f /* 1/sqrt(64) */);
   return (int)cudaGetLastError();
@@ -401,14 +448,26 @@ int launch_f32(const void* q, const void* k, const void* v, const float* cosb,
 
 }  // namespace
 
+// K1: q/k before RoPE, roped in the kernel from the (T, 64) cos / signed-sin caches.
 extern "C" int dit_attention_fused_bf16(const void* q, const void* k, const void* v,
                                         const float* cosb, const float* sinb, const int* lens,
                                         void* out, int B, int H, int T_len, void* stream) {
-  return launch_mma(q, k, v, cosb, sinb, lens, out, B, H, T_len, stream);
+  return launch_mma<true>(q, k, v, cosb, sinb, lens, out, B, H, T_len, stream);
 }
 
 extern "C" int dit_attention_fused_f32(const void* q, const void* k, const void* v,
                                        const float* cosb, const float* sinb, const int* lens,
                                        void* out, int B, int H, int T_len, void* stream) {
-  return launch_f32(q, k, v, cosb, sinb, lens, out, B, H, T_len, stream);
+  return launch_f32<true>(q, k, v, cosb, sinb, lens, out, B, H, T_len, stream);
+}
+
+// K3: q/k already roped; no cos/sin.
+extern "C" int dit_attention_bf16(const void* q, const void* k, const void* v, const int* lens,
+                                  void* out, int B, int H, int T_len, void* stream) {
+  return launch_mma<false>(q, k, v, nullptr, nullptr, lens, out, B, H, T_len, stream);
+}
+
+extern "C" int dit_attention_f32(const void* q, const void* k, const void* v, const int* lens,
+                                 void* out, int B, int H, int T_len, void* stream) {
+  return launch_f32<false>(q, k, v, nullptr, nullptr, lens, out, B, H, T_len, stream);
 }

@@ -71,7 +71,8 @@ class DiT(nn.Module):
         self.transformer = Transformer(TransformerConfig(
             dim=dc.hidden_dim, n_layer=dc.depth, n_head=dc.num_heads,
             head_dim=dc.hidden_dim // dc.num_heads, rope_base=dc.rope_base,
-            norm_eps=dc.norm_eps, uvit_skip_connection=dc.uvit_skip_connection))
+            norm_eps=dc.norm_eps, uvit_skip_connection=dc.uvit_skip_connection,
+            use_flash=dc.use_flash_attention))
         if dc.long_skip_connection:
             self.skip_linear = nn.Linear(dc.hidden_dim + C, dc.hidden_dim)
         if dc.final_layer_type == "wavenet":

@@ -5,8 +5,10 @@ fused-QKV attention, SwiGLU FFN, 2-parameter adaptive RMS norm, sinusoidal
 timestep embedder with scale 1000. Submodule names follow the flax ones so
 ``seedvc_tpu_torch.weights.load_jax_params`` can walk a flax tree onto them.
 
-``Attention`` always goes through ``ops.attention.dit_attention_fused``: the
-CUDA kernel for CUDA tensors, its plain twin for CPU tensors.
+``Attention`` follows the JAX package's branch rule: K1
+(``ops.attention.dit_attention_fused``), K3 (``ops.attention.dit_attention``)
+or the einsum path. The kernels' wrappers send CPU tensors to their plain
+twins, so the branch taken does not depend on the device.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from seedvc_tpu_torch.ops.attention import dit_attention_fused
+from seedvc_tpu_torch.ops.attention import dit_attention, dit_attention_fused
 
 
 class RMSNorm(nn.Module):
@@ -82,33 +84,56 @@ def apply_rope(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    """Fused-QKV multi-head attention with in-kernel RoPE and key padding.
+    """Fused-QKV multi-head attention with grouped KV heads and key padding.
 
-    Grouped KV heads (GQA) reach a different TPU kernel (``dit_attention``,
-    K3) that is not ported; no preset uses them.
+    With ``use_flash``: K1 (RoPE in the kernel) when the heads are not
+    grouped and ``rope_full`` is given, else RoPE here and K3. Otherwise the
+    einsum path: fp32 logits and softmax, probabilities cast to the input
+    type before P.V. The JAX package also needs ``T % 512 == 0`` for its
+    Pallas tiles; K1 and K3 mask keys >= T, so any T takes the kernels here.
     """
 
     def __init__(self, dim: int, n_head: int, n_local_heads: int | None = None,
-                 head_dim: int | None = None):
+                 head_dim: int | None = None, use_flash: bool = False):
         super().__init__()
-        if (n_local_heads or n_head) != n_head:
-            raise NotImplementedError("grouped KV heads (GQA) are not ported")
         self.n_head = n_head
+        self.n_kv = n_local_heads or n_head
         self.head_dim = head_dim or dim // n_head
-        self.wqkv = nn.Linear(dim, 3 * n_head * self.head_dim, bias=False)
+        self.use_flash = use_flash
+        self.wqkv = nn.Linear(dim, (n_head + 2 * self.n_kv) * self.head_dim, bias=False)
         self.wo = nn.Linear(n_head * self.head_dim, dim, bias=False)
 
-    def forward(self, x: torch.Tensor, rope_full: tuple[torch.Tensor, torch.Tensor],
-                lens: Optional[torch.Tensor]) -> torch.Tensor:
-        """x: (B, T, dim); rope_full: (T, head_dim) f32 cos/sin; lens: (B,)
-        int32 valid key counts or None."""
+    def forward(self, x: torch.Tensor, freqs: torch.Tensor, lens: Optional[torch.Tensor],
+                rope_full: Optional[tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        """x: (B, T, dim); freqs: (T, head_dim//2, 2) f32 from ``rope_cache``;
+        lens: (B,) int32 valid key counts or None; rope_full: (T, head_dim)
+        f32 cos/sin from ``rope_full_cache``, or None."""
         B, T, _ = x.shape
-        H, hd = self.n_head, self.head_dim
-        q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2).contiguous()
-                   for t in self.wqkv(x).split(H * hd, dim=-1))
-        cos, sin = rope_full
-        out = dit_attention_fused(q, k, v, cos, sin, lens)
-        return self.wo(out.transpose(1, 2).reshape(B, T, H * hd))
+        H, Hkv, hd = self.n_head, self.n_kv, self.head_dim
+        q, k, v = self.wqkv(x).split([H * hd, Hkv * hd, Hkv * hd], dim=-1)
+        if self.use_flash and Hkv == H and rope_full is not None:
+            q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2).contiguous() for t in (q, k, v))
+            out = dit_attention_fused(q, k, v, *rope_full, lens).transpose(1, 2)
+            return self.wo(out.reshape(B, T, H * hd))
+
+        q = apply_rope(q.reshape(B, T, H, hd), freqs)
+        k = apply_rope(k.reshape(B, T, Hkv, hd), freqs)
+        v = v.reshape(B, T, Hkv, hd)
+        if Hkv != H:  # [kv0, kv0, kv1, kv1, ...], as jnp.repeat on the head axis
+            k = k.repeat_interleave(H // Hkv, dim=2)
+            v = v.repeat_interleave(H // Hkv, dim=2)
+        if self.use_flash:
+            q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            out = dit_attention(q, k, v, lens).transpose(1, 2)
+        else:
+            logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
+            if lens is not None:
+                valid = torch.arange(T, device=x.device)[None, :] < lens[:, None]
+                logits = logits.masked_fill(~valid[:, None, None, :],
+                                            torch.finfo(torch.float32).min)
+            probs = torch.softmax(logits, dim=-1).to(x.dtype)
+            out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(x.dtype)
+        return self.wo(out.reshape(B, T, H * hd))
 
 
 class FeedForward(nn.Module):

@@ -1,9 +1,10 @@
 """U-ViT transformer trunk of the v1 DiT (port of ``seedvc_tpu/nn/transformer.py``).
 
-Per block: AdaptiveRMSNorm conditioned on the time embedding, RoPE attention,
-SwiGLU FFN. U-ViT skips: blocks i < n_layer//2 push their outputs on a stack,
-blocks i > n_layer//2 pop one (LIFO) and mix it in through ``skip_in_linear``.
-The final norm is adaptive as well.
+Per block: AdaptiveRMSNorm conditioned on the time embedding, RoPE attention
+(K1, K3 or einsum, see ``nn.layers.Attention``), SwiGLU FFN. U-ViT skips:
+blocks i < n_layer//2 push their outputs on a stack, blocks i > n_layer//2
+pop one (LIFO) and mix it in through ``skip_in_linear``. The final norm is
+adaptive as well.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 from torch import nn
 
 from seedvc_tpu_torch.nn.layers import (AdaptiveRMSNorm, Attention, FeedForward,
-                                        ffn_intermediate_size, rope_full_cache)
+                                        ffn_intermediate_size, rope_cache, rope_full_cache)
 
 
 @dataclass(frozen=True)
@@ -28,6 +29,7 @@ class TransformerConfig:
     rope_base: float = 10000.0
     norm_eps: float = 1e-5
     uvit_skip_connection: bool = False
+    use_flash: bool = False
 
 
 class TransformerBlock(nn.Module):
@@ -37,14 +39,15 @@ class TransformerBlock(nn.Module):
             self.skip_in_linear = nn.Linear(2 * cfg.dim, cfg.dim)
         self.receives_skip = receives_skip
         self.attention_norm = AdaptiveRMSNorm(cfg.dim, cfg.norm_eps)
-        self.attention = Attention(cfg.dim, cfg.n_head, cfg.n_local_heads, cfg.head_dim)
+        self.attention = Attention(cfg.dim, cfg.n_head, cfg.n_local_heads, cfg.head_dim,
+                                   use_flash=cfg.use_flash)
         self.ffn_norm = AdaptiveRMSNorm(cfg.dim, cfg.norm_eps)
         self.feed_forward = FeedForward(cfg.dim, ffn_intermediate_size(cfg.dim))
 
-    def forward(self, x, c, rope_full, lens, skip_in=None):
+    def forward(self, x, c, freqs, lens, skip_in=None, rope_full=None):
         if self.receives_skip and skip_in is not None:
             x = self.skip_in_linear(torch.cat([x, skip_in], dim=-1))
-        h = x + self.attention(self.attention_norm(x, c), rope_full, lens)
+        h = x + self.attention(self.attention_norm(x, c), freqs, lens, rope_full)
         return h + self.feed_forward(self.ffn_norm(h, c))
 
 
@@ -60,19 +63,33 @@ class Transformer(nn.Module):
         for i in range(cfg.n_layer):
             self.add_module(f"layers_{i}", TransformerBlock(cfg, receives_skip=i in self.recv))
         self.norm = AdaptiveRMSNorm(cfg.dim, cfg.norm_eps)
+        self._rope: dict = {}
+
+    def rope_tables(self, T: int, device: torch.device):
+        """(freqs, rope_full) for length T on ``device``, made once each:
+        rope_full only where K1 can use it (flash, heads not grouped)."""
+        key = (T, device)
+        if key not in self._rope:
+            cfg = self.cfg
+            head_dim = cfg.head_dim or cfg.dim // cfg.n_head
+            freqs = torch.from_numpy(rope_cache(T, head_dim, cfg.rope_base)).to(device)
+            rope_full = None
+            if cfg.use_flash and (cfg.n_local_heads or cfg.n_head) == cfg.n_head:
+                rope_full = tuple(torch.from_numpy(a).to(device)
+                                  for a in rope_full_cache(T, head_dim, cfg.rope_base))
+            self._rope[key] = freqs, rope_full
+        return self._rope[key]
 
     def forward(self, x: torch.Tensor, c: torch.Tensor,
                 lens: Optional[torch.Tensor]) -> torch.Tensor:
         """x: (B, T, D); c: (B, 1, D) time embedding; lens: (B,) int32 valid
         key counts or None (every key valid)."""
         cfg = self.cfg
-        head_dim = cfg.head_dim or cfg.dim // cfg.n_head
-        rope_full = tuple(torch.from_numpy(a).to(x.device)
-                          for a in rope_full_cache(x.shape[1], head_dim, cfg.rope_base))
+        freqs, rope_full = self.rope_tables(x.shape[1], x.device)
         skips: list[torch.Tensor] = []
         for i in range(cfg.n_layer):
             skip_in = skips.pop() if i in self.recv and skips else None
-            x = getattr(self, f"layers_{i}")(x, c, rope_full, lens, skip_in)
+            x = getattr(self, f"layers_{i}")(x, c, freqs, lens, skip_in, rope_full)
             if i in self.emit:
                 skips.append(x)
         return self.norm(x, c)

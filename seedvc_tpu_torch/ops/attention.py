@@ -1,21 +1,29 @@
-"""DiT attention with in-kernel RoPE: the CUDA kernel's wrapper and its plain twin.
+"""DiT attention: the CUDA kernel's wrappers and their plain twins.
 
-Replaces ``seedvc_tpu/ops/pallas/attention.py::dit_attention_fused`` (TPU
-kernel body ``_attn_kernel_v2``). The kernel is
-``seedvc_tpu_torch/csrc/attention.cu``:
+One kernel source, ``seedvc_tpu_torch/csrc/attention.cu``, with a
+compile-time RoPE flag, replaces two TPU kernels:
 
-- what bounds it on the H100: operations. 4·B·H·T²·d products against
+- K1 :func:`dit_attention_fused` replaces
+  ``seedvc_tpu/ops/pallas/attention.py::dit_attention_fused`` (body
+  ``_attn_kernel_v2``): q/k arrive before RoPE and are roped in the kernel.
+  Plain twin: :func:`dit_attention_fused_reference`.
+- K3 :func:`dit_attention` replaces
+  ``seedvc_tpu/ops/pallas/attention.py::dit_attention`` (body
+  ``_attn_kernel``): q/k arrive roped. Plain twin:
+  :func:`dit_attention_reference`.
+
+- what bounds them on the H100: operations. 4·B·H·T²·d products against
   8·B·H·T·d bytes of bf16 q/k/v/o (17.2 GFLOP vs 8.4 MB at the main-path
   shape (2, 8, 2048, 64)).
-- what the design does about it: the TPU kernel keeps a head's whole K/V in
+- what the design does about it: the TPU kernels keep a head's whole K/V in
   VMEM, which does not fit in Hopper's 227 KB of shared memory at T = 2560, so
-  the CUDA kernel streams 64-key tiles with an online softmax and ropes each
-  tile as it is loaded; nothing (T, T)-sized touches device memory. The bf16
-  path runs both products on the tensor cores (``mma.sync`` m16n8k16) with
-  S, P and O in registers; the f32 path uses scalar FMAs.
+  the CUDA kernel streams 64-key tiles with an online softmax (roping each
+  tile as it is loaded when RoPE is on); nothing (T, T)-sized touches device
+  memory. The bf16 path runs both products on the tensor cores (``mma.sync``
+  m16n8k16) with S, P and O in registers; the f32 path uses scalar FMAs.
 
-A CPU tensor goes to :func:`dit_attention_fused_reference`; a CUDA tensor
-launches the kernel or raises.
+A CPU tensor goes to the plain twin; a CUDA tensor launches the kernel or
+raises. ``LAUNCHES`` counts K1's launches, ``DIT_ATTENTION_LAUNCHES`` K3's.
 """
 
 from __future__ import annotations
@@ -30,17 +38,24 @@ from seedvc_tpu_torch.ops.build import load_library
 NEG_INF = -1e30
 HEAD_DIM = 64
 LAUNCHES = 0
+DIT_ATTENTION_LAUNCHES = 0
 
 _P = ctypes.c_void_p
-_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+_I = ctypes.c_int
+_SIGNATURES = {
+    "dit_attention_fused_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "dit_attention_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "dit_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "dit_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
 
 
-def _lib():
+def _kernel(name: str):
     lib = load_library("attention")
-    for fn in (lib.dit_attention_fused_bf16, lib.dit_attention_fused_f32):
-        fn.argtypes = _SIGNATURE
-        fn.restype = ctypes.c_int
-    return lib
+    fn = getattr(lib, name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _pair_swap(x: torch.Tensor) -> torch.Tensor:
@@ -72,45 +87,72 @@ def dit_attention_fused_reference(q, k, v, cos, sin, lens=None):
     return dit_attention_reference(rope(q), rope(k), v, lens)
 
 
+def _check(op: str, q, k, v, lens, extra=()):
+    """Shapes, dtypes, devices, contiguity and alignment the kernel takes."""
+    B, H, T, d = q.shape
+    if d != HEAD_DIM:
+        raise ValueError(f"{op}: head_dim must be {HEAD_DIM}, got {d}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{op}: unsupported dtype {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{op}: {name} does not match q")
+    for name, t in extra:
+        if t.shape != (T, d) or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"{op}: {name} must be ({T}, {d}) f32 on {q.device}")
+    if lens is not None:
+        if lens.shape != (B,) or lens.dtype != torch.int32 or lens.device != q.device:
+            raise ValueError(f"{op}: lens must be ({B},) int32 on {q.device}")
+        if not lens.is_contiguous():
+            raise ValueError(f"{op}: lens must be contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{op}: {name} must be contiguous and 16-byte aligned")
+
+
+def _launch(op: str, fn, q, pointers, lens) -> torch.Tensor:
+    B, H, T, _ = q.shape
+    out = torch.empty_like(q)
+    err = fn(*pointers, None if lens is None else lens.data_ptr(), out.data_ptr(),
+             B, H, T, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{op}: CUDA launch failed (error {err})")
+    return out
+
+
 def dit_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         cos: torch.Tensor, sin: torch.Tensor,
                         lens: torch.Tensor | None = None) -> torch.Tensor:
-    """q/k/v: (B, H, T, 64) bf16 or f32, before RoPE; cos/sin: (T, 64) f32
-    from ``rope_full_cache``; lens: (B,) valid key counts or None.
+    """K1. q/k/v: (B, H, T, 64) bf16 or f32, before RoPE; cos/sin: (T, 64)
+    f32 from ``rope_full_cache``; lens: (B,) valid key counts or None.
     Returns (B, H, T, 64) in q's dtype."""
     if q.device.type == "cpu":
         return dit_attention_fused_reference(q, k, v, cos, sin, lens)
     if q.device.type != "cuda":
         raise ValueError(f"dit_attention_fused: unsupported device {q.device}")
-    B, H, T, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"dit_attention_fused: head_dim must be {HEAD_DIM}, got {d}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"dit_attention_fused: unsupported dtype {q.dtype}")
-    for name, t in (("k", k), ("v", v)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"dit_attention_fused: {name} does not match q")
-    for name, t in (("cos", cos), ("sin", sin)):
-        if t.shape != (T, d) or t.dtype != torch.float32 or t.device != q.device:
-            raise ValueError(f"dit_attention_fused: {name} must be ({T}, {d}) f32 on {q.device}")
-    if lens is not None:
-        if lens.shape != (B,) or lens.dtype != torch.int32 or lens.device != q.device:
-            raise ValueError(f"dit_attention_fused: lens must be ({B},) int32 on {q.device}")
-        if not lens.is_contiguous():
-            raise ValueError("dit_attention_fused: lens must be contiguous")
-    for name, t in (("q", q), ("k", k), ("v", v), ("cos", cos), ("sin", sin)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"dit_attention_fused: {name} must be contiguous and 16-byte aligned")
-
-    lib = _lib()
-    fn = (lib.dit_attention_fused_bf16 if q.dtype == torch.bfloat16
-          else lib.dit_attention_fused_f32)
-    out = torch.empty_like(q)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
-             sin.data_ptr(), None if lens is None else lens.data_ptr(),
-             out.data_ptr(), B, H, T, torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dit_attention_fused: CUDA launch failed (error {err})")
+    _check("dit_attention_fused", q, k, v, lens, (("cos", cos), ("sin", sin)))
+    fn = _kernel("dit_attention_fused_bf16" if q.dtype == torch.bfloat16
+                 else "dit_attention_fused_f32")
+    out = _launch("dit_attention_fused", fn, q,
+                  (q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr()),
+                  lens)
     global LAUNCHES
     LAUNCHES += 1
+    return out
+
+
+def dit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  lens: torch.Tensor | None = None) -> torch.Tensor:
+    """K3. q/k/v: (B, H, T, 64) bf16 or f32, q/k already roped; lens: (B,)
+    valid key counts or None (every key valid). Returns (B, H, T, 64) in
+    q's dtype."""
+    if q.device.type == "cpu":
+        return dit_attention_reference(q, k, v, lens)
+    if q.device.type != "cuda":
+        raise ValueError(f"dit_attention: unsupported device {q.device}")
+    _check("dit_attention", q, k, v, lens)
+    fn = _kernel("dit_attention_bf16" if q.dtype == torch.bfloat16 else "dit_attention_f32")
+    out = _launch("dit_attention", fn, q, (q.data_ptr(), k.data_ptr(), v.data_ptr()), lens)
+    global DIT_ATTENTION_LAUNCHES
+    DIT_ATTENTION_LAUNCHES += 1
     return out

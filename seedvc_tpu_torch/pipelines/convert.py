@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from seedvc_tpu_torch.core.config import SeedVCConfig, get_preset
-from seedvc_tpu_torch.core.profiling import StageTimer
+from seedvc_tpu_torch.core.profiling import StageTimer, probe_ready
 from seedvc_tpu_torch.dsp.fbank import kaldi_fbank
 from seedvc_tpu_torch.dsp.mel import MelFrontend
 from seedvc_tpu_torch.dsp.resample import resample_host
@@ -267,12 +267,9 @@ class VoiceConverter:
         ``profile=True`` every stage ends in a device synchronise, so
         ``stats['stages']`` attributes device time to stages."""
         timer = StageTimer()
-        on_cuda = self.device.type == "cuda"
 
         def sync(x):
-            if profile and on_cuda:
-                torch.cuda.synchronize(self.device)
-            return x
+            return probe_ready(x) if profile else x
 
         t_start = time.time()
         with timer("resample"):

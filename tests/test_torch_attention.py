@@ -1,10 +1,11 @@
-"""Port K1 (seedvc_tpu_torch/ops/attention.py) against the JAX package.
+"""Port K1 and K3 (seedvc_tpu_torch/ops/attention.py) against the JAX package.
 
-The port's plain twin is held to the JAX Pallas kernel ``dit_attention_fused``
-run in interpret mode on the CPU (same shapes and block_q as
-tests/test_pallas_attention.py); the port's ``Attention`` module to the JAX
-one with the same weights. The CUDA kernel itself is held to the twin in
-tests/test_torch_cuda.py, on the card.
+The port's plain twins are held to the JAX Pallas kernels
+``dit_attention_fused`` (K1) and ``dit_attention`` (K3) run in interpret mode
+on the CPU (same shapes and block_q as tests/test_pallas_attention.py); the
+port's ``Attention`` module to the JAX one with the same weights, on each of
+its three branches and with grouped KV heads. The CUDA kernels themselves are
+held to the twins in tests/test_torch_cuda.py, on the card.
 """
 
 import jax
@@ -16,7 +17,9 @@ import torch
 from seedvc_tpu.nn.layers import Attention as JAttention
 from seedvc_tpu.nn.layers import rope_cache as j_rope_cache
 from seedvc_tpu.nn.layers import rope_full_cache as j_rope_full_cache
+from seedvc_tpu.ops.pallas.attention import dit_attention as j_plain
 from seedvc_tpu.ops.pallas.attention import dit_attention_fused as j_fused
+from seedvc_tpu_torch.nn import layers
 from seedvc_tpu_torch.nn.layers import Attention, apply_rope, rope_cache, rope_full_cache
 from seedvc_tpu_torch.ops import attention as port
 from seedvc_tpu_torch.weights import load_jax_params
@@ -56,6 +59,29 @@ def test_twin_matches_jax_kernel_bf16():
                                atol=3e-2)
 
 
+@pytest.mark.parametrize("lens", [None, (200, 256)])
+def test_k3_twin_matches_jax_kernel_f32(lens):
+    """K3 (post-RoPE inputs), f32: summation order only -> 1e-5."""
+    q, k, v = _inputs(8, 2, 4, 256, 64, np.float32)
+    lens_j = None if lens is None else jnp.asarray(lens)
+    ref = j_plain(*(jnp.asarray(a) for a in (q, k, v)), lens_j, block_q=128)
+    out = port.dit_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                             None if lens is None else torch.tensor(lens))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def test_k3_twin_matches_jax_kernel_bf16():
+    """K3 in bf16: the TPU kernel rounds P to bf16, the twin keeps it fp32
+    -> the JAX file's bf16 tolerance 3e-2."""
+    q, k, v = _inputs(9, 1, 2, 256, 64, np.float32)
+    ref = j_plain(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), jnp.array([250]),
+                  block_q=128)
+    out = port.dit_attention(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+                             torch.tensor([250]))
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               atol=3e-2)
+
+
 def test_twin_ignores_padded_keys():
     q, k, v = (torch.from_numpy(a) for a in _inputs(5, 1, 2, 256, 64, np.float32))
     cos, sin = (torch.from_numpy(a) for a in rope_full_cache(256, 64))
@@ -85,26 +111,68 @@ def test_apply_rope_equals_full_cache_form():
     torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("lens", [None, (37, 64)])
-def test_attention_module_matches_jax(lens):
-    """Port Attention (twin on CPU) vs the JAX module's einsum path, same
-    weights, f32 -> 1e-5."""
-    B, T, dim, H = 2, 64, 128, 2
-    x = np.random.default_rng(7).standard_normal((B, T, dim)).astype(np.float32)
-    jm = JAttention(dim, H)
+def _module_case(dim, H, n_kv, flash, T, lens, seed=7):
+    """(port module, JAX output, port inputs) for one Attention case."""
+    B = 2
+    x = np.random.default_rng(seed).standard_normal((B, T, dim)).astype(np.float32)
+    jm = JAttention(dim, H, n_local_heads=n_kv, use_flash=flash)
     freqs = jnp.asarray(j_rope_cache(T, dim // H))
     mask = None
     if lens is not None:
         mask = (jnp.arange(T)[None, :] < jnp.asarray(lens)[:, None])[:, None, None, :]
     params = jax_init(jm, jnp.asarray(x), freqs, mask)
     ref = jm.apply({"params": params}, jnp.asarray(x), freqs, mask)
-    pm = load_jax_params(Attention(dim, H), params)
-    rope = tuple(torch.from_numpy(a) for a in rope_full_cache(T, dim // H))
-    out = pm(torch.from_numpy(x), rope,
-             None if lens is None else torch.tensor(lens, dtype=torch.int32))
-    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+    pm = load_jax_params(Attention(dim, H, n_local_heads=n_kv, use_flash=flash), params)
+    rope_full = None
+    if flash and n_kv is None:  # the trunk builds it only then, as the JAX one does
+        rope_full = tuple(torch.from_numpy(a) for a in rope_full_cache(T, dim // H))
+    args = (torch.from_numpy(x), torch.from_numpy(rope_cache(T, dim // H)),
+            None if lens is None else torch.tensor(lens, dtype=torch.int32), rope_full)
+    return pm, np.asarray(ref), args
 
 
-def test_attention_rejects_grouped_heads():
-    with pytest.raises(NotImplementedError):
-        Attention(128, 4, n_local_heads=2)
+@pytest.mark.parametrize("lens", [None, "partial"])
+@pytest.mark.parametrize("flash,n_kv", [(False, None), (True, None), (False, 2), (True, 2),
+                                        (False, 1), (True, 1)])
+def test_attention_module_matches_jax(flash, n_kv, lens):
+    """Port Attention (twins on CPU) vs the JAX module's einsum path, same
+    weights, f32 -> 1e-5. n_head 4 with 4, 2 or 1 KV heads, so the wqkv
+    split and the repeat order of grouped heads are both held; with flash the
+    port takes K1 (heads not grouped) or K3 (grouped) at T = 512."""
+    T = 512 if flash else 64
+    lens = None if lens is None else (T - T // 4, T)
+    pm, ref, args = _module_case(256, 4, n_kv, flash, T, lens)
+    out = pm(*args)
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("flash,n_kv,T,expect", [
+    (True, None, 512, "k1"), (True, 2, 512, "k3"), (True, None, 320, "k1"),
+    (True, 2, 320, "k3"), (False, None, 512, "einsum")])
+def test_attention_branch_rule(monkeypatch, flash, n_kv, T, expect):
+    """JAX's rule without its TPU check and without its Pallas tiling limit
+    (T % 512 == 0; K1 and K3 mask keys >= T, so any T takes them): K1 with
+    flash, heads not grouped and rope_full; K3 with flash otherwise; else
+    einsum. Also K3 when rope_full is not given (the microbench's call)."""
+    calls = []
+    monkeypatch.setattr(layers, "dit_attention_fused",
+                        lambda *a: calls.append("k1") or port.dit_attention_fused(*a))
+    monkeypatch.setattr(layers, "dit_attention",
+                        lambda *a: calls.append("k3") or port.dit_attention(*a))
+    pm, _, args = _module_case(128, 2, n_kv, flash, T, None)
+    pm(*args)
+    assert calls == ([] if expect == "einsum" else [expect])
+    if expect == "k1":
+        calls.clear()
+        pm(*args[:3])
+        assert calls == ["k3"]
+
+
+@pytest.mark.parametrize("n_kv", [None, 2])
+def test_attention_module_matches_jax_ragged_T(n_kv):
+    """With flash at a T that is no multiple of 512 the port still takes K1
+    (heads not grouped) or K3 (grouped), partial lens; against the JAX
+    module's einsum path, f32 -> 1e-5."""
+    pm, ref, args = _module_case(256, 4, n_kv, True, 333, (300, 333))
+    out = pm(*args)
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=1e-5, rtol=1e-5)

@@ -29,24 +29,61 @@ def _randn(seed, *shape):
                             .astype(np.float32)).cuda()
 
 
+@pytest.mark.parametrize("rope", [True, False], ids=["k1", "k3"])
 @pytest.mark.parametrize("T,lens", [(777, (700, 300)), (2048, None), (64, (1, 64))])
 @pytest.mark.parametrize("dtype,tol,rel_tol", [(torch.float32, 1e-4, 1e-4),
                                                (torch.bfloat16, 1e-2, 2e-2)])
-def test_attention_kernel_matches_twin(T, lens, dtype, tol, rel_tol):
-    """f32: summation order only -> 1e-4. bf16: P and the output round to
+def test_attention_kernel_matches_twin(T, lens, dtype, tol, rel_tol, rope):
+    """K1 (RoPE in the kernel) and K3 (q/k already roped), one source.
+    f32: summation order only -> 1e-4. bf16: P and the output round to
     bf16 after a running rather than a global max; measured up to 4e-3 on an
     output whose std is about sqrt(e/T) (0.036 at T = 2048) -> 1e-2, and a
     relative L2 norm of 2e-2, which dropping one 64-key tile exceeds."""
     q, k, v = (_randn(s, 2, 8, T, 64).to(dtype) for s in range(3))
-    cos, sin = (torch.from_numpy(a).cuda() for a in rope_full_cache(T, 64))
     lens_t = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
-    before = attention.LAUNCHES
-    out = attention.dit_attention_fused(q, k, v, cos, sin, lens_t)
-    assert attention.LAUNCHES == before + 1
-    ref = attention.dit_attention_fused_reference(q, k, v, cos, sin, lens_t)
+    if rope:
+        cos, sin = (torch.from_numpy(a).cuda() for a in rope_full_cache(T, 64))
+        before = attention.LAUNCHES
+        out = attention.dit_attention_fused(q, k, v, cos, sin, lens_t)
+        assert attention.LAUNCHES == before + 1
+        ref = attention.dit_attention_fused_reference(q, k, v, cos, sin, lens_t)
+    else:
+        before = attention.DIT_ATTENTION_LAUNCHES
+        out = attention.dit_attention(q, k, v, lens_t)
+        assert attention.DIT_ATTENTION_LAUNCHES == before + 1
+        ref = attention.dit_attention_reference(q, k, v, lens_t)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
     rel = (out.float() - ref.float()).norm() / ref.float().norm()
     assert rel <= rel_tol
+
+
+@pytest.mark.parametrize("n_kv,counter,other", [
+    (None, "LAUNCHES", "DIT_ATTENTION_LAUNCHES"), (2, "DIT_ATTENTION_LAUNCHES", "LAUNCHES")],
+    ids=["k1", "k3"])
+def test_attention_module_takes_kernel_at_ragged_T(monkeypatch, n_kv, counter, other):
+    """``Attention(use_flash=True)`` at T = 777, no multiple of 512: one K1
+    launch (heads not grouped, rope_full given) or one K3 launch (2 KV heads
+    for 8 query heads), and the same module through the plain twins agrees.
+    f32 with TF32 off: the kernels' 1e-4."""
+    from seedvc_tpu_torch.nn import layers
+
+    T, H, hd = 777, 8, 64
+    torch.manual_seed(0)
+    m = layers.Attention(H * hd, H, n_local_heads=n_kv, use_flash=True).cuda()
+    x = _randn(6, 2, T, H * hd)
+    freqs = torch.from_numpy(layers.rope_cache(T, hd)).cuda()
+    rope_full = None if n_kv else tuple(torch.from_numpy(a).cuda()
+                                        for a in rope_full_cache(T, hd))
+    lens = torch.tensor([700, 300], dtype=torch.int32, device="cuda")
+    before = getattr(attention, counter), getattr(attention, other)
+    with torch.no_grad():
+        out = m(x, freqs, lens, rope_full)
+    assert (getattr(attention, counter), getattr(attention, other)) == (before[0] + 1, before[1])
+    monkeypatch.setattr(layers, "dit_attention_fused", attention.dit_attention_fused_reference)
+    monkeypatch.setattr(layers, "dit_attention", attention.dit_attention_reference)
+    with torch.no_grad():
+        ref = m(x, freqs, lens, rope_full)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("B,C,T", [(1, 768, 6144), (2, 24, 3001), (1, 48, 7), (1, 8, 1)])
@@ -73,6 +110,8 @@ def test_wrappers_raise_when_build_fails(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         attention.dit_attention_fused(x, x, x, cs, cs)
     with pytest.raises(RuntimeError, match="nvcc failed"):
+        attention.dit_attention(x, x, x)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
         anti_alias.anti_alias_snake(torch.zeros((1, 4, 16), device="cuda"),
                                     torch.zeros(4, device="cuda"), torch.zeros(4, device="cuda"))
 
@@ -82,6 +121,13 @@ def test_wrappers_check_inputs():
     cs = torch.zeros((64, 32), device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         attention.dit_attention_fused(q, q, q, cs, cs)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention.dit_attention(q, q, q)
+    x = torch.zeros((2, 1, 64, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="lens"):
+        attention.dit_attention(x, x, x, torch.ones(2, dtype=torch.int64, device="cuda"))
+    with pytest.raises(ValueError, match="k does not match"):
+        attention.dit_attention(x, x.float(), x)
     with pytest.raises(ValueError, match="f32"):
         anti_alias.anti_alias_snake(torch.zeros((1, 4, 16), device="cuda").half(),
                                     torch.zeros(4, device="cuda"), torch.zeros(4, device="cuda"))

@@ -59,5 +59,7 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         attention.dit_attention_fused(q, q, q, cs, cs)
     with pytest.raises(ValueError, match="unsupported device"):
+        attention.dit_attention(q, q, q)
+    with pytest.raises(ValueError, match="unsupported device"):
         anti_alias.anti_alias_snake(torch.empty((1, 4, 16), device="meta"),
                                     torch.empty(4, device="meta"), torch.empty(4, device="meta"))

@@ -1,0 +1,94 @@
+"""The port's microbench entry point (seedvc_tpu_torch/apps/microbench.py),
+every ported component at tiny sizes on the CPU: each prints one JSON row
+with the JAX package's keys, and the attention components take the branch
+they name. Times here are CPU times and are not read."""
+
+import dataclasses
+import json
+
+import pytest
+import torch
+
+from seedvc_tpu_torch.apps import microbench as mb
+from seedvc_tpu_torch.core import config as c
+from seedvc_tpu_torch.models.bigvgan import BigVGANConfig
+from seedvc_tpu_torch.nn import layers
+from seedvc_tpu_torch.ops import attention
+
+torch.set_num_threads(1)
+
+
+def _tiny_cfg():
+    cfg = c.get_preset("whisper_small_wavenet")
+    mp = cfg.model_params
+    return dataclasses.replace(cfg, model_params=dataclasses.replace(
+        mp, DiT=dataclasses.replace(mp.DiT, hidden_dim=128, num_heads=2, depth=2,
+                                    content_dim=64),
+        wavenet=dataclasses.replace(mp.wavenet, hidden_dim=32, num_layers=2)))
+
+
+TINY_VOC = BigVGANConfig(upsample_initial_channel=128, resblock_kernel_sizes=(3,),
+                         resblock_dilation_sizes=((1,),))
+
+# component -> (tiny arguments, the rate key the JAX row carries)
+CASES = {
+    "attention": (dict(B=1, T=512, H=2, hd=64), "tflops_per_s"),
+    "attention_xla": (dict(B=1, T=512, H=2, hd=64), "tflops_per_s"),
+    "ffn": (dict(B=1, T=32, d=64), "tflops_per_s"),
+    "int8_matmul": (dict(M=32, K=64, N=32), "tflops_per_s"),
+    "wavenet": (dict(B=1, T=32, cfg=_tiny_cfg()), "tflops_per_s"),
+    "dit": (dict(B=1, T=512, cfg=_tiny_cfg()), "tflops_per_s"),
+    "vocoder": (dict(B=1, T=4, cfg=TINY_VOC), "audio_s_per_s"),
+    "serving": (dict(B=2, T=512, n_steps=2, cfg=_tiny_cfg()), "audio_s_per_s"),
+    "serving_b1": (dict(T=512, n_steps=2, cfg=_tiny_cfg()), "audio_s_per_s"),
+    "serving_b2": (dict(T=512, n_steps=2, cfg=_tiny_cfg()), "audio_s_per_s"),
+}
+
+
+def test_every_ported_component_has_a_case():
+    assert set(CASES) == set(mb.ALL)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_component_prints_jax_row(name, capsys):
+    kwargs, rate = CASES[name]
+    out = mb.ALL[name](device="cpu", **kwargs)
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert rows == (out if isinstance(out, list) else [out])
+    for row in rows:
+        assert row["ms"] > 0 and row[rate] > 0
+        assert row["device"] == "cpu" and row["calls"] >= 2
+    if name == "int8_matmul":
+        assert [r["name"].split()[0] for r in rows] == ["matmul2_bf16", "matmul2_int8_dynamic"]
+
+
+@pytest.mark.parametrize("name,expect", [("attention", "k3"), ("attention_xla", None),
+                                         ("dit", "k1")])
+def test_component_takes_its_attention_branch(monkeypatch, name, expect):
+    calls = []
+    monkeypatch.setattr(layers, "dit_attention_fused",
+                        lambda *a: calls.append("k1") or attention.dit_attention_fused(*a))
+    monkeypatch.setattr(layers, "dit_attention",
+                        lambda *a: calls.append("k3") or attention.dit_attention(*a))
+    kwargs, _ = CASES[name]
+    row = mb.ALL[name](device="cpu", **kwargs)
+    per_call = _tiny_cfg().model_params.DiT.depth if name == "dit" else 1
+    assert calls == ([expect] * per_call * row["calls"] if expect else [])
+
+
+@pytest.mark.parametrize("name,item", [("ar_decode", "item 4"), ("ar_decode_b4", "item 4"),
+                                       ("train_step", "item 5"), ("train_step_bf16", "item 5"),
+                                       ("train_onfly", "item 5"),
+                                       ("train_onfly_sync", "item 5")])
+def test_waiting_components_raise(name, item):
+    assert name not in mb.ALL
+    with pytest.raises(NotImplementedError, match=item):
+        mb.main(["--only", name])
+
+
+def test_main_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mb.main(["--only", "ffn"])
+    with pytest.raises(SystemExit):
+        mb.main(["--only", "no_such_component"])

@@ -18,17 +18,23 @@ from seedvc_tpu.core.config import get_preset as j_get_preset
 from seedvc_tpu.models.bigvgan import BigVGAN as JBigVGAN
 from seedvc_tpu.models.bigvgan import BigVGANConfig as JBigVGANConfig
 from seedvc_tpu.models.campplus import CAMPPlus as JCAMPPlus
+from seedvc_tpu.models.cfm import CFM as JCFM
+from seedvc_tpu.models.cfm import make_sampler
 from seedvc_tpu.models.dit import DiT as JDiT
 from seedvc_tpu.models.regulator import InterpolateRegulator as JRegulator
 from seedvc_tpu.models.whisper import WhisperEncoder as JWhisperEncoder
 from seedvc_tpu.models.whisper import WhisperEncoderConfig as JWhisperEncoderConfig
 from seedvc_tpu.models.whisper import _sinusoid_init
+from seedvc_tpu.nn.transformer import Transformer as JTransformer
+from seedvc_tpu.nn.transformer import TransformerConfig as JTransformerConfig
 from seedvc_tpu_torch.core import config as pc
 from seedvc_tpu_torch.models.bigvgan import BigVGAN, BigVGANConfig
 from seedvc_tpu_torch.models.campplus import CAMPPlus
+from seedvc_tpu_torch.models.cfm import CFM, euler_solve
 from seedvc_tpu_torch.models.dit import DiT
 from seedvc_tpu_torch.models.regulator import InterpolateRegulator
 from seedvc_tpu_torch.models.whisper import WhisperEncoder, WhisperEncoderConfig, sinusoids
+from seedvc_tpu_torch.nn.transformer import Transformer, TransformerConfig
 from seedvc_tpu_torch.weights import load_jax_params
 from torch_port_helpers import jax_apply, jax_init
 
@@ -166,3 +172,59 @@ def test_bigvgan_small_matches_jax():
     out = pm(_t(mel)).detach().numpy()
     assert out.shape == (1, 12 * 256)
     np.testing.assert_allclose(out, ref, **TOL)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_gqa_transformer_matches_jax(flash):
+    """Two-layer trunk with grouped KV heads (4 query heads, 2 KV heads),
+    U-ViT skips, ragged key lengths, T = 512. With flash the port runs K3's
+    twin (the JAX trunk builds no rope_full for GQA either), without it the
+    einsum path; the JAX side runs its einsum path on the CPU."""
+    T, dim = 512, 256
+    kw = dict(dim=dim, n_layer=2, n_head=4, n_local_heads=2, head_dim=64,
+              uvit_skip_connection=True, use_flash=flash)
+    jm = JTransformer(JTransformerConfig(**kw))
+    x, c = _rand(10, 2, T, dim), _rand(11, 2, 1, dim)
+    lens = np.array([T, 300], np.int32)
+    mask = (np.arange(T)[None, :] < lens[:, None])[:, None, None, :]
+    params = jax_init(jm, jnp.asarray(x), jnp.asarray(c), jnp.asarray(mask))
+    ref = np.asarray(jax_apply(jm, params, jnp.asarray(x), jnp.asarray(c), jnp.asarray(mask)))
+    pm = load_jax_params(Transformer(TransformerConfig(**kw)), params)
+    out = pm(_t(x), _t(c), _t(lens))
+    np.testing.assert_allclose(out.detach().numpy(), ref, **TOL)
+
+
+def test_batched_cfg_sampler_matches_jax(monkeypatch):
+    """The slice as a whole: the CFG Euler sampler at B = 3 over a tiny DiT
+    with use_flash_attention on (the port runs K1's twin at context 512),
+    ragged x_lens, the conditioning hoisted by precompute_fn, and the same
+    initial noise given to both (the JAX side's jax.random.normal patched,
+    as tests/test_cross_impl_pipeline.py does). f32, 3 steps -> 1e-4."""
+    jmp, pmp = _dit_cfgs(hidden_dim=128, num_heads=2, depth=3, content_dim=64,
+                         wavenet=dict(hidden_dim=32, num_layers=2))
+    assert jmp.DiT.use_flash_attention and pmp.DiT.use_flash_attention
+    B, T, prompt_len, steps = 3, 512, 100, 3
+    noise = _rand(20, B, T, 80)
+    mu = _rand(21, B, T, 64)
+    prompt = _rand(22, B, T, 80)
+    style = _rand(23, B, 192)
+    x_lens = np.array([T, 450, 301], np.int32)
+    params = jax_init(JDiT(jmp), *(jnp.asarray(a) for a in _dit_inputs(T, 64)))
+    real_normal = jax.random.normal
+
+    def fake_normal(key, shape=None, dtype=jnp.float32, *a, **kw):
+        if shape == (B, T, 80):
+            return jnp.asarray(noise).astype(dtype)
+        return real_normal(key, shape, dtype, *a, **kw)
+
+    monkeypatch.setattr(jax.random, "normal", fake_normal)
+    sampler = make_sampler(JCFM(jmp), {"params": {"estimator": params}}, n_mels=80,
+                           n_timesteps=steps, cfg_rate=0.7)
+    ref = np.asarray(sampler(jax.random.PRNGKey(0), jnp.asarray(mu), jnp.asarray(x_lens),
+                             jnp.asarray(prompt), prompt_len, jnp.asarray(style)))
+    cfm = load_jax_params(CFM(pmp).eval(), {"estimator": params})
+    out = euler_solve(cfm.estimate, _t(noise), _t(mu), _t(x_lens), _t(prompt), prompt_len,
+                      _t(style), n_timesteps=steps, cfg_rate=0.7,
+                      precompute_fn=cfm.precompute_cond)
+    assert out.shape == (B, T, 80)
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
