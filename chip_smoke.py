@@ -7,11 +7,13 @@ failure exits non-zero:
 1. device: require CUDA, print the card's name and power limit;
 2. build: compile every CUDA kernel of the port from ``seedvc_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch twin, on the card, at the
-   main path's shapes plus ragged ones, with the tolerance printed: K1 and
-   K3 (one source, RoPE on and off) in bf16 and f32 with a planted fault
-   that must fail the limits; ``Attention(use_flash=True)`` at a T that is
-   no multiple of 512, which must launch K1 (or K3 with grouped KV heads)
-   and agree with its plain twins; and K2;
+   main path's shapes plus ragged ones, with the tolerance printed: K1's
+   RoPE pre-pass bit for bit; K1 and K3 (one source, RoPE on and off) in
+   bf16 and f32, with lens None, partial, the main path's (1966, 1477) and
+   with a 0 entry (every key masked), each with a planted fault that must
+   fail the limits; ``Attention(use_flash=True)`` at a T that is no multiple
+   of 512, which must launch K1 (or K3 with grouped KV heads) and agree with
+   its plain twins; and K2;
 4. small: a small-config conversion on cuda (kernels) and on cpu (plain
    twins), f32, same weights and noise, compared; then the same config in
    bf16 (the main path's DiT precision) on cuda, kernels against the plain
@@ -26,8 +28,11 @@ failure exits non-zero:
    full width, its JSON rows printed, and each component's launch counts
    checked (``attention`` K3 only, ``dit`` 13 K1 a call, ``vocoder`` 109 K2
    a call, ``serving*`` 25 x 13 K1 a sample, the rest none);
-7. the ``{"kernels": [...]}`` line: times of kernel, plain twin and library
-   call at the main-path shapes, with each kernel's bound on an H100 SXM.
+7. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
+   library call at the main-path shapes (each timed window queued behind a
+   spin kernel, so the host's dispatch rate does not enter), with each
+   kernel's bound on an H100 SXM; before it, K3's time per head at
+   B*H = 13, 16 and 26 (its wave tail).
 
 The last line is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
 profiled warm conversion to phase 5 (device time by kernel, idle share).
@@ -63,6 +68,11 @@ MAIN_CONTEXT, MAIN_W, MAIN_CHUNKS = 2048, 1536, 2
 # it. f32: summation order only.
 K1_TOL = {"bfloat16": (1e-2, 2e-2), "float32": (1e-4, 1e-4)}
 K1_FAULT_KEYS = 64
+# (T, lens) of phase 3: lens None, partial, a 0 entry (every key of that row
+# masked: the mean of V over all T keys) and the main path's (1966, 1477)
+K1_CASES = [(512, None), (512, (438, 256)), (2048, None), (2048, (1755, 1024)),
+            (2048, (1966, 1477)), (2048, (0, 1966)), (2560, None), (2560, (2195, 1280)),
+            (777, None), (777, (666, 388)), (777, (0, 1))]
 K2_TOL = 2e-5
 
 
@@ -106,7 +116,7 @@ def phase_build():
     log(f"build: {time.perf_counter() - t0:.1f} s wall, per source {secs}")
     for name, text in build.PTXAS_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error", "Performance Loss")):
                 log(f"  ptxas[{name}]: {line.strip()}")
     for name in build.SOURCES:
         build.load_library(name)
@@ -137,33 +147,41 @@ def phase_kernels() -> dict:
     from seedvc_tpu_torch.ops import anti_alias, attention
 
     errs = {"k1": 0.0, "k2": 0.0, "k3": 0.0}
+    # K1's first stage: roped q times 2^-3 and roped k, bit for bit
+    for T in (2048, 777):
+        q, k, _, cos, sin, _ = _k1_inputs(T, torch.bfloat16, None, seed=3)
+        qo, ko = attention.rope_prepass(q, k, cos, sin)
+        same = (torch.equal(qo, attention.rope_scaled_reference(q, cos, sin, 0.125))
+                and torch.equal(ko, attention.rope_scaled_reference(k, cos, sin)))
+        log(f"K1 rope pre-pass (2,8,{T},64) bf16: equal to its plain twin: {same}")
+        if not same:
+            fail(f"K1's RoPE pre-pass differs from its plain twin at T={T}")
     # K1 and K3 share one source (RoPE on / off) and one set of limits
     for key, rope, kernel, twin in (
             ("k1", True, attention.dit_attention_fused, attention.dit_attention_fused_reference),
             ("k3", False, attention.dit_attention, attention.dit_attention_reference)):
         for dtype in (torch.bfloat16, torch.float32):
             atol, rtol = K1_TOL[str(dtype).split(".")[1]]
-            for T in (512, 2048, 2560, 777):
-                for lens in (None, (T - T // 7, T // 2)):
-                    q, k, v, cos, sin, lens_t = _k1_inputs(T, dtype, lens)
-                    args = (q, k, v, cos, sin) if rope else (q, k, v)
-                    out = kernel(*args, lens_t)
-                    ref = twin(*args, lens_t)
-                    # planted fault: the twin with the last valid key tile dropped
-                    n_valid = lens_t if lens_t is not None else torch.full(
-                        (2,), T, dtype=torch.int32, device="cuda")
-                    bad = twin(*args, n_valid - K1_FAULT_KEYS)
-                    err, rel = k1_errors(out, ref)
-                    f_err, f_rel = k1_errors(bad, ref)
-                    what = f"{key.upper()} {kernel.__name__} (2,8,{T},64) {dtype} lens={lens}"
-                    log(f"{what}: max_abs_err {err:.3e} tol {atol:g}, rel_l2 {rel:.3e} "
-                        f"tol {rtol:g}; planted fault max_abs {f_err:.3e} rel_l2 {f_rel:.3e}")
-                    if not (err <= atol and rel <= rtol):
-                        fail(f"{what}: kernel disagrees with its plain twin")
-                    if f_err <= atol and f_rel <= rtol:
-                        fail(f"{what}: the limit passes a planted fault")
-                    if dtype == torch.bfloat16:
-                        errs[key] = max(errs[key], err)
+            for T, lens in K1_CASES:
+                q, k, v, cos, sin, lens_t = _k1_inputs(T, dtype, lens)
+                args = (q, k, v, cos, sin) if rope else (q, k, v)
+                out = kernel(*args, lens_t)
+                ref = twin(*args, lens_t)
+                # planted fault: the twin with the last valid key tile dropped
+                n_valid = lens_t if lens_t is not None else torch.full(
+                    (2,), T, dtype=torch.int32, device="cuda")
+                bad = twin(*args, n_valid - K1_FAULT_KEYS)
+                err, rel = k1_errors(out, ref)
+                f_err, f_rel = k1_errors(bad, ref)
+                what = f"{key.upper()} {kernel.__name__} (2,8,{T},64) {dtype} lens={lens}"
+                log(f"{what}: max_abs_err {err:.3e} tol {atol:g}, rel_l2 {rel:.3e} "
+                    f"tol {rtol:g}; planted fault max_abs {f_err:.3e} rel_l2 {f_rel:.3e}")
+                if not (err <= atol and rel <= rtol):
+                    fail(f"{what}: kernel disagrees with its plain twin")
+                if f_err <= atol and f_rel <= rtol:
+                    fail(f"{what}: the limit passes a planted fault")
+                if dtype == torch.bfloat16:
+                    errs[key] = max(errs[key], err)
     attention_module_check()
     g = torch.Generator(device="cuda").manual_seed(1)
     for shape in main_path_shapes() + [(2, 96, 1000), (1, 24, 3), (1, 48, 7)]:
@@ -483,8 +501,9 @@ def phase_kernel_line(errs: dict, full: dict, mb_counts: dict) -> dict:
     k1_ms = cuda_time_ms(lambda: attention.dit_attention_fused(q, k, v, cos, sin, lens))
     k1_plain = cuda_time_ms(lambda: attention.dit_attention_fused_reference(
         q, k, v, cos, sin, lens), iters=5)
-    qr = (q.float() * cos + attention._pair_swap(q.float()) * sin).to(q.dtype)
-    kr = (k.float() * cos + attention._pair_swap(k.float()) * sin).to(k.dtype)
+    prepass_ms = cuda_time_ms(lambda: attention.rope_prepass(q, k, cos, sin))
+    qr = attention.rope_scaled_reference(q, cos, sin)
+    kr = attention.rope_scaled_reference(k, cos, sin)
     mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     k1_lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, attn_mask=mask))
     B, H, _, d = q.shape
@@ -501,6 +520,17 @@ def phase_kernel_line(errs: dict, full: dict, mb_counts: dict) -> dict:
     k3_bound, k3_by = bound(4.0 * B * H * T3 * T3 * d, PEAK_BF16, 4 * B * H * T3 * d * 2)
     log(f"K3 {tuple(q3.shape)} bf16 lens=None: kernel {k3_ms:.4f} ms, plain {k3_plain:.4f} ms, "
         f"sdpa {k3_lib:.4f} ms, bound {k3_bound:.4f} ms ({k3_by})")
+    # the wave tail at K3's shape: without one, the time per head would be
+    # the same at B*H = 13 and 26 as at 16
+    g3 = torch.Generator(device="cuda").manual_seed(10)
+    per_head = {B * H: k3_ms / (B * H)}
+    for shape in ((1, 13, T3, d), (2, 13, T3, d)):
+        qt, kt, vt = (torch.randn(shape, generator=g3, device="cuda").bfloat16() for _ in range(3))
+        per_head[shape[0] * shape[1]] = cuda_time_ms(
+            lambda: attention.dit_attention(qt, kt, vt)) / (shape[0] * shape[1])
+    log(f"K3 wave tail at T={T3}: ms per head by B*H "
+        + ", ".join(f"{n}: {t:.5f}" for n, t in sorted(per_head.items()))
+        + f"; tail share at B*H = {B * H}: {1 - per_head[26] / per_head[B * H]:.3f}")
 
     # K2 at the main path's most frequent launch shape (stages 1-5 and the
     # post activation all move 6144*W elements); per-stage times printed too
@@ -520,8 +550,9 @@ def phase_kernel_line(errs: dict, full: dict, mb_counts: dict) -> dict:
         log(f"K2 {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     main_shape = main_path_shapes()[-1]
     k2_ms, k2_plain, k2_bound, k2_by = k2[main_shape]
-    log(f"K1 {tuple(q.shape)} bf16 lens={n_valid}: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms, "
-        f"sdpa {k1_lib:.4f} ms, bound {k1_bound:.4f} ms ({k1_by})")
+    log(f"K1 {tuple(q.shape)} bf16 lens={n_valid}: kernel {k1_ms:.4f} ms (RoPE pre-pass alone "
+        f"{prepass_ms:.4f} ms), plain {k1_plain:.4f} ms, sdpa {k1_lib:.4f} ms, "
+        f"bound {k1_bound:.4f} ms ({k1_by})")
     return {"kernels": [
         {"name": "dit_attention_fused", "route": "cuda",
          "source": "seedvc_tpu_torch/csrc/attention.cu",

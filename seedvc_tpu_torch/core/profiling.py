@@ -60,11 +60,15 @@ def annotate(name: str):
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device milliseconds per call of ``fn`` over ``iters`` calls
-    bracketed by CUDA events, after ``warmup`` calls."""
+    bracketed by CUDA events, after ``warmup`` calls. A spin kernel of about
+    50 ms runs before the first event, so the host queues calls while it
+    spins: a short kernel's time is the device's, not the host's dispatch
+    rate. Calls whose dispatch outlasts the spin are still host-paced."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(iters):
         fn()

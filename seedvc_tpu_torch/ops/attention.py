@@ -17,13 +17,17 @@ compile-time RoPE flag, replaces two TPU kernels:
   shape (2, 8, 2048, 64)).
 - what the design does about it: the TPU kernels keep a head's whole K/V in
   VMEM, which does not fit in Hopper's 227 KB of shared memory at T = 2560, so
-  the CUDA kernel streams 64-key tiles with an online softmax (roping each
-  tile as it is loaded when RoPE is on); nothing (T, T)-sized touches device
-  memory. The bf16 path runs both products on the tensor cores (``mma.sync``
-  m16n8k16) with S, P and O in registers; the f32 path uses scalar FMAs.
+  the CUDA kernels stream 64-key tiles with an online softmax; nothing
+  (T, T)-sized touches device memory. In bf16, K1 first ropes q (times 2⁻³)
+  and k once per call into scratch (:func:`rope_prepass`, plain twin
+  :func:`rope_scaled_reference`); then K1 and K3 share one warp-specialised
+  core: in each block of 64 query rows a producer warp keeps K/V tiles
+  flowing by TMA through a ring of shared-memory slots and a consumer
+  warpgroup runs both products on ``wgmma``, skipping key tiles that hold
+  only masked keys. The f32 path uses scalar FMAs.
 
 A CPU tensor goes to the plain twin; a CUDA tensor launches the kernel or
-raises. ``LAUNCHES`` counts K1's launches, ``DIT_ATTENTION_LAUNCHES`` K3's.
+raises. ``LAUNCHES`` counts K1's calls, ``DIT_ATTENTION_LAUNCHES`` K3's.
 """
 
 from __future__ import annotations
@@ -43,10 +47,11 @@ DIT_ATTENTION_LAUNCHES = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "dit_attention_fused_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "dit_attention_fused_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dit_attention_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dit_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dit_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rope_prepass_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 
@@ -75,16 +80,19 @@ def dit_attention_reference(q, k, v, lens=None):
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def rope_scaled_reference(x, cos, sin, scale: float = 1.0):
+    """Interleaved RoPE through the (T, d) cos / signed-sin caches in fp32,
+    times ``scale``, rounded to x's dtype: the plain twin of K1's pre-pass
+    (q with scale 2⁻³, k with 1)."""
+    xf = x.float()
+    return ((xf * cos + _pair_swap(xf) * sin) * scale).to(x.dtype)
+
+
 def dit_attention_fused_reference(q, k, v, cos, sin, lens=None):
-    """Plain twin of the kernel: interleaved RoPE through the (T, d) cos /
-    signed-sin caches in fp32, rounded to the input type, then
-    :func:`dit_attention_reference`."""
-
-    def rope(x):
-        xf = x.float()
-        return (xf * cos + _pair_swap(xf) * sin).to(x.dtype)
-
-    return dit_attention_reference(rope(q), rope(k), v, lens)
+    """Plain twin of K1: :func:`rope_scaled_reference` on q and k, then
+    :func:`dit_attention_reference` (which scales the logits by 1/√d)."""
+    return dit_attention_reference(rope_scaled_reference(q, cos, sin),
+                                   rope_scaled_reference(k, cos, sin), v, lens)
 
 
 def _check(op: str, q, k, v, lens, extra=()):
@@ -110,11 +118,13 @@ def _check(op: str, q, k, v, lens, extra=()):
             raise ValueError(f"{op}: {name} must be contiguous and 16-byte aligned")
 
 
-def _launch(op: str, fn, q, pointers, lens) -> torch.Tensor:
+def _launch(op: str, fn, q, pointers, lens, scratch=()) -> torch.Tensor:
     B, H, T, _ = q.shape
     out = torch.empty_like(q)
-    err = fn(*pointers, None if lens is None else lens.data_ptr(), out.data_ptr(),
-             B, H, T, torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):  # the C side sets attributes of the current device
+        err = fn(*pointers, None if lens is None else lens.data_ptr(), out.data_ptr(),
+                 *(t.data_ptr() for t in scratch), B, H, T,
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{op}: CUDA launch failed (error {err})")
     return out
@@ -131,11 +141,13 @@ def dit_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"dit_attention_fused: unsupported device {q.device}")
     _check("dit_attention_fused", q, k, v, lens, (("cos", cos), ("sin", sin)))
-    fn = _kernel("dit_attention_fused_bf16" if q.dtype == torch.bfloat16
-                 else "dit_attention_fused_f32")
+    bf16 = q.dtype == torch.bfloat16
+    fn = _kernel("dit_attention_fused_bf16" if bf16 else "dit_attention_fused_f32")
+    # bf16: the pre-pass writes roped q and k here before the core reads them
+    scratch = (torch.empty((2, *q.shape), dtype=q.dtype, device=q.device),) if bf16 else ()
     out = _launch("dit_attention_fused", fn, q,
                   (q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr()),
-                  lens)
+                  lens, scratch)
     global LAUNCHES
     LAUNCHES += 1
     return out
@@ -156,3 +168,28 @@ def dit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global DIT_ATTENTION_LAUNCHES
     DIT_ATTENTION_LAUNCHES += 1
     return out
+
+
+def rope_prepass(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's first stage on its own: (rope(q)·2⁻³, rope(k)) in bf16, the
+    inputs of the attention core. q/k: (B, H, T, 64) bf16 before RoPE;
+    cos/sin: (T, 64) f32. K1 runs this stage inside its own call; this entry
+    lets a test hold it to :func:`rope_scaled_reference` bit for bit."""
+    if q.device.type == "cpu":
+        return (rope_scaled_reference(q, cos, sin, 1.0 / math.sqrt(HEAD_DIM)),
+                rope_scaled_reference(k, cos, sin))
+    if q.device.type != "cuda":
+        raise ValueError(f"rope_prepass: unsupported device {q.device}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"rope_prepass: bf16 only, got {q.dtype}")
+    _check("rope_prepass", q, k, k, None, (("cos", cos), ("sin", sin)))
+    B, H, T, _ = q.shape
+    qo, ko = torch.empty((2, *q.shape), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _kernel("rope_prepass_bf16")(
+            q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(), qo.data_ptr(),
+            ko.data_ptr(), B * H, T, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rope_prepass: CUDA launch failed (error {err})")
+    return qo, ko

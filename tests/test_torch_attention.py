@@ -17,8 +17,11 @@ import torch
 from seedvc_tpu.nn.layers import Attention as JAttention
 from seedvc_tpu.nn.layers import rope_cache as j_rope_cache
 from seedvc_tpu.nn.layers import rope_full_cache as j_rope_full_cache
+from seedvc_tpu.ops.pallas.attention import _pair_swap_matrix, _rope
 from seedvc_tpu.ops.pallas.attention import dit_attention as j_plain
 from seedvc_tpu.ops.pallas.attention import dit_attention_fused as j_fused
+from seedvc_tpu.ops.pallas.attention import dit_attention_fused_reference as j_fused_ref
+from seedvc_tpu.ops.pallas.attention import dit_attention_reference as j_plain_ref
 from seedvc_tpu_torch.nn import layers
 from seedvc_tpu_torch.nn.layers import Attention, apply_rope, rope_cache, rope_full_cache
 from seedvc_tpu_torch.ops import attention as port
@@ -80,6 +83,72 @@ def test_k3_twin_matches_jax_kernel_bf16():
                              torch.tensor([250]))
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
                                atol=3e-2)
+
+
+@pytest.mark.parametrize("rope", [True, False], ids=["k1", "k3"])
+@pytest.mark.parametrize("lens", [(0, 200), (0, 0), (1, 256)])
+def test_twins_match_jax_with_masked_rows(rope, lens):
+    """lens with a 0 entry masks every key of that batch row: the JAX kernels
+    (interpret mode) and the JAX references then give the mean of V over all
+    T keys, which the CUDA core keeps by visiting every key tile when
+    n_valid = 0 and skipping only tiles past ceil(n_valid / 64) otherwise.
+    f32: summation order only -> 1e-5."""
+    q, k, v = _inputs(11, 2, 2, 256, 64, np.float32)
+    cos, sin = rope_full_cache(256, 64)
+    lens_j = jnp.asarray(lens)
+    if rope:
+        jargs = tuple(jnp.asarray(a) for a in (q, k, v, cos, sin))
+        refs = (j_fused(*jargs, lens_j, block_q=128), j_fused_ref(*jargs, lens_j))
+        out = port.dit_attention_fused(*(torch.from_numpy(a) for a in (q, k, v, cos, sin)),
+                                       torch.tensor(lens, dtype=torch.int32))
+    else:
+        jargs = tuple(jnp.asarray(a) for a in (q, k, v))
+        refs = (j_plain(*jargs, lens_j, block_q=128), j_plain_ref(*jargs, lens_j))
+        out = port.dit_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 torch.tensor(lens, dtype=torch.int32))
+    for ref in refs:
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+    for b, n in enumerate(lens):
+        if n == 0:
+            np.testing.assert_allclose(out[b].numpy(), np.broadcast_to(
+                v[b].mean(axis=1, keepdims=True), v[b].shape), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_rope_scaled_twin_matches_jax_rope(dtype):
+    """K1's pre-pass twin against the TPU kernel's own RoPE: q is
+    ``(_rope(q, cos, sin, swap) * scale).astype(dtype)`` and k
+    ``_rope(k, cos, sin, swap).astype(dtype)``. Tolerance 0: both round each
+    product and the sum in fp32 (the swap is a product with a 0/1 matrix,
+    exact) and the power-of-two scale is exact, so the bits agree in f32 and
+    after the bf16 cast."""
+    T, d = 128, 64
+    x = np.random.default_rng(12).standard_normal((T, d)).astype(np.float32)
+    cos, sin = rope_full_cache(T, d)
+    jdt = jnp.float32 if dtype is np.float32 else jnp.bfloat16
+    tdt = torch.float32 if dtype is np.float32 else torch.bfloat16
+    xj = jnp.asarray(x, jdt)
+    xt = torch.from_numpy(x).to(tdt)
+    swap = _pair_swap_matrix(d)
+    for scale in (0.125, 1.0):
+        ref = _rope(xj, jnp.asarray(cos), jnp.asarray(sin), swap)
+        ref = np.asarray(((ref * scale) if scale != 1.0 else ref).astype(jdt).astype(jnp.float32))
+        out = port.rope_scaled_reference(xt, torch.from_numpy(cos), torch.from_numpy(sin),
+                                         scale).float().numpy()
+        np.testing.assert_array_equal(out, ref)
+
+
+def test_rope_prepass_twin_on_cpu():
+    """On the CPU the pre-pass entry is its twin: q roped times 2^-3, k
+    roped, both in bf16, and K1's twin is attention on those."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _inputs(13, 1, 2, 64, 64, np.float32))
+    cos, sin = (torch.from_numpy(a) for a in rope_full_cache(64, 64))
+    qo, ko = port.rope_prepass(q, k, cos, sin)
+    assert torch.equal(qo, port.rope_scaled_reference(q, cos, sin, 0.125))
+    assert torch.equal(ko, port.rope_scaled_reference(k, cos, sin))
+    assert torch.equal(qo.float() * 8, port.rope_scaled_reference(q, cos, sin).float())
+    torch.testing.assert_close(port.dit_attention_fused(q, k, v, cos, sin),
+                               port.dit_attention_reference(qo * 8, ko, v), atol=0, rtol=0)
 
 
 def test_twin_ignores_padded_keys():

@@ -30,11 +30,15 @@ def _randn(seed, *shape):
 
 
 @pytest.mark.parametrize("rope", [True, False], ids=["k1", "k3"])
-@pytest.mark.parametrize("T,lens", [(777, (700, 300)), (2048, None), (64, (1, 64))])
+@pytest.mark.parametrize("T,lens", [(777, (700, 300)), (2048, None), (64, (1, 64)),
+                                    (2560, None), (777, (0, 1)), (2048, (1966, 1477))])
 @pytest.mark.parametrize("dtype,tol,rel_tol", [(torch.float32, 1e-4, 1e-4),
                                                (torch.bfloat16, 1e-2, 2e-2)])
 def test_attention_kernel_matches_twin(T, lens, dtype, tol, rel_tol, rope):
-    """K1 (RoPE in the kernel) and K3 (q/k already roped), one source.
+    """K1 (RoPE in the call) and K3 (q/k already roped), one source. The
+    cases hold K3's shape (T = 2560, every key valid), lens with a 0 entry
+    (every key masked: the mean of V) and a 1 entry, and the main path's lens
+    (1966, 1477), where the bf16 core skips fully masked key tiles.
     f32: summation order only -> 1e-4. bf16: P and the output round to
     bf16 after a running rather than a global max; measured up to 4e-3 on an
     output whose std is about sqrt(e/T) (0.036 at T = 2048) -> 1e-2, and a
@@ -55,6 +59,18 @@ def test_attention_kernel_matches_twin(T, lens, dtype, tol, rel_tol, rope):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
     rel = (out.float() - ref.float()).norm() / ref.float().norm()
     assert rel <= rel_tol
+
+
+@pytest.mark.parametrize("T", [2048, 777, 1])
+def test_rope_prepass_matches_twin_exactly(T):
+    """K1's pre-pass (roped q times 2^-3, roped k, bf16) equals its plain
+    twin bit for bit: both round each product, the sum and the bf16 cast on
+    their own."""
+    q, k = (_randn(s, 2, 8, T, 64).bfloat16() for s in (7, 8))
+    cos, sin = (torch.from_numpy(a).cuda() for a in rope_full_cache(T, 64))
+    qo, ko = attention.rope_prepass(q, k, cos, sin)
+    assert torch.equal(qo, attention.rope_scaled_reference(q, cos, sin, 0.125))
+    assert torch.equal(ko, attention.rope_scaled_reference(k, cos, sin))
 
 
 @pytest.mark.parametrize("n_kv,counter,other", [
