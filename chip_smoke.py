@@ -5,7 +5,9 @@ Run from the repo root: ``python3 chip_smoke.py``. Phases, in order; any
 failure exits non-zero:
 
 1. device: require CUDA, print the card's name and power limit;
-2. build: compile every CUDA kernel of the port from ``seedvc_tpu_torch/csrc``;
+2. build: compile every CUDA kernel of the port from ``seedvc_tpu_torch/csrc``,
+   print ptxas's register lines and each kernel's SASS instruction count and
+   commonest opcodes (``cuobjdump -sass``);
 3. kernels: each kernel against its plain PyTorch twin, on the card, at the
    main path's shapes plus ragged ones, with the tolerance printed: K1's
    RoPE pre-pass bit for bit; K1 and K3 (one source, RoPE on and off) in
@@ -13,7 +15,11 @@ failure exits non-zero:
    with a 0 entry (every key masked), each with a planted fault that must
    fail the limits; ``Attention(use_flash=True)`` at a T that is no multiple
    of 512, which must launch K1 (or K3 with grouped KV heads) and agree with
-   its plain twins; and K2;
+   its plain twins; and K2 at every stage shape of a chunk and at its
+   corners (T % 4 != 0, one tile and one tile +- 1, T = 1, B = 2,
+   ``logscale=False``, |alpha * u| of a few hundred), each with a planted
+   fault (one filter tap nudged) that must fail the limit, and one K2 call
+   profiled: it must run exactly one device kernel;
 4. small: a small-config conversion on cuda (kernels) and on cpu (plain
    twins), f32, same weights and noise, compared; then the same config in
    bf16 (the main path's DiT precision) on cuda, kernels against the plain
@@ -32,7 +38,9 @@ failure exits non-zero:
    library call at the main-path shapes (each timed window queued behind a
    spin kernel, so the host's dispatch rate does not enter), with each
    kernel's bound on an H100 SXM; before it, K3's time per head at
-   B*H = 13, 16 and 26 (its wave tail).
+   B*H = 13, 16 and 26 (its wave tail), and K2 at all six stage shapes
+   (time, bound share, a device copy of the same bytes) with the card's SM
+   clock, power and temperature sampled by ``nvidia-smi`` beside the windows.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
 profiled warm conversion to phase 5 (device time by kernel, idle share).
@@ -73,7 +81,82 @@ K1_FAULT_KEYS = 64
 K1_CASES = [(512, None), (512, (438, 256)), (2048, None), (2048, (1755, 1024)),
             (2048, (1966, 1477)), (2048, (0, 1966)), (2560, None), (2560, (2195, 1280)),
             (777, None), (777, (666, 388)), (777, (0, 1))]
+# K2: fp32 FIR sums in another order than cuDNN's, and sin^2 by a polynomial
+# (|err| <= 2e-7) where the twin calls sin. The planted fault is the twin with
+# one tap of the 12-tap filter nudged by 1e-4 (of 0.443), which must fail it.
 K2_TOL = 2e-5
+K2_FAULT_TAP = 1e-4
+K2_TILE = 1016  # outputs a block (TT in anti_alias.cu)
+# fp32 operations per output as the kernel computes them (an FMA is two):
+# 12 up-FIR and 12 down-FIR FMAs (48), and per phase (u0, u1) alpha*u, the
+# rounding FFMA and FADD, two Cody-Waite FFMAs, z*z, 7 Horner FFMAs and the
+# final FFMA (25 each, 50).
+K2_FLOPS = 98
+
+
+def k2_cases() -> list:
+    """((B, C, T), kind) of phase 3: the main path's stage shapes, then the
+    kernel's corners: T % 4 != 0 (the scalar load path), T of one tile and one
+    tile +- 1, two tiles + 1, T < 4 and T = 1 (both edge patches in one tile),
+    B = 2, ``logscale=False``, and a large alpha (see ``k2_inputs``)."""
+    corners = [(1, 24, 3001), (1, 24, K2_TILE), (1, 24, K2_TILE - 1), (1, 24, K2_TILE + 1),
+               (1, 8, 2 * K2_TILE + 1), (1, 24, 3), (1, 48, 7), (1, 8, 1), (2, 96, 1000),
+               (2, 24, 3001)]
+    return ([(s, "default") for s in main_path_shapes() + corners]
+            + [((1, 32, 1001), "linear"), ((2, 16, 4096), "linear"),
+               ((1, 24, 4099), "large_alpha"), ((1, 96, 24576), "large_alpha")])
+
+
+def k2_inputs(shape, kind: str, g):
+    """x, alpha, beta, logscale for one case. "default": x ~ N(0, 1), log
+    alpha and log beta ~ 0.3 N(0, 1). "linear": alpha and beta |N(0, 1)| + 0.5,
+    logscale off. "large_alpha": x ~ 2 N(0, 1) and log alpha ~ 3 + 0.3 N(0, 1),
+    so |alpha u| reaches a few hundred (the range reduction of sin^2); log
+    beta ~ 2.5 + 0.3 N(0, 1) keeps the function's own gain 1 + alpha / e^beta on
+    u's rounding, which differs with the summation order, within the limit."""
+    import torch
+
+    B, C, T = shape
+    x = torch.randn(shape, generator=g, device="cuda")
+    a, b = (torch.randn(C, generator=g, device="cuda") for _ in range(2))
+    if kind == "linear":
+        return x, a.abs() + 0.5, b.abs() + 0.5, False
+    if kind == "large_alpha":
+        return 2 * x, 3 + 0.3 * a, 2.5 + 0.3 * b, True
+    return x, 0.3 * a, 0.3 * b, True
+
+
+@contextlib.contextmanager
+def nudged_tap(delta: float):
+    """The plain twin's 12-tap filter with tap 5 nudged by ``delta``."""
+    from seedvc_tpu_torch.ops import anti_alias
+
+    saved = anti_alias._filter
+
+    def nudged(*args, **kwargs):
+        f = saved(*args, **kwargs).clone()
+        f[5] += delta
+        return f
+
+    anti_alias._filter = nudged
+    try:
+        yield
+    finally:
+        anti_alias._filter = saved
+
+
+def device_kernels(fn) -> int:
+    """Device kernels that one call of ``fn`` runs (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
 
 
 def log(*args):
@@ -120,6 +203,33 @@ def phase_build():
                 log(f"  ptxas[{name}]: {line.strip()}")
     for name in build.SOURCES:
         build.load_library(name)
+        for fn, (total, ops) in sass_summary(build.library_path(name)).items():
+            top = ", ".join(f"{op} {n}" for op, n in ops.most_common(14))
+            log(f"  sass[{name}] {fn}: {total} instructions; {top}")
+
+
+def sass_summary(path) -> dict:
+    """{kernel: (instruction count, Counter of opcodes)} of a built library's
+    SASS (``cuobjdump -sass``); empty if cuobjdump is missing."""
+    import collections
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True).stdout
+    kernels, fn = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            kernels[fn] = collections.Counter()
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if fn and ins:
+            kernels[fn][ins.group(1).split(".")[0]] += 1
+    return {f: (sum(c.values()), c) for f, c in kernels.items()}
 
 
 def _k1_inputs(T, dtype, lens, seed=0):
@@ -184,19 +294,26 @@ def phase_kernels() -> dict:
                     errs[key] = max(errs[key], err)
     attention_module_check()
     g = torch.Generator(device="cuda").manual_seed(1)
-    for shape in main_path_shapes() + [(2, 96, 1000), (1, 24, 3), (1, 48, 7)]:
-        B, C, T = shape
-        x = torch.randn(shape, generator=g, device="cuda")
-        alpha = 0.3 * torch.randn(C, generator=g, device="cuda")
-        beta = 0.3 * torch.randn(C, generator=g, device="cuda")
-        out = anti_alias.anti_alias_snake(x, alpha, beta)
-        ref = anti_alias.anti_alias_snake_reference(x, alpha, beta)
+    for shape, kind in k2_cases():
+        x, alpha, beta, logscale = k2_inputs(shape, kind, g)
+        out = anti_alias.anti_alias_snake(x, alpha, beta, logscale)
+        ref = anti_alias.anti_alias_snake_reference(x, alpha, beta, logscale)
+        with nudged_tap(K2_FAULT_TAP):
+            bad = anti_alias.anti_alias_snake_reference(x, alpha, beta, logscale)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        log(f"K2 anti_alias_snake {shape} f32: max_abs_err {err:.3e} tol {K2_TOL:g}")
+        f_err = (bad - ref).abs().max().item()
+        what = f"K2 anti_alias_snake {shape} f32 {kind}"
+        log(f"{what}: max_abs_err {err:.3e} tol {K2_TOL:g}; planted fault max_abs {f_err:.3e}")
         if not err <= K2_TOL:
-            fail(f"K2 disagrees with its plain twin at {shape}")
+            fail(f"{what}: kernel disagrees with its plain twin")
+        if f_err <= K2_TOL:
+            fail(f"{what}: the limit passes a planted fault")
         errs["k2"] = max(errs["k2"], err)
+    n = device_kernels(lambda: anti_alias.anti_alias_snake(x, alpha, beta, logscale))
+    log(f"K2: one call ran {n} device kernel(s)")
+    if n != 1:
+        fail(f"one K2 call ran {n} device kernels, expected 1")
     return errs
 
 
@@ -433,6 +550,9 @@ def phase_full(card: str, profile: bool = False) -> dict:
     return result
 
 
+PORT_KERNELS = ("attn_core_kernel", "rope_prepass", "anti_alias_snake_kernel")
+
+
 def profile_conversion(vc, src, ref, sr, warm_wall: float):
     """One more warm conversion under torch.profiler: device time by kernel,
     and the device's idle share of the profiled wall and of the unprofiled
@@ -454,6 +574,10 @@ def profile_conversion(vc, src, ref, sr, warm_wall: float):
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     log(avgs.table(sort_by="self_device_time_total", row_limit=20))
+    for name in PORT_KERNELS:  # the port's own kernels, in or out of the table's top rows
+        rows = [e for e in kernels if name in e.key]
+        log(f"profile: {name}: {sum(e.count for e in rows)} launches, "
+            f"{sum(e.self_device_time_total for e in rows) / 1e3:.3f} ms of device time")
     log(f"profile: {sum(e.count for e in kernels)} device kernels busy {busy:.3f} s; "
         f"profiled wall {wall:.3f} s (idle share {1 - busy / wall:.3f}); "
         f"unprofiled warm wall {warm_wall:.3f} s (idle share {1 - busy / warm_wall:.3f})")
@@ -484,6 +608,22 @@ def phase_microbench() -> dict:
             fail(f"microbench {name}: launches {got}, expected {expect}")
         counts[name] = got
     return counts
+
+
+@contextlib.contextmanager
+def smi_sampler(period_ms: int = 100):
+    """Samples of the card's SM clock, power draw, power limit and temperature
+    every ``period_ms`` while the block runs (collected in the list yielded)."""
+    samples = []
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
+                             "temperature.gpu", "--format=csv,noheader", "-lms", str(period_ms)],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield samples
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate()
+        samples.extend(line.strip() for line in out.splitlines() if line.strip())
 
 
 def phase_kernel_line(errs: dict, full: dict, mb_counts: dict) -> dict:
@@ -532,24 +672,31 @@ def phase_kernel_line(errs: dict, full: dict, mb_counts: dict) -> dict:
         + ", ".join(f"{n}: {t:.5f}" for n, t in sorted(per_head.items()))
         + f"; tail share at B*H = {B * H}: {1 - per_head[26] / per_head[B * H]:.3f}")
 
-    # K2 at the main path's most frequent launch shape (stages 1-5 and the
-    # post activation all move 6144*W elements); per-stage times printed too
+    # K2 at every stage shape of a chunk; the row of the kernels line is the
+    # most frequent launch shape (stages 1-5 and the post activation all move
+    # 6144*W elements). The card's clocks and power are sampled beside it.
     g = torch.Generator(device="cuda").manual_seed(8)
     k2 = {}
-    for shape in main_path_shapes():
-        x = torch.randn(shape, generator=g, device="cuda")
-        C = shape[1]
-        alpha = 0.3 * torch.randn(C, generator=g, device="cuda")
-        beta = 0.3 * torch.randn(C, generator=g, device="cuda")
-        ms = cuda_time_ms(lambda: anti_alias.anti_alias_snake(x, alpha, beta))
-        plain = cuda_time_ms(lambda: anti_alias.anti_alias_snake_reference(x, alpha, beta),
-                             iters=5)
-        n = x.numel()
-        b_ms, b_by = bound(56.0 * n, PEAK_F32, 8 * n + 8 * C)
-        k2[shape] = (ms, plain, b_ms, b_by)
-        log(f"K2 {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    with smi_sampler() as samples:
+        for shape in main_path_shapes():
+            x, alpha, beta, _ = k2_inputs(shape, "default", g)
+            ms = cuda_time_ms(lambda: anti_alias.anti_alias_snake(x, alpha, beta), iters=200)
+            plain = cuda_time_ms(lambda: anti_alias.anti_alias_snake_reference(x, alpha, beta),
+                                 iters=5)
+            # the practical floor of the bytes: a device copy of x (no yardstick
+            # of the function, so not the row's library_ms)
+            copy = cuda_time_ms(lambda: torch.empty_like(x).copy_(x), iters=200)
+            n, C = x.numel(), shape[1]
+            b_ms, b_by = bound(K2_FLOPS * n, PEAK_F32, 8 * n + 8 * C)
+            k2[shape] = (ms, plain, b_ms, b_by, copy)
+            log(f"K2 {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), bound share {b_ms / ms:.1%}"
+                + (" (over 100%: fed from the L2)" if b_ms > ms else "")
+                + f"; copy of x {copy:.4f} ms")
+    log("K2 windows, nvidia-smi clocks.sm, power.draw, power.limit, temperature.gpu: "
+        + " | ".join(samples))
     main_shape = main_path_shapes()[-1]
-    k2_ms, k2_plain, k2_bound, k2_by = k2[main_shape]
+    k2_ms, k2_plain, k2_bound, k2_by, _ = k2[main_shape]
     log(f"K1 {tuple(q.shape)} bf16 lens={n_valid}: kernel {k1_ms:.4f} ms (RoPE pre-pass alone "
         f"{prepass_ms:.4f} ms), plain {k1_plain:.4f} ms, sdpa {k1_lib:.4f} ms, "
         f"bound {k1_bound:.4f} ms ({k1_by})")
@@ -569,7 +716,9 @@ def phase_kernel_line(errs: dict, full: dict, mb_counts: dict) -> dict:
          "launches": full["counts"]["k2"],
          "max_abs_err": errs["k2"], "tol": K2_TOL,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
+         "bound_by": k2_by, "library_ms": None,
+         "stages": [{"shape": list(sh), "ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
+                     "bound_by": v[3], "copy_ms": v[4]} for sh, v in k2.items()]},
         {"name": "dit_attention", "route": "cuda",
          "source": "seedvc_tpu_torch/csrc/attention.cu",
          "replaces": "seedvc_tpu/ops/pallas/attention.py:247",

@@ -102,16 +102,57 @@ def test_attention_module_takes_kernel_at_ragged_T(monkeypatch, n_kv, counter, o
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("B,C,T", [(1, 768, 6144), (2, 24, 3001), (1, 48, 7), (1, 8, 1)])
-def test_anti_alias_kernel_matches_twin(B, C, T):
-    """fp32 FIR sums in another order -> 2e-5."""
+# K2 cases: the main path's largest and most frequent stage shapes, then the
+# kernel's corners: T % 4 != 0 (scalar loads and stores), T of one tile (1016
+# outputs, TT in anti_alias.cu) and one tile +- 1, two tiles + 1, T < 4 and
+# T = 1 (both edge patches in one tile), B = 2, logscale off, and a large alpha
+K2_CASES = [(1, 768, 6144, "default"), (1, 24, 393216, "default"), (2, 24, 3001, "default"),
+            (1, 48, 7, "default"), (1, 8, 1, "default"), (1, 24, 3, "default"),
+            (1, 24, 1016, "default"), (1, 24, 1015, "default"), (1, 24, 1017, "default"),
+            (1, 8, 2033, "default"), (2, 96, 1000, "default"), (1, 32, 1001, "linear"),
+            (2, 16, 4096, "linear"), (1, 24, 4099, "large_alpha")]
+
+
+def _k2_inputs(B, C, T, kind):
+    """As chip_smoke.k2_inputs: "linear" takes alpha, beta = |N| + 0.5 with
+    logscale off; "large_alpha" x ~ 2 N, log alpha ~ 3 + 0.3 N (|alpha u| up
+    to a few hundred: the range reduction of sin^2) and log beta ~ 2.5 + 0.3 N,
+    which keeps the function's gain 1 + alpha / e^beta on u's rounding (its
+    summation order differs from cuDNN's) within the limit."""
     x = _randn(3, B, C, T)
-    alpha, beta = 0.3 * _randn(4, C), 0.3 * _randn(5, C)
+    a, b = _randn(4, C), _randn(5, C)
+    if kind == "linear":
+        return x, a.abs() + 0.5, b.abs() + 0.5, False
+    if kind == "large_alpha":
+        return 2 * x, 3 + 0.3 * a, 2.5 + 0.3 * b, True
+    return x, 0.3 * a, 0.3 * b, True
+
+
+@pytest.mark.parametrize("B,C,T,kind", K2_CASES)
+def test_anti_alias_kernel_matches_twin(B, C, T, kind):
+    """fp32 FIR sums in another order, sin^2 by a polynomial -> 2e-5."""
+    x, alpha, beta, logscale = _k2_inputs(B, C, T, kind)
     before = anti_alias.LAUNCHES
-    out = anti_alias.anti_alias_snake(x, alpha, beta)
+    out = anti_alias.anti_alias_snake(x, alpha, beta, logscale)
     assert anti_alias.LAUNCHES == before + 1
-    torch.testing.assert_close(out, anti_alias.anti_alias_snake_reference(x, alpha, beta),
-                               atol=2e-5, rtol=0)
+    torch.testing.assert_close(
+        out, anti_alias.anti_alias_snake_reference(x, alpha, beta, logscale), atol=2e-5, rtol=0)
+
+
+def test_anti_alias_call_is_one_device_kernel():
+    """The wrapper does no device arithmetic of its own: one K2 call runs one
+    device kernel (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, alpha, beta, _ = _k2_inputs(1, 24, 4096, "default")
+    anti_alias.anti_alias_snake(x, alpha, beta)  # build and load outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        anti_alias.anti_alias_snake(x, alpha, beta)
+        torch.cuda.synchronize()
+    assert sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) == 1
 
 
 def test_wrappers_raise_when_build_fails(monkeypatch):
