@@ -9,17 +9,19 @@ failure exits non-zero:
    print ptxas's register lines and each kernel's SASS instruction count and
    commonest opcodes (``cuobjdump -sass``);
 3. kernels: each kernel against its plain PyTorch twin, on the card, at the
-   main path's shapes plus ragged ones, with the tolerance printed: K1's
-   RoPE pre-pass bit for bit; K1 and K3 (one source, RoPE on and off) in
-   bf16 and f32, with lens None, partial, the main path's (1966, 1477) and
-   with a 0 entry (every key masked), each with a planted fault that must
-   fail the limits; ``Attention(use_flash=True)`` at a T that is no multiple
-   of 512, which must launch K1 (or K3 with grouped KV heads) and agree with
-   its plain twins; and K2 at every stage shape of a chunk and at its
-   corners (T % 4 != 0, one tile and one tile +- 1, T = 1, B = 2,
-   ``logscale=False``, |alpha * u| of a few hundred), each with a planted
-   fault (one filter tap nudged) that must fail the limit, and one K2 call
-   profiled: it must run exactly one device kernel;
+   shapes of both conversion paths plus ragged ones, with the tolerance
+   printed: K1's RoPE pre-pass bit for bit; K1 and K3 (one source, RoPE on
+   and off) in bf16 and f32, with lens None, partial, the main path's
+   (1966, 1477) and with a 0 entry (every key masked), and K1 at the SVC
+   path's 12 heads with its lens (1966, 1493) and with a 0 entry, each with
+   a planted fault that must fail the limits; ``Attention(use_flash=True)``
+   at a T that is no multiple of 512, which must launch K1 (or K3 with
+   grouped KV heads) and agree with its plain twins; and K2 at every stage
+   shape of a 22 kHz and of a 44.1 kHz chunk and at its corners (T % 4 != 0,
+   one tile and one tile +- 1, T = 1, B = 2, ``logscale=False``,
+   |alpha * u| of a few hundred), each with a planted fault (one filter tap
+   nudged) that must fail the limit, and one K2 call profiled: it must run
+   exactly one device kernel;
 4. small: a small-config conversion on cuda (kernels) and on cpu (plain
    twins), f32, same weights and noise, compared; then the same config in
    bf16 (the main path's DiT precision) on cuda, kernels against the plain
@@ -30,12 +32,24 @@ failure exits non-zero:
    30 s source + 5 s reference, 25 steps, cfg 0.7, run cold, warm, and warm
    with a device synchronise after each stage (for the stage times); launch
    counts are checked against the plan (2 chunks: 650 K1, 218 K2, 0 K3);
-6. microbench: every component of ``seedvc_tpu_torch.apps.microbench`` at
+6. SVC, the ``whisper_base_f0_44k`` path: (a) a small F0-conditioned
+   conversion (reduced RMVPE) on cuda with the kernels and on cpu with the
+   plain twins, same weights and noise, waves and extracted F0 compared;
+   (b) RMVPE at full width on a 3 s vibrato tone, cuda against cpu
+   (salience, and F0 on the frames whose salience peak is clear); (c) the
+   full-width SVC path through its entry points, 30 s source + 5 s reference
+   written as wav files: ``python -m seedvc_tpu_torch.apps.infer
+   --f0-condition true --auto-f0-adjust true --semi-tone-shift 2`` (its wav
+   checked), then ``SeedVCWrapper().convert_voice(f0_condition=True)`` cold
+   and warm, and a warm run with a device synchronise after each stage;
+   launch counts are checked against the plan (2 chunks: 850 K1, 218 K2,
+   0 K3);
+7. microbench: every component of ``seedvc_tpu_torch.apps.microbench`` at
    full width, its JSON rows printed, and each component's launch counts
    checked (``attention`` K3 only, ``dit`` 13 K1 a call, ``vocoder`` 109 K2
    a call, ``serving*`` 25 x 13 K1 a sample, the rest none);
-7. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
-   library call at the main-path shapes (each timed window queued behind a
+8. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
+   library call at the shapes of both conversion paths (each timed window queued behind a
    spin kernel, so the host's dispatch rate does not enter), with each
    kernel's bound on an H100 SXM; before it, K3's time per head at
    B*H = 13, 16 and 26 (its wave tail), and K2 at all six stage shapes
@@ -43,7 +57,8 @@ failure exits non-zero:
    clock, power and temperature sampled by ``nvidia-smi`` beside the windows.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
-profiled warm conversion to phase 5 (device time by kernel, idle share).
+profiled warm conversion to phases 5 and 6 (device time by kernel, idle
+share).
 """
 
 from __future__ import annotations
@@ -66,8 +81,10 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
-# Main-path plan of a 30 s source with a 5 s reference (see plan_chunks).
+# Main-path plan of a 30 s source with a 5 s reference (see plan_chunks);
+# the SVC path's plan is the same at 44.1 kHz, hop 512.
 MAIN_CONTEXT, MAIN_W, MAIN_CHUNKS = 2048, 1536, 2
+UPSAMPLE_22K, UPSAMPLE_44K = (4, 4, 2, 2, 2, 2), (8, 4, 2, 2, 2, 2)
 # K1 limits as (max abs, relative L2 norm). bf16: with unit-normal q/k/v the
 # output's std is about sqrt(e/T) (0.036 at T = 2048), so the limit is set
 # from the measured error (4e-3: P and the output round to bf16 after a
@@ -81,6 +98,9 @@ K1_FAULT_KEYS = 64
 K1_CASES = [(512, None), (512, (438, 256)), (2048, None), (2048, (1755, 1024)),
             (2048, (1966, 1477)), (2048, (0, 1966)), (2560, None), (2560, (2195, 1280)),
             (777, None), (777, (666, 388)), (777, (0, 1))]
+# K1 at the SVC path's 12 heads (DiT 768 wide): its lens and a 0 entry
+K1_SVC_HEADS = 12
+K1_SVC_CASES = [(2048, (1966, 1493)), (2048, (0, 1966))]
 # K2: fp32 FIR sums in another order than cuDNN's, and sin^2 by a polynomial
 # (|err| <= 2e-7) where the twin calls sin. The planted fault is the twin with
 # one tap of the 12-tap filter nudged by 1e-4 (of 0.443), which must fail it.
@@ -102,7 +122,8 @@ def k2_cases() -> list:
     corners = [(1, 24, 3001), (1, 24, K2_TILE), (1, 24, K2_TILE - 1), (1, 24, K2_TILE + 1),
                (1, 8, 2 * K2_TILE + 1), (1, 24, 3), (1, 48, 7), (1, 8, 1), (2, 96, 1000),
                (2, 24, 3001)]
-    return ([(s, "default") for s in main_path_shapes() + corners]
+    return ([(s, "default") for s in stage_shapes(UPSAMPLE_22K) + stage_shapes(UPSAMPLE_44K)
+             + corners]
             + [((1, 32, 1001), "linear"), ((2, 16, 4096), "linear"),
                ((1, 24, 4099), "large_alpha"), ((1, 96, 24576), "large_alpha")])
 
@@ -232,13 +253,13 @@ def sass_summary(path) -> dict:
     return {f: (sum(c.values()), c) for f, c in kernels.items()}
 
 
-def _k1_inputs(T, dtype, lens, seed=0):
+def _k1_inputs(T, dtype, lens, seed=0, heads=8):
     import torch
 
     from seedvc_tpu_torch.nn.layers import rope_full_cache
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn((2, 8, T, 64), generator=g, device="cuda").to(dtype)
+    q, k, v = (torch.randn((2, heads, T, 64), generator=g, device="cuda").to(dtype)
                for _ in range(3))
     cos, sin = (torch.from_numpy(a).cuda() for a in rope_full_cache(T, 64))
     lens_t = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -256,7 +277,7 @@ def phase_kernels() -> dict:
 
     from seedvc_tpu_torch.ops import anti_alias, attention
 
-    errs = {"k1": 0.0, "k2": 0.0, "k3": 0.0}
+    errs = {"k1": 0.0, "k1_svc": 0.0, "k2": 0.0, "k2_svc": 0.0, "k3": 0.0}
     # K1's first stage: roped q times 2^-3 and roped k, bit for bit
     for T in (2048, 777):
         q, k, _, cos, sin, _ = _k1_inputs(T, torch.bfloat16, None, seed=3)
@@ -270,10 +291,13 @@ def phase_kernels() -> dict:
     for key, rope, kernel, twin in (
             ("k1", True, attention.dit_attention_fused, attention.dit_attention_fused_reference),
             ("k3", False, attention.dit_attention, attention.dit_attention_reference)):
+        cases = [(T, lens, 8) for T, lens in K1_CASES]
+        if rope:
+            cases += [(T, lens, K1_SVC_HEADS) for T, lens in K1_SVC_CASES]
         for dtype in (torch.bfloat16, torch.float32):
             atol, rtol = K1_TOL[str(dtype).split(".")[1]]
-            for T, lens in K1_CASES:
-                q, k, v, cos, sin, lens_t = _k1_inputs(T, dtype, lens)
+            for T, lens, heads in cases:
+                q, k, v, cos, sin, lens_t = _k1_inputs(T, dtype, lens, heads=heads)
                 args = (q, k, v, cos, sin) if rope else (q, k, v)
                 out = kernel(*args, lens_t)
                 ref = twin(*args, lens_t)
@@ -283,7 +307,7 @@ def phase_kernels() -> dict:
                 bad = twin(*args, n_valid - K1_FAULT_KEYS)
                 err, rel = k1_errors(out, ref)
                 f_err, f_rel = k1_errors(bad, ref)
-                what = f"{key.upper()} {kernel.__name__} (2,8,{T},64) {dtype} lens={lens}"
+                what = f"{key.upper()} {kernel.__name__} (2,{heads},{T},64) {dtype} lens={lens}"
                 log(f"{what}: max_abs_err {err:.3e} tol {atol:g}, rel_l2 {rel:.3e} "
                     f"tol {rtol:g}; planted fault max_abs {f_err:.3e} rel_l2 {f_rel:.3e}")
                 if not (err <= atol and rel <= rtol):
@@ -291,7 +315,8 @@ def phase_kernels() -> dict:
                 if f_err <= atol and f_rel <= rtol:
                     fail(f"{what}: the limit passes a planted fault")
                 if dtype == torch.bfloat16:
-                    errs[key] = max(errs[key], err)
+                    slot = key + ("_svc" if heads == K1_SVC_HEADS else "")
+                    errs[slot] = max(errs[slot], err)
     attention_module_check()
     g = torch.Generator(device="cuda").manual_seed(1)
     for shape, kind in k2_cases():
@@ -309,7 +334,8 @@ def phase_kernels() -> dict:
             fail(f"{what}: kernel disagrees with its plain twin")
         if f_err <= K2_TOL:
             fail(f"{what}: the limit passes a planted fault")
-        errs["k2"] = max(errs["k2"], err)
+        slot = "k2_svc" if shape in stage_shapes(UPSAMPLE_44K) else "k2"
+        errs[slot] = max(errs[slot], err)
     n = device_kernels(lambda: anti_alias.anti_alias_snake(x, alpha, beta, logscale))
     log(f"K2: one call ran {n} device kernel(s)")
     if n != 1:
@@ -352,10 +378,10 @@ def attention_module_check(T: int = 777):
             fail(f"Attention at T={T}: kernels and plain twins disagree")
 
 
-def main_path_shapes():
+def stage_shapes(rates):
     """BigVGAN stage shapes (1, C, T_s) of one W-frame chunk."""
     shapes, T = [], MAIN_W
-    for i, u in enumerate((4, 4, 2, 2, 2, 2)):
+    for i, u in enumerate(rates):
         T *= u
         shapes.append((1, 1536 // 2 ** (i + 1), T))
     return shapes
@@ -387,10 +413,11 @@ def read_counts() -> dict:
 SMALL_TOL = 2e-3  # f16 output wave: one f16 step near 1.0 is 4.9e-4
 
 
-def small_converter(device: str, dtype=None, kv_heads=None):
+def small_converter(device: str, dtype=None, kv_heads=None, f0: bool = False):
     """The small v1 converter, flash attention on (K1; the einsum path runs
     no kernel). With ``kv_heads`` its DiT has 4 query heads of 64 and a trunk
-    with that many KV heads, so its attention takes K3."""
+    with that many KV heads, so its attention takes K3. With ``f0`` it is
+    F0-conditioned (256 F0 bins) and its RMVPE is :func:`reduced_rmvpe`."""
     import dataclasses
 
     import torch
@@ -404,9 +431,11 @@ def small_converter(device: str, dtype=None, kv_heads=None):
     heads = 2 if kv_heads is None else 4
     cfg = c.SeedVCConfig(model_params=c.ModelParams(
         length_regulator=c.LengthRegulatorConfig(channels=128, in_channels=64,
-                                                 sampling_ratios=(1, 1)),
+                                                 sampling_ratios=(1, 1), f0_condition=f0,
+                                                 n_f0_bins=256),
         DiT=c.DiTConfig(hidden_dim=64 * heads, num_heads=heads, depth=3, content_dim=128,
-                        final_layer_type="wavenet", use_flash_attention=True),
+                        final_layer_type="wavenet", use_flash_attention=True,
+                        f0_condition=f0, n_f0_bins=256),
         wavenet=c.WavenetConfig(hidden_dim=64, num_layers=2)))
     vc = VoiceConverter(
         cfg, whisper_cfg=WhisperEncoderConfig(d_model=64, n_layers=1, n_heads=4, ffn_dim=128),
@@ -420,7 +449,31 @@ def small_converter(device: str, dtype=None, kv_heads=None):
             torch.manual_seed(1)
             trunk = Transformer(dataclasses.replace(dit.transformer.cfg, n_local_heads=kv_heads))
         dit.transformer = trunk.requires_grad_(False).eval().to(vc.device, vc.compute_dtype)
+    if f0:
+        vc.rmvpe = reduced_rmvpe(device)
     return vc
+
+
+RMVPE_SMALL = dict(n_blocks=1, en_de_layers=2, inter_layers=1, en_out_channels=4)
+
+
+def reduced_rmvpe(device: str):
+    """A reduced RMVPE from seed 0 whose output layer has one clear peak
+    (bias -4 + 8 exp(-((bin - 150) / 2)^2), input weights scaled by 0.3), so
+    that no frame's argmax sits within f32 rounding of a runner-up and the
+    cuda and cpu runs decode the same bins."""
+    import torch
+
+    from seedvc_tpu_torch.models.rmvpe import RMVPE, RMVPE_E2E
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        m = RMVPE_E2E(**RMVPE_SMALL)
+    with torch.no_grad():
+        m.fc_linear.weight.mul_(0.3)
+        bins = torch.arange(360, dtype=torch.float32)
+        m.fc_linear.bias.copy_(-4 + 8 * torch.exp(-((bins - 150) / 2) ** 2))
+    return RMVPE(m.requires_grad_(False).eval().to(device))
 
 
 @contextlib.contextmanager
@@ -546,17 +599,19 @@ def phase_full(card: str, profile: bool = False) -> dict:
             result = {"wall_s": wall, "audio_s": secs, "counts": counts, "p_len": p_len,
                       "W": plan[2]}
     if profile:
-        profile_conversion(vc, src, ref, sr, result["wall_s"])
+        profile_conversion(lambda: vc.convert(src, sr, ref, sr, diffusion_steps=25,
+                                              cfg_rate=0.7), result["wall_s"])
     return result
 
 
 PORT_KERNELS = ("attn_core_kernel", "rope_prepass", "anti_alias_snake_kernel")
 
 
-def profile_conversion(vc, src, ref, sr, warm_wall: float):
-    """One more warm conversion under torch.profiler: device time by kernel,
-    and the device's idle share of the profiled wall and of the unprofiled
-    warm wall (the profiler slows the host, so the first overstates it)."""
+def profile_conversion(run, warm_wall: float):
+    """One more warm conversion, ``run()``, under torch.profiler: device time
+    by kernel, and the device's idle share of the profiled wall and of the
+    unprofiled warm wall (the profiler slows the host, so the first
+    overstates it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -565,7 +620,7 @@ def profile_conversion(vc, src, ref, sr, warm_wall: float):
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        vc.convert(src, sr, ref, sr, diffusion_steps=25, cfg_rate=0.7)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
@@ -581,6 +636,197 @@ def profile_conversion(vc, src, ref, sr, warm_wall: float):
     log(f"profile: {sum(e.count for e in kernels)} device kernels busy {busy:.3f} s; "
         f"profiled wall {wall:.3f} s (idle share {1 - busy / wall:.3f}); "
         f"unprofiled warm wall {warm_wall:.3f} s (idle share {1 - busy / warm_wall:.3f})")
+
+
+# RMVPE, cuda against cpu (f32, TF32 off): the salience's max abs error, and
+# decoded F0 compared (relative) on the frames whose salience peak clears
+# both the 0.03 voicing threshold and the runner-up bin by RMVPE_MARGIN;
+# elsewhere f32 rounding may move the argmax. At least RMVPE_CLEAR of the
+# frames must be clear.
+RMVPE_SAL_TOL = 1e-5
+RMVPE_F0_RTOL = 1e-4
+RMVPE_MARGIN = 1e-3
+RMVPE_CLEAR = 0.5
+SVC_PRESET = "whisper_base_f0_44k"
+
+
+def f0_agreement(what: str, sal_a, sal_b, f0_a, f0_b, min_clear: float):
+    """Hold two RMVPE runs to each other (see RMVPE_SAL_TOL)."""
+    sal_err = float(np.abs(sal_a - sal_b).max())
+    top2 = np.sort(sal_b, axis=-1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0] > RMVPE_MARGIN) & (top2[..., 1] > 0.03 + RMVPE_MARGIN)
+    same_bin = np.argmax(sal_a, -1) == np.argmax(sal_b, -1)
+    rel = np.abs(f0_a - f0_b)[clear] / np.maximum(f0_b[clear], 1e-9)
+    f0_err = float(rel.max()) if rel.size else 0.0
+    log(f"{what}: salience max_abs_err {sal_err:.3e} tol {RMVPE_SAL_TOL:g}; "
+        f"argmax equal on {same_bin.mean():.4f} of {same_bin.size} frames; "
+        f"{clear.mean():.4f} clear (margin {RMVPE_MARGIN:g}), F0 max rel err there "
+        f"{f0_err:.3e} tol {RMVPE_F0_RTOL:g}; voiced {(f0_b > 0).mean():.3f}")
+    if not (sal_err <= RMVPE_SAL_TOL and f0_err <= RMVPE_F0_RTOL and clear.mean() >= min_clear):
+        fail(f"{what}: cuda and cpu disagree")
+
+
+def phase_svc_small():
+    """(a) the small F0-conditioned conversion, cuda (kernels) against cpu
+    (plain twins), f32, same weights and noise; the F0 each side extracted
+    is recorded and compared too."""
+    import torch
+
+    src = synthetic_audio(8.0, 22050, 140.0, seed=11)
+    ref = synthetic_audio(1.5, 22050, 220.0, seed=12)
+    noise = np.random.default_rng(13).standard_normal((512, 80)).astype(np.float32)
+
+    def run(device):
+        vc = small_converter(device, f0=True)
+        f0s = []
+        extract = vc.extract_f0
+
+        def recorded(*a, **kw):
+            f0s.append(extract(*a, **kw))
+            return f0s[-1]
+
+        vc.extract_f0 = recorded
+        reset_counts()
+        _, wave, stats = vc.convert(
+            src, 22050, ref, 22050, diffusion_steps=SMALL_STEPS, cfg_rate=0.7,
+            auto_f0_adjust=True, pitch_shift=2.0,
+            noise_fn=lambda s: torch.from_numpy(noise[: s[1]][None]))
+        counts = read_counts()
+        log(f"svc small conversion on {device}: {len(wave)} samples, {stats['chunks']} chunks, "
+            f"stages {sorted(stats['stages'])}, launches {counts}")
+        if "f0" not in stats["stages"]:
+            fail("svc small conversion has no f0 stage")
+        expect = stats["chunks"] * SMALL_STEPS * SMALL_DEPTH if device == "cuda" else 0
+        if counts["k1"] != expect or counts["k3"] != 0 or (counts["k2"] > 0) != (device == "cuda"):
+            fail(f"svc small conversion on {device} launched the wrong code: {counts}")
+        return wave, f0s[0]
+
+    (w_cpu, (alt_cpu, ori_cpu)), (w_cuda, (alt_cuda, ori_cuda)) = run("cpu"), run("cuda")
+    f0_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                 for a, b in ((alt_cuda, alt_cpu), (ori_cuda, ori_cpu)))
+    err, snr = compare_waves("svc small conversion", w_cpu, w_cuda)
+    log(f"svc small conversion cuda vs cpu: F0 max rel err {f0_err:.3e} tol {RMVPE_F0_RTOL:g} "
+        f"(voiced {(alt_cpu > 0).mean():.3f}), wave max_abs_err {err:.3e} tol {SMALL_TOL:g}, "
+        f"SNR {snr:.1f} dB")
+    if not (f0_err <= RMVPE_F0_RTOL and err <= SMALL_TOL):
+        fail("svc small conversion: cuda and cpu disagree")
+
+
+def phase_rmvpe_full():
+    """(b) RMVPE at full width on a 3 s vibrato tone, cuda against cpu."""
+    import copy
+
+    import torch
+
+    from seedvc_tpu_torch.core.profiling import cuda_time_ms
+    from seedvc_tpu_torch.models.rmvpe import RMVPE, RMVPE_E2E, decode_f0
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = RMVPE_E2E().requires_grad_(False).eval()
+    on_cpu, on_cuda = RMVPE(copy.deepcopy(model)), RMVPE(model.cuda())
+    audio = synthetic_audio(3.0, 16000, 180.0, seed=14)[None]
+    t0 = time.perf_counter()
+    sal_cpu = on_cpu.salience(audio).numpy()[0]
+    cpu_s = time.perf_counter() - t0
+    sal_cuda = on_cuda.salience(audio).cpu().numpy()[0]
+    ms = cuda_time_ms(lambda: on_cuda.salience(audio), iters=5, warmup=1)
+    log(f"rmvpe full width (1, {audio.shape[1]}) 16 kHz: {sal_cuda.shape[0]} frames; "
+        f"cuda {ms:.2f} ms a call, cpu {cpu_s:.2f} s")
+    f0_agreement("rmvpe full width cuda vs cpu", sal_cuda, sal_cpu, decode_f0(sal_cuda),
+                 decode_f0(sal_cpu), RMVPE_CLEAR)
+
+
+def check_counts(what: str, counts: dict, expect: dict):
+    if counts != expect:
+        fail(f"{what}: launch counts {counts}, expected {expect}")
+
+
+def phase_svc(card: str, profile: bool = False) -> dict:
+    """(c) the full-width SVC path through the CLI and the wrapper."""
+    import tempfile
+
+    import torch
+
+    from seedvc_tpu_torch.apps import infer
+    from seedvc_tpu_torch.apps.audio_io import load_wav, save_wav
+    from seedvc_tpu_torch.core.config import get_preset
+    from seedvc_tpu_torch.pipelines.convert import OVERLAP_FRAMES
+    from seedvc_tpu_torch.pipelines.wrapper import SeedVCWrapper
+
+    phase_svc_small()
+    phase_rmvpe_full()
+    cfg = get_preset(SVC_PRESET)
+    sr, hop = cfg.sr, cfg.preprocess_params.spect_params.hop_length
+    src = synthetic_audio(30.0, sr, 140.0, seed=15)
+    ref = synthetic_audio(5.0, sr, 220.0, seed=16)
+    expect = {"k1": MAIN_CHUNKS * 25 * cfg.dit.depth, "k2": MAIN_CHUNKS * 109, "k3": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        src_path, ref_path = os.path.join(tmp, "src.wav"), os.path.join(tmp, "ref.wav")
+        save_wav(src_path, src, sr)
+        save_wav(ref_path, ref, sr)
+        src, ref = load_wav(src_path)[0], load_wav(ref_path)[0]  # what the CLI reads
+        reset_counts()
+        t0 = time.perf_counter()
+        infer.main(["--source", src_path, "--target", ref_path, "--output",
+                    os.path.join(tmp, "out"), "--f0-condition", "true", "--auto-f0-adjust",
+                    "true", "--semi-tone-shift", "2", "--diffusion-steps", "25"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        (name,) = os.listdir(os.path.join(tmp, "out"))
+        wave, out_sr = load_wav(os.path.join(tmp, "out", name))
+        log(f"svc cli: {time.perf_counter() - t0:.1f} s (build included), wrote {name}: "
+            f"{out_sr} Hz, {len(wave)} samples, launches {counts}")
+        if out_sr != sr or len(wave) != len(src) // hop * hop or not np.isfinite(wave).all():
+            fail(f"svc cli wrote {out_sr} Hz, {len(wave)} samples, expected {sr} Hz, "
+                 f"{len(src) // hop * hop} finite samples")
+        check_counts("svc cli", counts, expect)
+
+    t0 = time.perf_counter()
+    wrap = SeedVCWrapper()
+    vc = wrap.converter(True)
+    log(f"svc: {SVC_PRESET} built in {time.perf_counter() - t0:.1f} s (compute dtype "
+        f"{vc.compute_dtype}, DiT {cfg.dit.hidden_dim} wide, {cfg.dit.depth} deep, "
+        f"{cfg.dit.num_heads} heads)")
+    target_len, p_len = len(src) // hop, len(ref) // hop
+    plan = vc.plan_chunks(target_len, p_len)
+    step = plan[2] - OVERLAP_FRAMES
+    lens = [p_len + min(plan[2], target_len - i * step) for i in range(MAIN_CHUNKS)]
+    log(f"svc: plan (prompt_cap, context, W) = {plan}, K1 lens by chunk {lens}")
+    if plan[1:] != (MAIN_CONTEXT, MAIN_W):
+        fail(f"unexpected svc plan {plan}")
+    result = {}
+    kw = dict(f0_condition=True, diffusion_steps=25, inference_cfg_rate=0.7,
+              auto_f0_adjust=True, pitch_shift=2.0)
+    for run in ("cold", "warm", "warm, stages synced"):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if run == "warm, stages synced":
+            _, wave, stats = vc.convert(src, sr, ref, sr, diffusion_steps=25, cfg_rate=0.7,
+                                        auto_f0_adjust=True, pitch_shift=2.0, profile=True)
+        else:
+            ((_, wave, stats),) = wrap.convert_voice(src, sr, ref, sr, stream_output=False, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        secs = len(wave) / sr
+        log(f"svc {run}: {wall:.3f} s wall for {secs:.2f} s of audio "
+            f"({secs / wall:.2f} audio-s/s), {stats['chunks']} chunks, launches {counts}, "
+            f"on {card}")
+        log("  stages: " + json.dumps({k: round(v["seconds"], 4)
+                                       for k, v in stats["stages"].items()}))
+        if not np.isfinite(wave).all() or len(wave) != target_len * hop or "f0" not in stats[
+                "stages"]:
+            fail(f"svc {run}: {len(wave)} samples (expected {target_len * hop}), "
+                 f"stages {sorted(stats['stages'])}, or non-finite audio")
+        check_counts(f"svc {run}", counts, expect)
+        if run == "warm":
+            result = {"wall_s": wall, "audio_s": secs, "counts": counts, "lens": lens}
+    if profile:
+        profile_conversion(lambda: list(wrap.convert_voice(src, sr, ref, sr, stream_output=False,
+                                                           **kw)), result["wall_s"])
+    return result
 
 
 # Kernel launches per call of each microbench component at full width
@@ -626,29 +872,94 @@ def smi_sampler(period_ms: int = 100):
         samples.extend(line.strip() for line in out.splitlines() if line.strip())
 
 
-def phase_kernel_line(errs: dict, full: dict, mb_counts: dict) -> dict:
+def k1_timing(T: int, heads: int, n_valid: int, seed: int) -> dict:
+    """K1 against its plain twin and SDPA (on the same roped q, k) at q/k/v
+    (2, heads, T, 64) bf16 with n_valid keys, and its bound."""
     import torch
     import torch.nn.functional as F
 
     from seedvc_tpu_torch.core.profiling import cuda_time_ms
-    from seedvc_tpu_torch.ops import anti_alias, attention
+    from seedvc_tpu_torch.ops import attention
 
-    # K1 at the main path's shape: CFG-stacked (2, 8, context, 64) bf16, keys
-    # valid up to prompt + first chunk
-    T = MAIN_CONTEXT
-    n_valid = min(full["p_len"] + full["W"], T)
-    q, k, v, cos, sin, lens = _k1_inputs(T, torch.bfloat16, (n_valid, n_valid), seed=7)
-    k1_ms = cuda_time_ms(lambda: attention.dit_attention_fused(q, k, v, cos, sin, lens))
-    k1_plain = cuda_time_ms(lambda: attention.dit_attention_fused_reference(
+    q, k, v, cos, sin, lens = _k1_inputs(T, torch.bfloat16, (n_valid, n_valid), seed=seed,
+                                         heads=heads)
+    ms = cuda_time_ms(lambda: attention.dit_attention_fused(q, k, v, cos, sin, lens))
+    plain = cuda_time_ms(lambda: attention.dit_attention_fused_reference(
         q, k, v, cos, sin, lens), iters=5)
-    prepass_ms = cuda_time_ms(lambda: attention.rope_prepass(q, k, cos, sin))
+    prepass = cuda_time_ms(lambda: attention.rope_prepass(q, k, cos, sin))
     qr = attention.rope_scaled_reference(q, cos, sin)
     kr = attention.rope_scaled_reference(k, cos, sin)
     mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-    k1_lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, attn_mask=mask))
+    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, attn_mask=mask))
     B, H, _, d = q.shape
-    k1_bound, k1_by = bound(4.0 * d * T * H * n_valid * B, PEAK_BF16,
-                            4 * B * H * T * d * 2 + 2 * T * d * 4 + B * 4)
+    b_ms, b_by = bound(4.0 * d * T * H * n_valid * B, PEAK_BF16,
+                       4 * B * H * T * d * 2 + 2 * T * d * 4 + B * 4)
+    log(f"K1 {tuple(q.shape)} bf16 lens={n_valid}: kernel {ms:.4f} ms (RoPE pre-pass alone "
+        f"{prepass:.4f} ms), plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return {"shape": f"q/k/v {tuple(q.shape)} bf16, lens {n_valid}", "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def k2_timing(rates) -> dict:
+    """K2 at every stage shape of a chunk: kernel, plain twin, bound, and a
+    device copy of x (the practical floor of the bytes; no yardstick of the
+    function, so not a row's library_ms)."""
+    import torch
+
+    from seedvc_tpu_torch.core.profiling import cuda_time_ms
+    from seedvc_tpu_torch.ops import anti_alias
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    k2 = {}
+    for shape in stage_shapes(rates):
+        x, alpha, beta, _ = k2_inputs(shape, "default", g)
+        ms = cuda_time_ms(lambda: anti_alias.anti_alias_snake(x, alpha, beta), iters=200)
+        plain = cuda_time_ms(lambda: anti_alias.anti_alias_snake_reference(x, alpha, beta),
+                             iters=5)
+        copy = cuda_time_ms(lambda: torch.empty_like(x).copy_(x), iters=200)
+        n, C = x.numel(), shape[1]
+        b_ms, b_by = bound(K2_FLOPS * n, PEAK_F32, 8 * n + 8 * C)
+        k2[shape] = (ms, plain, b_ms, b_by, copy)
+        log(f"K2 {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), bound share {b_ms / ms:.1%}"
+            + (" (over 100%: fed from the L2)" if b_ms > ms else "")
+            + f"; copy of x {copy:.4f} ms")
+    return k2
+
+
+def k2_row(k2: dict, launches: int, err: float, path: str) -> dict:
+    """The kernels line's K2 row: the most frequent launch shape (stages 1-5
+    and the post activation move the same bytes), and every stage."""
+    shape = list(k2)[-1]
+    ms, plain, b_ms, b_by, _ = k2[shape]
+    return {"name": "anti_alias_snake", "route": "cuda", "path": path,
+            "source": "seedvc_tpu_torch/csrc/anti_alias.cu",
+            "replaces": "seedvc_tpu/ops/pallas/anti_alias.py:303 (and :242, C <= 64)",
+            "shape": f"x {shape} f32", "launches": launches, "max_abs_err": err, "tol": K2_TOL,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "stages": [{"shape": list(sh), "ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
+                        "bound_by": v[3], "copy_ms": v[4]} for sh, v in k2.items()]}
+
+
+def k1_row(t: dict, launches: int, err: float, path: str) -> dict:
+    return {"name": "dit_attention_fused", "route": "cuda", "path": path,
+            "source": "seedvc_tpu_torch/csrc/attention.cu",
+            "replaces": "seedvc_tpu/ops/pallas/attention.py:171", "launches": launches,
+            "max_abs_err": err, "tol": K1_TOL["bfloat16"][0], **t}
+
+
+def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from seedvc_tpu_torch.core.profiling import cuda_time_ms
+    from seedvc_tpu_torch.ops import attention
+
+    # K1 at each path's shape: CFG-stacked (2, H, context, 64) bf16, keys
+    # valid up to prompt + first chunk
+    k1_main = k1_timing(MAIN_CONTEXT, 8, min(full["p_len"] + full["W"], MAIN_CONTEXT), seed=7)
+    k1_svc = k1_timing(MAIN_CONTEXT, K1_SVC_HEADS, svc["lens"][0], seed=17)
 
     # K3 at its entry point's shape: the microbench attention component,
     # q/k/v (2, 8, 2560, 64) bf16 after RoPE, every key valid
@@ -657,6 +968,7 @@ def phase_kernel_line(errs: dict, full: dict, mb_counts: dict) -> dict:
     k3_ms = cuda_time_ms(lambda: attention.dit_attention(q3, k3, v3))
     k3_plain = cuda_time_ms(lambda: attention.dit_attention_reference(q3, k3, v3), iters=5)
     k3_lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(q3, k3, v3))
+    B, H, _, d = q3.shape
     k3_bound, k3_by = bound(4.0 * B * H * T3 * T3 * d, PEAK_BF16, 4 * B * H * T3 * d * 2)
     log(f"K3 {tuple(q3.shape)} bf16 lens=None: kernel {k3_ms:.4f} ms, plain {k3_plain:.4f} ms, "
         f"sdpa {k3_lib:.4f} ms, bound {k3_bound:.4f} ms ({k3_by})")
@@ -672,54 +984,18 @@ def phase_kernel_line(errs: dict, full: dict, mb_counts: dict) -> dict:
         + ", ".join(f"{n}: {t:.5f}" for n, t in sorted(per_head.items()))
         + f"; tail share at B*H = {B * H}: {1 - per_head[26] / per_head[B * H]:.3f}")
 
-    # K2 at every stage shape of a chunk; the row of the kernels line is the
-    # most frequent launch shape (stages 1-5 and the post activation all move
-    # 6144*W elements). The card's clocks and power are sampled beside it.
-    g = torch.Generator(device="cuda").manual_seed(8)
-    k2 = {}
+    # K2 at every stage shape of a 22 kHz and of a 44.1 kHz chunk, the card's
+    # clocks and power sampled beside them
     with smi_sampler() as samples:
-        for shape in main_path_shapes():
-            x, alpha, beta, _ = k2_inputs(shape, "default", g)
-            ms = cuda_time_ms(lambda: anti_alias.anti_alias_snake(x, alpha, beta), iters=200)
-            plain = cuda_time_ms(lambda: anti_alias.anti_alias_snake_reference(x, alpha, beta),
-                                 iters=5)
-            # the practical floor of the bytes: a device copy of x (no yardstick
-            # of the function, so not the row's library_ms)
-            copy = cuda_time_ms(lambda: torch.empty_like(x).copy_(x), iters=200)
-            n, C = x.numel(), shape[1]
-            b_ms, b_by = bound(K2_FLOPS * n, PEAK_F32, 8 * n + 8 * C)
-            k2[shape] = (ms, plain, b_ms, b_by, copy)
-            log(f"K2 {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}), bound share {b_ms / ms:.1%}"
-                + (" (over 100%: fed from the L2)" if b_ms > ms else "")
-                + f"; copy of x {copy:.4f} ms")
+        k2_main = k2_timing(UPSAMPLE_22K)
+        k2_svc = k2_timing(UPSAMPLE_44K)
     log("K2 windows, nvidia-smi clocks.sm, power.draw, power.limit, temperature.gpu: "
         + " | ".join(samples))
-    main_shape = main_path_shapes()[-1]
-    k2_ms, k2_plain, k2_bound, k2_by, _ = k2[main_shape]
-    log(f"K1 {tuple(q.shape)} bf16 lens={n_valid}: kernel {k1_ms:.4f} ms (RoPE pre-pass alone "
-        f"{prepass_ms:.4f} ms), plain {k1_plain:.4f} ms, sdpa {k1_lib:.4f} ms, "
-        f"bound {k1_bound:.4f} ms ({k1_by})")
+    main_path, svc_path = "whisper_small_wavenet conversion", f"{SVC_PRESET} SVC conversion"
     return {"kernels": [
-        {"name": "dit_attention_fused", "route": "cuda",
-         "source": "seedvc_tpu_torch/csrc/attention.cu",
-         "replaces": "seedvc_tpu/ops/pallas/attention.py:171",
-         "shape": f"q/k/v {tuple(q.shape)} bf16, lens {n_valid}",
-         "launches": full["counts"]["k1"],
-         "max_abs_err": errs["k1"], "tol": K1_TOL["bfloat16"][0],
-         "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": k1_lib},
-        {"name": "anti_alias_snake", "route": "cuda",
-         "source": "seedvc_tpu_torch/csrc/anti_alias.cu",
-         "replaces": "seedvc_tpu/ops/pallas/anti_alias.py:303 (and :242, C <= 64)",
-         "shape": f"x {main_shape} f32",
-         "launches": full["counts"]["k2"],
-         "max_abs_err": errs["k2"], "tol": K2_TOL,
-         "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None,
-         "stages": [{"shape": list(sh), "ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
-                     "bound_by": v[3], "copy_ms": v[4]} for sh, v in k2.items()]},
-        {"name": "dit_attention", "route": "cuda",
+        k1_row(k1_main, full["counts"]["k1"], errs["k1"], main_path),
+        k2_row(k2_main, full["counts"]["k2"], errs["k2"], main_path),
+        {"name": "dit_attention", "route": "cuda", "path": "microbench attention",
          "source": "seedvc_tpu_torch/csrc/attention.cu",
          "replaces": "seedvc_tpu/ops/pallas/attention.py:247",
          "shape": f"q/k/v {tuple(q3.shape)} bf16, lens None",
@@ -727,13 +1003,16 @@ def phase_kernel_line(errs: dict, full: dict, mb_counts: dict) -> dict:
          "max_abs_err": errs["k3"], "tol": K1_TOL["bfloat16"][0],
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": k3_lib},
+        k1_row(k1_svc, svc["counts"]["k1"], errs["k1_svc"], svc_path),
+        k2_row(k2_svc, svc["counts"]["k2"], errs["k2_svc"], svc_path),
     ]}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one warm full conversion (torch.profiler)")
+                    help="also profile one warm conversion of each full-width path "
+                         "(torch.profiler)")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     card = phase_device()
@@ -746,8 +1025,9 @@ def main(argv=None) -> int:
     errs = phase_kernels()
     phase_small()
     full = phase_full(card, args.profile)
+    svc = phase_svc(card, args.profile)
     mb_counts = phase_microbench()
-    line = phase_kernel_line(errs, full, mb_counts)
+    line = phase_kernel_line(errs, full, svc, mb_counts)
     log(card)
     print(json.dumps(line), flush=True)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

@@ -9,3 +9,8 @@ def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
     """Boolean mask of shape (B, max_length), True where t < lengths[b]."""
     positions = torch.arange(max_length, device=lengths.device)[None, :]
     return positions < lengths[:, None]
+
+
+def str2bool(v) -> bool:
+    """argparse-friendly bool (copy of ``seedvc_tpu/core/utils.py::str2bool``)."""
+    return str(v).lower() in ("yes", "true", "t", "y", "1")

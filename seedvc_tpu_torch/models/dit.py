@@ -58,8 +58,10 @@ class DiT(nn.Module):
     def __init__(self, mp: ModelParams):
         super().__init__()
         dc = mp.DiT
-        if dc.f0_condition or dc.time_as_token or dc.style_as_token:
-            raise NotImplementedError("F0 conditioning and prefix tokens are not ported")
+        # f0_condition only gates the regulator's F0 embedding: the DiT does
+        # no F0 work of its own
+        if dc.time_as_token or dc.style_as_token:
+            raise NotImplementedError("prefix tokens are not ported")
         self.mp = mp
         C = dc.in_channels
         static_in = C + C + dc.hidden_dim

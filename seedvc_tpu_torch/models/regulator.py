@@ -1,8 +1,10 @@
 """Length regulator: content features -> mel-rate conditioning
-(port of ``seedvc_tpu/models/regulator.py``, continuous content, no F0).
+(port of ``seedvc_tpu/models/regulator.py``, continuous content).
 
 Project the content, nearest-interpolate it along time to ``ylens.max()``,
-then a conv -> GroupNorm(1) -> Mish stack and a 1x1 projection. The output
+add the quantised-F0 embedding (or a learned mask when F0 conditioning is on
+and no F0 is given), then a conv -> GroupNorm(1) -> Mish stack and a 1x1
+projection. The output
 buffer has a fixed length ``target_len``; positions past ``ylens.max()`` are
 zeroed before every conv and excluded from the GroupNorm statistics, so the
 result equals running on a tensor that really ends there.
@@ -12,12 +14,32 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from seedvc_tpu_torch.core.config import LengthRegulatorConfig
 from seedvc_tpu_torch.core.utils import sequence_mask
+
+F0_MIN = 50.0
+F0_MAX = 1100.0
+F0_MEL_MIN = 1127.0 * np.log(1 + F0_MIN / 700.0)
+F0_MEL_MAX = 1127.0 * np.log(1 + F0_MAX / 700.0)
+
+
+def f0_to_coarse(f0: torch.Tensor, f0_bin: int) -> torch.Tensor:
+    """Mel-scale coarse F0 bins, int64. Rounds half to even (as the JAX
+    package's ``jnp.round``); unvoiced (0 Hz) maps to bin 1 and bins
+    ``>= f0_bin`` wrap to 0."""
+    f0_mel = 1127.0 * torch.log(1.0 + f0 / 700.0)
+    a = (f0_bin - 2) / (F0_MEL_MAX - F0_MEL_MIN)
+    b = F0_MEL_MIN * a - 1.0
+    f0_mel = torch.where(f0_mel > 0, f0_mel * a - b, f0_mel)
+    coarse = torch.round(f0_mel).long()
+    coarse = coarse * (coarse > 0)
+    coarse = coarse + (coarse < 1)
+    return coarse * (coarse < f0_bin)
 
 
 def nearest_interpolate_to(x: torch.Tensor, out_len: torch.Tensor, target_len: int,
@@ -58,27 +80,39 @@ class MaskedGroupNorm(nn.Module):
 class InterpolateRegulator(nn.Module):
     def __init__(self, cfg: LengthRegulatorConfig):
         super().__init__()
-        if cfg.is_discrete or cfg.f0_condition or cfg.vector_quantize:
-            raise NotImplementedError(
-                "discrete content, F0 conditioning and VQ are not ported")
+        if cfg.is_discrete or cfg.vector_quantize:
+            raise NotImplementedError("discrete content and VQ are not ported")
         self.cfg = cfg
         self.content_in_proj = nn.Linear(cfg.in_channels, cfg.channels)
+        if cfg.f0_condition:
+            self.f0_mask = nn.Parameter(torch.zeros(1, cfg.channels))
+            self.f0_embedding = nn.Embedding(cfg.n_f0_bins, cfg.channels)
         for i in range(len(cfg.sampling_ratios)):
             self.add_module(f"conv_{i}", nn.Conv1d(cfg.channels, cfg.channels, 3, padding=1))
             self.add_module(f"norm_{i}", MaskedGroupNorm(cfg.channels))
         self.out_proj = nn.Linear(cfg.channels, cfg.channels)
 
     def forward(self, x: torch.Tensor, ylens: torch.Tensor, target_len: int,
-                x_lens: Optional[torch.Tensor] = None):
+                f0: Optional[torch.Tensor] = None, x_lens: Optional[torch.Tensor] = None,
+                f0_lens: Optional[torch.Tensor] = None):
         """x: (B, T_in, C_in) content; ylens: (B,) target lengths; target_len:
-        the output buffer length; x_lens: () true content length or None.
+        the output buffer length; f0: (B, T_f0) Hz or None; x_lens / f0_lens:
+        () true content / F0 lengths inside their buffers, or None.
         Returns (out (B, target_len, channels), ylens)."""
+        c = self.cfg
         h = self.content_in_proj(x)
         out_len = ylens.max()
         h = nearest_interpolate_to(h, out_len, target_len, in_len=x_lens)
+        if c.f0_condition:
+            if f0 is None:
+                h = h + self.f0_mask[None]
+            else:
+                q = torch.clamp(f0_to_coarse(f0, c.n_f0_bins), 0, c.n_f0_bins - 1)
+                h = h + nearest_interpolate_to(self.f0_embedding(q), out_len, target_len,
+                                               in_len=f0_lens)
         valid = (torch.arange(target_len, device=x.device) < out_len).to(h.dtype)[None, None]
         h = h.transpose(1, 2) * valid
-        for i in range(len(self.cfg.sampling_ratios)):
+        for i in range(len(c.sampling_ratios)):
             h = getattr(self, f"conv_{i}")(h)
             h = getattr(self, f"norm_{i}")(h, valid, out_len)
             h = h * torch.tanh(F.softplus(h)) * valid  # Mish

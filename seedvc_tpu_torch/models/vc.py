@@ -17,8 +17,9 @@ class VCModel(nn.Module):
         self.length_regulator = InterpolateRegulator(mp.length_regulator)
         self.cfm = CFM(mp)
 
-    def regulate(self, features, ylens, target_len, x_lens=None):
-        return self.length_regulator(features, ylens, target_len, x_lens=x_lens)[0]
+    def regulate(self, features, ylens, target_len, f0=None, x_lens=None, f0_lens=None):
+        return self.length_regulator(features, ylens, target_len, f0, x_lens=x_lens,
+                                     f0_lens=f0_lens)[0]
 
     def estimate(self, x, prompt_x, x_lens, t, style, cond, static_cond=None):
         return self.cfm.estimate(x, prompt_x, x_lens, t, style, cond, static_cond=static_cond)

@@ -4,14 +4,17 @@
 2. Whisper semantic features in 30 s windows (5 s overlap, 250 overlapped
    frames dropped on concat),
 3. mel of the reference, CAMPPlus style from a kaldi fbank,
-4. length-regulate source and reference content,
-5. chunked CFM generation: per chunk, condition = [reference prompt ‖ source
+4. with F0 conditioning (the SVC presets): RMVPE F0 of source and reference,
+   the source's matched to the reference's median log-F0 and shifted by
+   ``pitch_shift`` semitones,
+5. length-regulate source and reference content (and F0),
+6. chunked CFM generation: per chunk, condition = [reference prompt ‖ source
    chunk] in one fixed context window chosen by :func:`plan_chunks`,
-6. BigVGAN vocoding per chunk, 16-frame cosine^2 crossfade joins.
+7. BigVGAN vocoding per chunk, 16-frame cosine^2 crossfade joins.
 
 The lengths are bucketed as in the JAX package (5 s mel buckets with a
-reflect-continued tail, 1 s style buckets, 256-frame regulate buckets), so the
-two give the same numbers on the same weights and noise.
+reflect-continued tail, 1 s style buckets, 256-frame regulate and F0
+buckets), so the two give the same numbers on the same weights and noise.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from seedvc_tpu_torch.dsp.whisper_mel import whisper_log_mel
 from seedvc_tpu_torch.models.bigvgan import BIGVGAN_22K_80, BIGVGAN_44K_128, BigVGAN
 from seedvc_tpu_torch.models.campplus import CAMPPlus
 from seedvc_tpu_torch.models.cfm import euler_solve
+from seedvc_tpu_torch.models.rmvpe import RMVPE, RMVPE_E2E
 from seedvc_tpu_torch.models.vc import VCModel
 from seedvc_tpu_torch.models.whisper import WHISPER_SMALL, WhisperEncoder, WhisperEncoderConfig
 from seedvc_tpu_torch.weights import load_jax_params
@@ -73,9 +77,9 @@ class VoiceConverter:
     ``device`` defaults to ``cuda`` and raises when there is none; pass
     ``device="cpu"`` to run the plain PyTorch twins of the kernels.
     ``compute_dtype`` defaults to bfloat16 on cuda (the DiT/CFM path and the
-    Whisper encoder; regulator, CAMPPlus, BigVGAN and the DSP stay f32) and
-    f32 on cpu. On cuda the constructor turns TF32 off for both cuDNN and
-    matmuls (``torch.backends.cudnn.allow_tf32`` and
+    Whisper encoder; regulator, CAMPPlus, BigVGAN, RMVPE and the DSP stay
+    f32) and f32 on cpu. On cuda the constructor turns TF32 off for both
+    cuDNN and matmuls (``torch.backends.cudnn.allow_tf32`` and
     ``torch.backends.cuda.matmul.allow_tf32``), because the vocoder is
     specified at full f32 precision. Parameters are random (from ``seed``)
     unless flax trees are given through the ``*_params`` arguments.
@@ -89,12 +93,10 @@ class VoiceConverter:
                  compute_dtype: Optional[torch.dtype] = None, seed: int = 0,
                  cfg_shard_axis: Optional[str] = None, seq_shard_axis: Optional[str] = None,
                  vocoder_cfg=None, device=None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("VoiceConverter: no CUDA device; pass device='cpu' "
-                                   "to run on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("VoiceConverter: no CUDA device; pass device='cpu' "
+                               "to run on the CPU")
         self.cfg = cfg or get_preset("whisper_small_wavenet")
         mp = self.cfg.model_params
         if cfg_shard_axis is not None or seq_shard_axis is not None:
@@ -103,8 +105,6 @@ class VoiceConverter:
             raise NotImplementedError(f"{mp.speech_tokenizer.type} tokenizer is not ported")
         if mp.vocoder.type != "bigvgan":
             raise NotImplementedError(f"{mp.vocoder.type} vocoder is not ported")
-        if mp.DiT.f0_condition or rmvpe_params is not None:
-            raise NotImplementedError("F0 conditioning (RMVPE) is not ported")
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         if self.device.type == "cuda":
@@ -124,17 +124,23 @@ class VoiceConverter:
         self.source_window = self.context - self.prompt_cap
 
         voc_cfg = vocoder_cfg or (BIGVGAN_44K_128 if self.n_mels == 128 else BIGVGAN_22K_80)
+        self.f0_condition = mp.DiT.f0_condition
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.whisper = WhisperEncoder(whisper_cfg)
             self.campplus = CAMPPlus(feat_dim=80, embedding_size=mp.style_encoder.dim)
             self.vc = VCModel(mp)
             self.vocoder = BigVGAN(voc_cfg)
+            rmvpe_model = RMVPE_E2E() if self.f0_condition else None
         for module, tree in ((self.whisper, whisper_params), (self.campplus, campplus_params),
-                             (self.vc, vc_params), (self.vocoder, vocoder_params)):
+                             (self.vc, vc_params), (self.vocoder, vocoder_params),
+                             (rmvpe_model, rmvpe_params)):
+            if module is None:
+                continue
             if tree is not None:
                 load_jax_params(module, tree)
             module.requires_grad_(False).eval().to(self.device)
+        self.rmvpe = RMVPE(rmvpe_model) if self.f0_condition else None
         # the encoder and the CFM estimator run in compute_dtype; the
         # regulator (vc.length_regulator) stays f32
         self.whisper.to(compute_dtype)
@@ -188,14 +194,22 @@ class VoiceConverter:
         mel = self.mel_fn(torch.from_numpy(padded[None]).to(self.device))
         return mel[:, :n_frames]
 
-    def _regulate_bucketed(self, s: torch.Tensor, true_len: int) -> torch.Tensor:
+    def _regulate_bucketed(self, s: torch.Tensor, true_len: int,
+                           f0: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Length-regulate in a 256-frame output bucket, with the content
-        padded to 64 tokens and cropped back by its true length."""
+        padded to 64 tokens and the F0 to 256 frames, each cropped back by
+        its true length (``x_lens`` / ``f0_lens``)."""
         bucket_len = -(-true_len // 256) * 256
         s_T = s.shape[1]
         s = F.pad(s, (0, 0, 0, -(-max(s_T, 1) // 64) * 64 - s_T))
+        f0_lens = None
+        if f0 is not None:
+            f_T = f0.shape[1]
+            f0 = F.pad(f0, (0, -(-max(f_T, 1) // 256) * 256 - f_T))
+            f0_lens = torch.tensor(f_T, device=self.device)
         out = self.vc.regulate(s, torch.tensor([true_len], device=self.device), bucket_len,
-                               x_lens=torch.tensor(s_T, device=self.device))
+                               f0, x_lens=torch.tensor(s_T, device=self.device),
+                               f0_lens=f0_lens)
         return out[:, :true_len]
 
     def plan_chunks(self, target_len: int, p_len: int) -> tuple[int, int, int]:
@@ -219,8 +233,35 @@ class VoiceConverter:
     def warm(self, *args, **kwargs):
         raise NotImplementedError("warm() is not ported: PyTorch runs eagerly")
 
-    def extract_f0(self, *args, **kwargs):
-        raise NotImplementedError("F0 extraction (RMVPE) is not ported")
+    def extract_f0(self, src_16k: np.ndarray, ref_16k: np.ndarray, *,
+                   auto_f0_adjust: bool = True, pitch_shift: float = 0.0):
+        """RMVPE F0 of reference and source; with ``auto_f0_adjust`` the
+        source's voiced log-F0 is moved so its median meets the reference's,
+        then voiced frames are shifted by ``pitch_shift`` semitones. Returns
+        (shifted source F0, reference F0), f32 numpy."""
+        f0_ori = self.rmvpe.infer_from_audio_batch(ref_16k[None])[0]
+        f0_alt = self.rmvpe.infer_from_audio_batch(src_16k[None])[0]
+        voiced_alt = f0_alt > 1
+        voiced_ori = f0_ori > 1
+        shifted = f0_alt.copy()
+
+        def median_low(x):
+            # the lower of the two middle values for an even count (torch.median's
+            # convention, the JAX package's choice); np.median averages them
+            return np.sort(x)[(len(x) - 1) // 2]
+
+        if auto_f0_adjust and voiced_alt.any() and voiced_ori.any():
+            log_alt = np.log(f0_alt + 1e-5)
+            med_ori = median_low(np.log(f0_ori[voiced_ori] + 1e-5))
+            med_alt = median_low(np.log(f0_alt[voiced_alt] + 1e-5))
+            shifted_log = log_alt.copy()
+            shifted_log[voiced_alt] = log_alt[voiced_alt] - med_alt + med_ori
+            shifted = np.exp(shifted_log)
+            shifted[~voiced_alt] = f0_alt[~voiced_alt]
+        if pitch_shift != 0:
+            shifted = shifted.copy()
+            shifted[voiced_alt] = shifted[voiced_alt] * 2 ** (pitch_shift / 12)
+        return shifted.astype(np.float32), f0_ori.astype(np.float32)
 
     def _sample_vocode(self, noise, chunk, prompt_cond, total_len, prompt_mel,
                        prompt_len: int, style, n_steps: int, cfg_rate: float,
@@ -258,9 +299,12 @@ class VoiceConverter:
     def convert_with_streaming(self, source: np.ndarray, source_sr: int,
                                reference: np.ndarray, reference_sr: int, *,
                                diffusion_steps: int = 25, length_adjust: float = 1.0,
-                               cfg_rate: float = 0.7, seed: int = 0, profile: bool = False,
+                               cfg_rate: float = 0.7, auto_f0_adjust: bool = True,
+                               pitch_shift: float = 0.0, seed: int = 0, profile: bool = False,
                                noise_fn: Optional[Callable] = None):
         """Generator yielding ``(sr, wave_chunk, stats)`` per crossfaded chunk.
+        ``auto_f0_adjust`` and ``pitch_shift`` act with F0 conditioning only
+        (see :meth:`extract_f0`).
 
         Each chunk's initial noise comes from a ``torch.Generator`` seeded
         with ``seed``, or from ``noise_fn(shape)`` when given. With
@@ -290,9 +334,16 @@ class VoiceConverter:
             style = sync(self.compute_style(ref_16k))
         p_len = mel2.shape[1]
         target_len = int(len(src) // self.hop * length_adjust)
+        f0_alt = f0_ori = None
+        if self.f0_condition:
+            with timer("f0"):
+                shifted_f0, f0_ori_np = self.extract_f0(
+                    src_16k, ref_16k, auto_f0_adjust=auto_f0_adjust, pitch_shift=pitch_shift)
+                f0_alt = torch.from_numpy(shifted_f0[None]).to(self.device)
+                f0_ori = torch.from_numpy(f0_ori_np[None]).to(self.device)
         with timer("regulate"):
-            cond = sync(self._regulate_bucketed(s_alt, target_len))
-            prompt_cond = sync(self._regulate_bucketed(s_ori, p_len))
+            cond = sync(self._regulate_bucketed(s_alt, target_len, f0_alt))
+            prompt_cond = sync(self._regulate_bucketed(s_ori, p_len, f0_ori))
 
         cap_b, context, W = self.plan_chunks(target_len, p_len)
         prompt_cond_pad = F.pad(prompt_cond, (0, 0, 0, cap_b - p_len))

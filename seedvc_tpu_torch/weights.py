@@ -7,13 +7,22 @@ The port's submodule names mirror the flax names (``layers_0``, ``wqkv``,
   kernel stays whole;
 - Conv ``kernel`` (k, in, out) -> Conv1d ``weight`` (out, in, k), and
   (kh, kw, in, out) -> Conv2d (out, in, kh, kw);
-- ``ups_i_kernel`` (K, in, out) -> ConvTranspose1d ``ups_i.weight`` (in, out, K);
+- transposed-conv kernels ``ups_i_kernel`` (K, in, out) -> ConvTranspose1d
+  ``ups_i.weight`` (in, out, K), and ``dec_i_up_kernel`` (kh, kw, in, out) ->
+  ConvTranspose2d (in, out, kh, kw), unflipped (the JAX module flips it
+  inside its dilated conv);
+- GRU leaves ``w_ih`` (F, 3H), ``w_hh`` (H, 3H), ``b_ih``, ``b_hh`` -> a
+  one-layer ``nn.GRU``'s ``weight_ih_l0`` (3H, F), ``weight_hh_l0``,
+  ``bias_ih_l0``, ``bias_hh_l0`` (both gate orders are r, z, n);
 - norms: ``scale`` -> ``weight``; EvalBatchNorm ``mean``/``var`` -> the
-  ``running_mean``/``running_var`` buffers;
-- any other leaf (``alpha``, ``beta``, ``embed_positions``, ``weight``) is
-  copied as it is.
+  ``running_mean``/``running_var`` buffers (1-D and 2-D alike);
+- ``nn.Embed``'s ``embedding`` -> ``nn.Embedding.weight``;
+- any other leaf (``alpha``, ``beta``, ``embed_positions``, ``weight``,
+  ``f0_mask``) is copied as it is.
 
-Every parameter and buffer of the module must be filled, or this raises.
+Every parameter and buffer of the module must be filled, or this raises;
+BatchNorm's ``num_batches_tracked``, a training-time counter that holds no
+weight, is the one exception.
 """
 
 from __future__ import annotations
@@ -24,14 +33,19 @@ import numpy as np
 import torch
 from torch import nn
 
-_RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+_RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var",
+           "embedding": "weight"}
+_GRU = {"w_ih": "weight_ih_l0", "w_hh": "weight_hh_l0", "b_ih": "bias_ih_l0",
+        "b_hh": "bias_hh_l0"}
 
 
 def _convert(mod: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+    if isinstance(mod, nn.GRU) and name in _GRU:
+        return _GRU[name], arr.T
     if name != "kernel":
         return _RENAME.get(name, name), arr
-    if isinstance(mod, nn.ConvTranspose1d):
-        return "weight", arr.transpose(1, 2, 0)
+    if isinstance(mod, (nn.ConvTranspose1d, nn.ConvTranspose2d)):
+        return "weight", arr.transpose(arr.ndim - 2, arr.ndim - 1, *range(arr.ndim - 2))
     if isinstance(mod, (nn.Conv1d, nn.Conv2d)):
         return "weight", arr.transpose(arr.ndim - 1, arr.ndim - 2, *range(arr.ndim - 2))
     return "weight", arr.T  # Dense / SplitDense
@@ -69,7 +83,7 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
 
     walk(module, tree, "")
     missing = [n for n, t in [*module.named_parameters(), *module.named_buffers()]
-               if id(t) not in filled]
+               if id(t) not in filled and not n.endswith("num_batches_tracked")]
     if missing:
         raise KeyError(f"parameters not in the tree: {missing[:8]}")
     return module

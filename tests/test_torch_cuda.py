@@ -61,6 +61,22 @@ def test_attention_kernel_matches_twin(T, lens, dtype, tol, rel_tol, rope):
     assert rel <= rel_tol
 
 
+@pytest.mark.parametrize("lens", [(1966, 1493), (0, 1966)])
+@pytest.mark.parametrize("dtype,tol,rel_tol", [(torch.float32, 1e-4, 1e-4),
+                                               (torch.bfloat16, 1e-2, 2e-2)])
+def test_attention_kernel_at_svc_heads(lens, dtype, tol, rel_tol):
+    """K1 at the SVC path's shape: 12 heads (the 768-wide DiT of
+    whisper_base_f0_44k), T = 2048, its chunks' lens and a 0 entry; the
+    limits of test_attention_kernel_matches_twin."""
+    q, k, v = (_randn(s + 20, 2, 12, 2048, 64).to(dtype) for s in range(3))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    cos, sin = (torch.from_numpy(a).cuda() for a in rope_full_cache(2048, 64))
+    out = attention.dit_attention_fused(q, k, v, cos, sin, lens_t)
+    ref = attention.dit_attention_fused_reference(q, k, v, cos, sin, lens_t)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    assert (out.float() - ref.float()).norm() / ref.float().norm() <= rel_tol
+
+
 @pytest.mark.parametrize("T", [2048, 777, 1])
 def test_rope_prepass_matches_twin_exactly(T):
     """K1's pre-pass (roped q times 2^-3, roped k, bf16) equals its plain
@@ -111,6 +127,9 @@ K2_CASES = [(1, 768, 6144, "default"), (1, 24, 393216, "default"), (2, 24, 3001,
             (1, 24, 1016, "default"), (1, 24, 1015, "default"), (1, 24, 1017, "default"),
             (1, 8, 2033, "default"), (2, 96, 1000, "default"), (1, 32, 1001, "linear"),
             (2, 16, 4096, "linear"), (1, 24, 4099, "large_alpha")]
+# the SVC path's BigVGAN-44k stage shapes of a 1536-frame chunk
+K2_44K = [(1, 768, 12288, "default"), (1, 384, 49152, "default"), (1, 192, 98304, "default"),
+          (1, 96, 196608, "default"), (1, 48, 393216, "default"), (1, 24, 786432, "default")]
 
 
 def _k2_inputs(B, C, T, kind):
@@ -128,7 +147,7 @@ def _k2_inputs(B, C, T, kind):
     return x, 0.3 * a, 0.3 * b, True
 
 
-@pytest.mark.parametrize("B,C,T,kind", K2_CASES)
+@pytest.mark.parametrize("B,C,T,kind", K2_CASES + K2_44K)
 def test_anti_alias_kernel_matches_twin(B, C, T, kind):
     """fp32 FIR sums in another order, sin^2 by a polynomial -> 2e-5."""
     x, alpha, beta, logscale = _k2_inputs(B, C, T, kind)
@@ -188,3 +207,31 @@ def test_wrappers_check_inputs():
     with pytest.raises(ValueError, match="f32"):
         anti_alias.anti_alias_snake(torch.zeros((1, 4, 16), device="cuda").half(),
                                     torch.zeros(4, device="cuda"), torch.zeros(4, device="cuda"))
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["reduced", "full_width"])
+def test_rmvpe_cuda_matches_cpu(full):
+    """RMVPE (cuDNN convolutions, cuDNN GRU, cuFFT STFT, TF32 off) against
+    the same weights on the CPU, on 1 s of a vibrato tone: salience within
+    1e-5 (an H100 read 1.8e-7 at full width on 3 s); decoded F0 within 1e-4
+    relative on the frames whose salience peak clears both the 0.03
+    threshold and the runner-up bin by 1e-3 (elsewhere f32 rounding may
+    move the argmax)."""
+    import copy
+
+    from seedvc_tpu_torch.models.rmvpe import RMVPE, RMVPE_E2E, decode_f0
+
+    torch.manual_seed(0)
+    kw = {} if full else dict(n_blocks=1, en_de_layers=2, inter_layers=1, en_out_channels=4)
+    model = RMVPE_E2E(**kw).requires_grad_(False).eval()
+    t = np.arange(16000) / 16000
+    audio = (0.3 * np.sin(2 * np.pi * np.cumsum(180 * (1 + 0.05 * np.sin(6 * np.pi * t)))
+                          / 16000)).astype(np.float32)[None]
+    sal_cpu = RMVPE(copy.deepcopy(model)).salience(audio).numpy()[0]
+    sal_cuda = RMVPE(model.cuda()).salience(audio).cpu().numpy()[0]
+    np.testing.assert_allclose(sal_cuda, sal_cpu, atol=1e-5, rtol=0)
+    top2 = np.sort(sal_cpu, axis=-1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0] > 1e-3) & (top2[:, 1] > 0.03 + 1e-3)
+    assert clear.mean() > 0.5
+    f0_cpu, f0_cuda = decode_f0(sal_cpu), decode_f0(sal_cuda)
+    np.testing.assert_allclose(f0_cuda[clear], f0_cpu[clear], rtol=1e-4)

@@ -2,7 +2,9 @@
 
 - neither ``chip_smoke.py`` nor any module of ``seedvc_tpu_torch`` imports
   ``jax``, ``flax`` or ``seedvc_tpu`` (AST scan, so lazy imports count too);
-- ``VoiceConverter()`` with no device raises when CUDA is absent;
+- ``VoiceConverter()``, ``SeedVCWrapper()`` and the infer CLI, given no
+  device, raise when CUDA is absent (``device="cpu"`` is the only way to the
+  CPU);
 - the kernel build raises without ``nvcc``, and the wrappers refuse tensors
   that are on neither the CPU nor CUDA (the CUDA side of this is in
   tests/test_torch_cuda.py).
@@ -14,8 +16,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from seedvc_tpu_torch.apps import infer
 from seedvc_tpu_torch.ops import anti_alias, attention, build
-from seedvc_tpu_torch.pipelines import convert
+from seedvc_tpu_torch.pipelines import convert, wrapper
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "seedvc_tpu")
@@ -40,6 +43,24 @@ def test_voice_converter_needs_cuda_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.VoiceConverter()
+
+
+@pytest.mark.parametrize("make", [
+    lambda: convert.VoiceConverter(device="cuda"),
+    lambda: wrapper.SeedVCWrapper(),
+    lambda: wrapper.SeedVCWrapper(device="cuda:0"),
+    lambda: infer.main(["--source", "s.wav", "--target", "r.wav", "--f0-condition", "true"]),
+], ids=["converter_cuda", "wrapper", "wrapper_cuda0", "infer_cli"])
+def test_entry_points_need_cuda_unless_cpu(monkeypatch, make):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+
+
+def test_wrapper_on_cpu_builds_nothing_until_used(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    w = wrapper.SeedVCWrapper(device="cpu")
+    assert w.device.type == "cpu" and w._converters == {}
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
