@@ -12,9 +12,11 @@ failure exits non-zero:
    shapes of both conversion paths plus ragged ones, with the tolerance
    printed: K1's RoPE pre-pass bit for bit; K1 and K3 (one source, RoPE on
    and off) in bf16 and f32, with lens None, partial, the main path's
-   (1966, 1477) and with a 0 entry (every key masked), and K1 at the SVC
-   path's 12 heads with its lens (1966, 1493) and with a 0 entry, each with
-   a planted fault that must fail the limits; ``Attention(use_flash=True)``
+   (1966, 1477) and with a 0 entry (every key masked), K1 at the SVC
+   path's 12 heads with its lens (1966, 1493) and with a 0 entry, and K1 at
+   the real-time paths' 6 heads: a block's T = 331 (every key valid) and the
+   offline chunks' T = 2050 with lens (1968, 1968), (1495, 1495) and a 0
+   entry, each with a planted fault that must fail the limits; ``Attention(use_flash=True)``
    at a T that is no multiple of 512, which must launch K1 (or K3 with
    grouped KV heads) and agree with its plain twins; and K2 at every stage
    shape of a 22 kHz and of a 44.1 kHz chunk and at its corners (T % 4 != 0,
@@ -48,8 +50,23 @@ failure exits non-zero:
    full width, its JSON rows printed, and each component's launch counts
    checked (``attention`` K3 only, ``dit`` 13 K1 a call, ``vocoder`` 109 K2
    a call, ``serving*`` 25 x 13 K1 a sample, the rest none);
-8. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
-   library call at the shapes of both conversion paths (each timed window queued behind a
+8. real-time, ``xlsr_tiny`` (XLS-R, a DiT with time and style tokens, HiFT):
+   (a) a reduced converter, offline, cuda (K1) against cpu (plain twins) in
+   f32 with the same weights, CFM noise and HiFT draws; then streaming in
+   f32, the captured block program's replays on cuda against the block
+   function on cpu, and in bf16, the replays against the same block function
+   run eagerly on a second state, each fed the same blocks, noise and draws
+   (emitted audio, SOLA offsets, VAD decisions, one replay a converted
+   block; 3 speech, 4 silent, 2 speech blocks), and the captured launches
+   checked; (b) at full width: the
+   offline path, 30 s + 5 s, 25 steps, cold, warm and synchronised (450 K1,
+   0 K2, 0 K3); the block program's graph replay against eager, alternating;
+   ``python -m seedvc_tpu_torch.apps.stream_bench`` (20 blocks of 0.25 s, 10
+   steps; 90 K1 captured a block, 0 K2, 0 K3, 20 replays; block 0 within
+   the steady spread); ``python -m seedvc_tpu_torch.apps.realtime --simulate`` on a
+   written 10 s wav (length and finiteness of its output);
+9. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
+   library call at the shapes of every path (each timed window queued behind a
    spin kernel, so the host's dispatch rate does not enter), with each
    kernel's bound on an H100 SXM; before it, K3's time per head at
    B*H = 13, 16 and 26 (its wave tail), and K2 at all six stage shapes
@@ -57,8 +74,9 @@ failure exits non-zero:
    clock, power and temperature sampled by ``nvidia-smi`` beside the windows.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
-profiled warm conversion to phases 5 and 6 (device time by kernel, idle
-share).
+profiled warm conversion to phases 5, 6 and 8, and one profiled block replay
+to phase 8 (device time by kernel, idle share), and times two layout choices
+of the real-time path (:func:`rt_layout_ab`).
 """
 
 from __future__ import annotations
@@ -101,6 +119,14 @@ K1_CASES = [(512, None), (512, (438, 256)), (2048, None), (2048, (1755, 1024)),
 # K1 at the SVC path's 12 heads (DiT 768 wide): its lens and a 0 entry
 K1_SVC_HEADS = 12
 K1_SVC_CASES = [(2048, (1966, 1493)), (2048, (0, 1966))]
+# K1 at the real-time paths' 6 heads (xlsr_tiny's DiT, 384 wide) and T with
+# the 2 prefix tokens: a block's (331 = 258 prompt + 71 block frames + 2,
+# every key valid) and the offline chunks' (2050 = 2048 + 2; keys 430 + W + 2
+# = 1968 and 1495), and a 0 entry
+RT_HEADS = 6
+RT_BLOCK_T, RT_OFFLINE_T = 331, 2050
+K1_RT_CASES = [(RT_BLOCK_T, None), (RT_OFFLINE_T, (1968, 1968)), (RT_OFFLINE_T, (1495, 1495)),
+               (RT_OFFLINE_T, (0, 1968))]
 # K2: fp32 FIR sums in another order than cuDNN's, and sin^2 by a polynomial
 # (|err| <= 2e-7) where the twin calls sin. The planted fault is the twin with
 # one tap of the 12-tap filter nudged by 1e-4 (of 0.443), which must fail it.
@@ -277,7 +303,8 @@ def phase_kernels() -> dict:
 
     from seedvc_tpu_torch.ops import anti_alias, attention
 
-    errs = {"k1": 0.0, "k1_svc": 0.0, "k2": 0.0, "k2_svc": 0.0, "k3": 0.0}
+    errs = {"k1": 0.0, "k1_svc": 0.0, "k1_rt": 0.0, "k2": 0.0, "k2_svc": 0.0, "k3": 0.0}
+    slots = {8: "", K1_SVC_HEADS: "_svc", RT_HEADS: "_rt"}
     # K1's first stage: roped q times 2^-3 and roped k, bit for bit
     for T in (2048, 777):
         q, k, _, cos, sin, _ = _k1_inputs(T, torch.bfloat16, None, seed=3)
@@ -294,6 +321,7 @@ def phase_kernels() -> dict:
         cases = [(T, lens, 8) for T, lens in K1_CASES]
         if rope:
             cases += [(T, lens, K1_SVC_HEADS) for T, lens in K1_SVC_CASES]
+            cases += [(T, lens, RT_HEADS) for T, lens in K1_RT_CASES]
         for dtype in (torch.bfloat16, torch.float32):
             atol, rtol = K1_TOL[str(dtype).split(".")[1]]
             for T, lens, heads in cases:
@@ -315,7 +343,7 @@ def phase_kernels() -> dict:
                 if f_err <= atol and f_rel <= rtol:
                     fail(f"{what}: the limit passes a planted fault")
                 if dtype == torch.bfloat16:
-                    slot = key + ("_svc" if heads == K1_SVC_HEADS else "")
+                    slot = key + slots[heads]
                     errs[slot] = max(errs[slot], err)
     attention_module_check()
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -856,6 +884,372 @@ def phase_microbench() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Real-time: xlsr_tiny (XLS-R, DiT with time and style tokens, HiFT) offline,
+# then the streaming block program as one CUDA graph.
+RT_PRESET = "xlsr_tiny"
+RT_STEPS, RT_BLOCKS, RT_BLOCK_TIME = 10, 20, 0.25
+# graph replay against the same block function run eagerly: the same kernels
+# on the same inputs, so only a library's choice of algorithm may differ
+GRAPH_TOL = 1e-3
+# a stream in f32, cuda against cpu: K1 against its twin (f32, 1e-4) and
+# summation order, through SOLA with the same offsets
+RT_STREAM_TOL = 5e-4
+
+
+def rt_small_converter(device: str, dtype=None):
+    """A reduced xlsr_tiny: SSL encoder 128 wide (2 layers, 64 conv channels,
+    the positional conv at its real kernel and groups), the preset's DiT (384
+    wide, 6 heads of 64, both prefix tokens, MLP head) cut to depth 3, HiFT
+    with 64 base channels; prompt cap 128, context 512."""
+    import dataclasses
+
+    import torch
+
+    from seedvc_tpu_torch.core.config import get_preset
+    from seedvc_tpu_torch.models.hifigan import HiFTConfig
+    from seedvc_tpu_torch.models.ssl import SSLConfig
+    from seedvc_tpu_torch.pipelines.convert import VoiceConverter
+
+    cfg = get_preset(RT_PRESET)
+    mp = cfg.model_params
+    mp = dataclasses.replace(
+        mp, length_regulator=dataclasses.replace(mp.length_regulator, in_channels=128),
+        DiT=dataclasses.replace(mp.DiT, depth=SMALL_DEPTH))
+    return VoiceConverter(
+        dataclasses.replace(cfg, model_params=mp),
+        whisper_cfg=SSLConfig(conv_dim=64, d_model=128, n_layers=2, n_heads=8, ffn_dim=256),
+        vocoder_cfg=HiFTConfig(base_channels=64), prompt_cap_frames=128, context_frames=512,
+        compute_dtype=torch.float32 if dtype is None else dtype, seed=0, device=device)
+
+
+def cpu_draws(shape):
+    """HiFT draws made on the CPU from a fixed seed, so that a cuda and a cpu
+    run see the same numbers (the default draws come from each device's own
+    generator)."""
+    import math
+
+    import torch
+
+    g = torch.Generator().manual_seed(5)
+    B, T, H = shape
+    return ((torch.rand((B, 1, H), generator=g) * 2 - 1) * math.pi,
+            torch.randn((B, T, H), generator=g))
+
+
+@contextlib.contextmanager
+def recorded(module, names, log: dict):
+    """Record every result of ``module.<name>`` for each name into
+    ``log[name]`` while the block runs."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def inner(*a, **kw):
+            out = fn(*a, **kw)
+            log.setdefault(name, []).append(out)
+            return out
+        return inner
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield log
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def stream_blocks(stream, blocks) -> tuple[list, dict]:
+    """Emitted blocks, and the SOLA offsets and VAD decisions made on them."""
+    from seedvc_tpu_torch.pipelines import streaming
+
+    log: dict = {}
+    with recorded(streaming, ("sola_offset", "is_speech_block"), log):
+        out = [stream.process_block(b) for b in blocks]
+    return out, log
+
+
+def phase_rt_small():
+    """The reduced xlsr_tiny converter: (a) offline, cuda (K1) against cpu
+    (plain twins), f32, same weights, CFM noise and HiFT draws; (b) streaming
+    in f32, the captured block program on cuda replayed against the block
+    function on cpu, same blocks, noise and draws; (c) streaming in bf16 on
+    cuda (the encoder in f32, as on the full path), the replays against the
+    same block function run eagerly on a second converter state fed the same
+    blocks and noise. Streams compare emitted audio, SOLA offsets and VAD
+    decisions, and count their replays."""
+    import torch
+
+    from seedvc_tpu_torch.pipelines.streaming import StreamConfig, StreamingConverter
+
+    src = synthetic_audio(8.0, 22050, 140.0, seed=21)
+    ref = synthetic_audio(3.0, 22050, 220.0, seed=22)
+    noise = np.random.default_rng(23).standard_normal((512, 80)).astype(np.float32)
+
+    def run(device):
+        vc = rt_small_converter(device)
+        reset_counts()
+        _, wave, stats = vc.convert(src, 22050, ref, 22050, diffusion_steps=SMALL_STEPS,
+                                    cfg_rate=0.7, draws_fn=cpu_draws,
+                                    noise_fn=lambda s: torch.from_numpy(noise[: s[1]][None]))
+        counts = read_counts()
+        log(f"rt small conversion on {device}: {len(wave)} samples, {stats['chunks']} chunks, "
+            f"launches {counts}")
+        k1 = stats["chunks"] * SMALL_STEPS * SMALL_DEPTH if device == "cuda" else 0
+        check_counts(f"rt small conversion on {device}", counts, {"k1": k1, "k2": 0, "k3": 0})
+        return vc, wave
+
+    (vc_cpu, w_cpu), (vc_cuda, w_cuda) = run("cpu"), run("cuda")
+    err, snr = compare_waves("rt small f32 conversion", w_cpu, w_cuda)
+    log(f"rt small f32 conversion cuda vs cpu: max_abs_err {err:.3e} tol {SMALL_TOL:g}, "
+        f"SNR {snr:.1f} dB")
+    if not err <= SMALL_TOL:
+        fail("rt small conversion: cuda and cpu disagree")
+
+    bank = np.random.default_rng(24).standard_normal((4, 512, 80)).astype(np.float32)
+
+    def stream(vc, graph: bool = True):
+        n = [0]
+
+        def noise_fn(shape):
+            n[0] += 1
+            return torch.from_numpy(bank[n[0] % len(bank)][: shape[1]][None])
+
+        st = StreamingConverter(vc, StreamConfig(), noise_fn=noise_fn, draws_fn=cpu_draws)
+        reset_counts()
+        st.set_reference(ref, 22050)
+        counts = read_counts()
+        if not graph:
+            st._graph = None  # the same block function, run eagerly
+        return st, counts
+
+    def compare(what, a, b, tol):
+        """Run the blocks through streams a (graph) and b; check they agree
+        and that a replayed its graph once for every converted block."""
+        reset_counts()
+        a_out, a_log = stream_blocks(a, blocks)
+        replay_counts = read_counts()
+        b_out, b_log = stream_blocks(b, blocks)
+        converted = len(a_log.get("sola_offset", [])) + 1
+        check_counts(f"{what} replays (the wrappers run only when captured)", replay_counts,
+                     {"k1": 0, "k2": 0, "k3": 0})
+        err = max(float(np.abs(x - y).max()) for x, y in zip(a_out, b_out))
+        log(f"{what}, {len(blocks)} blocks, {a.replays} replays: max_abs_err {err:.3e} tol "
+            f"{tol:g}; SOLA offsets {a_log.get('sola_offset')} vs {b_log.get('sola_offset')}; "
+            f"VAD {a_log['is_speech_block']} vs {b_log['is_speech_block']}")
+        if not (err <= tol and a_log == b_log and all(np.isfinite(x).all() for x in a_out)):
+            fail(f"{what}: the two streams disagree")
+        if a_log["is_speech_block"] != [True] * 3 + [False] * 4 + [True] * 2:
+            fail(f"{what}: VAD decisions {a_log['is_speech_block']}")
+        if a.replays != converted:
+            fail(f"{what}: {a.replays} replays for {converted} converted blocks")
+
+    (g32, _), (c32, _) = stream(vc_cuda), stream(vc_cpu)
+    blocks = []
+    for i, kind in enumerate("sssqqqqss"):  # speech, quiet (the VAD gate), speech
+        b = synthetic_audio(2 * RT_BLOCK_TIME, 22050, 150.0 + 10 * i, seed=30 + i)[: g32.block]
+        blocks.append(b if kind == "s" else np.zeros_like(b))
+    compare("rt small f32 streaming, cuda graph replay vs cpu", g32, c32, RT_STREAM_TOL)
+    del g32, c32, vc_cpu, vc_cuda
+
+    vc = rt_small_converter("cuda", torch.bfloat16)
+    (g_st, g_counts), (e_st, _) = stream(vc), stream(vc, graph=False)
+    T = g_st._prompt_len + g_st.dit_frames + 2
+    expect = {"k1": RT_STEPS * SMALL_DEPTH, "k2": 0, "k3": 0}
+    log(f"rt small streaming (bf16, T = {T}): set_reference launches {g_counts} "
+        f"(eager warm-up + capture), captured per block {g_st.graph_launches}")
+    check_counts("rt small captured block", g_st.graph_launches, expect)
+    check_counts("rt small set_reference", g_counts, {k: 2 * v for k, v in expect.items()})
+    compare("rt small bf16 streaming, graph replay vs eager", g_st, e_st, GRAPH_TOL)
+
+
+def time_blocks(st, blocks) -> list:
+    """Wall ms of process_block on each block (ends in the output's fetch)."""
+    times = []
+    for b in blocks:
+        t0 = time.perf_counter()
+        st.process_block(b)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def rt_layout_ab(card: str):
+    """Device time of two layout choices on the real-time path, at the
+    stream's (T = 249 frames, 18176 samples) and an offline chunk's (1499,
+    393216) lengths: XLS-R's grouped positional conv (1024 channels, kernel
+    128, 16 groups, padding (64, 63)) as cuDNN's conv in bf16 and f32 against
+    the same product over unfolded windows, and HiFT's phase cumsum over the
+    time axis of (1, n, 9) against over the last axis (the port's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from seedvc_tpu_torch.core.profiling import cuda_time_ms
+
+    g = torch.Generator(device="cuda").manual_seed(50)
+    C, G, K = 1024, 16, 128
+    w = torch.randn((C, C // G, K), generator=g, device="cuda") / (C // G * K) ** 0.5
+    b = torch.randn(C, generator=g, device="cuda") * 0.1
+
+    def conv(x, w, b):
+        return F.conv1d(F.pad(x, (K // 2, K // 2 - 1)), w, b, groups=G)
+
+    def unfold_mm(x, w, b):
+        B, _, T = x.shape
+        xu = F.pad(x, (K // 2, K // 2 - 1)).unfold(-1, K, 1)  # (B, C, T, K)
+        xu = xu.reshape(B, G, C // G, T, K).permute(0, 1, 3, 2, 4).reshape(B, G, T, -1)
+        out = torch.matmul(xu, w.reshape(G, C // G, -1).transpose(1, 2))  # (B, G, T, C/G)
+        return out.permute(0, 1, 3, 2).reshape(B, C, T) + b[:, None]
+
+    for T in (249, 1499):
+        x = torch.randn((1, C, T), generator=g, device="cuda")
+        ref = conv(x.double(), w.double(), b.double())
+        for dt in (torch.bfloat16, torch.float32):
+            args = x.to(dt), w.to(dt), b.to(dt)
+            row = []
+            for name, fn in (("cudnn", conv), ("unfold_mm", unfold_mm)):
+                err = float((fn(*args).double() - ref).abs().max())
+                row.append(f"{name} {cuda_time_ms(lambda: fn(*args), iters=20):.4f} ms "
+                           f"(max abs vs f64 {err:.2e})")
+            log(f"rt A/B pos_conv T={T} {dt}: " + ", ".join(row) + f", on {card}")
+    for n in (18176, 393216):
+        f = torch.rand((1, n, 9), generator=g, device="cuda") * 0.1
+        ms_time = cuda_time_ms(lambda: torch.cumsum(f, 1))
+        ms_last = cuda_time_ms(lambda: torch.cumsum(f.transpose(1, 2), -1).transpose(1, 2))
+        log(f"rt A/B cumsum (1, {n}, 9) f32: over time {ms_time:.4f} ms, over the last axis "
+            f"{ms_last:.4f} ms, on {card}")
+
+
+def phase_rt_full(card: str, profile: bool = False) -> dict:
+    """xlsr_tiny at full width: (a) offline 30 s + 5 s, 25 steps, cold, warm
+    and synchronised, 450 K1 and no K2/K3; (b) the block program on the same
+    converter, graph replay against eager, alternating; (c) ``python -m
+    seedvc_tpu_torch.apps.stream_bench``; (d) ``python -m
+    seedvc_tpu_torch.apps.realtime --simulate`` on a written 10 s wav."""
+    import tempfile
+
+    import torch
+
+    from seedvc_tpu_torch.apps import realtime, stream_bench
+    from seedvc_tpu_torch.apps.audio_io import load_wav, save_wav
+    from seedvc_tpu_torch.core.config import get_preset
+    from seedvc_tpu_torch.pipelines.convert import OVERLAP_FRAMES, VoiceConverter
+    from seedvc_tpu_torch.pipelines.streaming import StreamConfig, StreamingConverter
+
+    t0 = time.perf_counter()
+    vc = VoiceConverter(get_preset(RT_PRESET), device="cuda")
+    dc = vc.cfg.dit
+    log(f"rt: {RT_PRESET} built in {time.perf_counter() - t0:.1f} s (compute dtype "
+        f"{vc.compute_dtype}; XLS-R {vc.whisper.cfg.d_model} wide, {vc.whisper.cfg.n_layers} "
+        f"layers; DiT {dc.hidden_dim} wide, {dc.depth} deep, {dc.num_heads} heads, prefix "
+        f"tokens; HiFT {vc.vocoder.cfg.base_channels} base channels)")
+    sr = vc.sr
+    src = synthetic_audio(30.0, sr, 140.0, seed=41)
+    ref = synthetic_audio(5.0, sr, 220.0, seed=42)
+    target_len, p_len = len(src) // vc.hop, len(ref) // vc.hop
+    plan = vc.plan_chunks(target_len, p_len)
+    step = plan[2] - OVERLAP_FRAMES
+    lens = [p_len + min(plan[2], target_len - i * step) + 2 for i in range(MAIN_CHUNKS)]
+    log(f"rt offline: plan (prompt_cap, context, W) = {plan}, K1 at T = {plan[1] + 2}, "
+        f"lens by chunk {lens}")
+    if plan[1:] != (MAIN_CONTEXT, MAIN_W) or lens != [1968, 1495]:
+        fail(f"unexpected rt plan {plan} / lens {lens}")
+    expect = {"k1": MAIN_CHUNKS * 25 * dc.depth, "k2": 0, "k3": 0}
+    result = {"lens": lens}
+    for run, synced in (("cold", False), ("warm", False), ("warm, stages synced", True)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, wave, stats = vc.convert(src, sr, ref, sr, diffusion_steps=25, cfg_rate=0.7,
+                                    profile=synced)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        secs = len(wave) / sr
+        log(f"rt offline {run}: {wall:.3f} s wall for {secs:.2f} s of audio "
+            f"({secs / wall:.2f} audio-s/s), {stats['chunks']} chunks, launches {counts}, "
+            f"on {card}")
+        log("  stages: " + json.dumps({k: round(v["seconds"], 4)
+                                       for k, v in stats["stages"].items()}))
+        if not np.isfinite(wave).all() or len(wave) != target_len * vc.hop:
+            fail(f"rt offline {run}: {len(wave)} samples (expected {target_len * vc.hop}) "
+                 "or non-finite audio")
+        check_counts(f"rt offline {run}", counts, expect)
+        if run == "warm":
+            result.update(wall_s=wall, audio_s=secs, counts=counts)
+    if profile:
+        profile_conversion(lambda: vc.convert(src, sr, ref, sr, diffusion_steps=25,
+                                              cfg_rate=0.7), result["wall_s"])
+
+    # (b) the block program on this converter: graph replay vs eager, in turns
+    st = StreamingConverter(vc, StreamConfig(diffusion_steps=RT_STEPS, vad_threshold_db=-10000.0))
+    st.set_reference(ref[: 3 * sr], sr)
+    rng = np.random.default_rng(43)
+    blocks = [(rng.standard_normal(st.block) * 0.1).astype(np.float32) for _ in range(10)]
+    graph = st._graph
+    runs = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph"):
+        st._graph = graph if mode == "graph" else None
+        runs[mode] += time_blocks(st, blocks)[2:]
+    st._graph = graph
+    med = {m: float(np.median(v)) for m, v in runs.items()}
+    log(f"rt block program at full width (T = {st._prompt_len + st.dit_frames + 2}): median "
+        f"ms a block, graph replay {med['graph']:.2f}, eager {med['eager']:.2f} "
+        f"({len(runs['graph'])} blocks each, alternating), on {card}")
+    result["block_graph_ms"], result["block_eager_ms"] = med["graph"], med["eager"]
+    if profile:
+        profile_conversion(lambda: st.process_block(blocks[0]), med["graph"] / 1e3)
+        rt_layout_ab(card)
+
+    # (c) the benchmark entry point
+    reset_counts()
+    bench = stream_bench.main(["--n-blocks", str(RT_BLOCKS), "--block-time", str(RT_BLOCK_TIME),
+                               "--steps", str(RT_STEPS)])
+    counts = read_counts()
+    per_block = {"k1": RT_STEPS * dc.depth, "k2": 0, "k3": 0}
+    check_counts("stream_bench captured block", bench["graph_launches"], per_block)
+    check_counts("stream_bench run (eager warm-up + capture)", counts,
+                 {k: 2 * v for k, v in per_block.items()})
+    if bench["dit_T"] + 2 != RT_BLOCK_T:
+        fail(f"stream_bench DiT T {bench['dit_T']} + 2, expected {RT_BLOCK_T}")
+    if bench["replays"] != RT_BLOCKS:
+        fail(f"stream_bench: {bench['replays']} graph replays for {RT_BLOCKS} blocks")
+    steady = bench["block_ms"][3:]
+    log(f"stream_bench: block 0 {bench['block_ms'][0]:.2f} ms, steady median "
+        f"{bench['steady_ms']:.2f} ms (range {min(steady):.2f}-{max(steady):.2f}) against "
+        f"{bench['budget_ms']:.0f} ms, occupancy {bench['steady_ms'] / bench['budget_ms']:.3f}; "
+        f"launches counted in the run {counts}, captured per block {bench['graph_launches']}, "
+        f"replays {bench['replays']}")
+    if bench["block_ms"][0] > 1.5 * max(steady):
+        fail("stream_bench: block 0 is outside the steady state's spread")
+    result.update(bench=bench, bench_counts=counts)
+
+    # (d) the real-time CLI on a written 10 s wav, in a scratch working dir
+    # (it saves its settings JSON under the working directory)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            save_wav("in.wav", synthetic_audio(10.0, 16000, 150.0, seed=44), 16000)
+            save_wav("ref.wav", synthetic_audio(3.0, sr, 220.0, seed=45), sr)
+            t0 = time.perf_counter()
+            report = realtime.main(["--reference", "ref.wav", "--simulate", "in.wav",
+                                    "--output", "out.wav"])
+            wave, out_sr = load_wav("out.wav")
+            settings = os.path.exists(os.path.join("configs", "inuse", "realtime.json"))
+        finally:
+            os.chdir(cwd)
+    n_in = -(-10 * 16000 * sr // 16000)
+    n_blocks = -(-n_in // st.block)
+    log(f"realtime --simulate: {time.perf_counter() - t0:.1f} s (build included), wrote "
+        f"{out_sr} Hz, {len(wave)} samples ({n_blocks} blocks); report {json.dumps(report)}; "
+        f"settings saved: {settings}")
+    if out_sr != sr or len(wave) != n_blocks * st.block or not np.isfinite(wave).all():
+        fail(f"realtime --simulate wrote {out_sr} Hz, {len(wave)} samples, expected {sr} Hz "
+             f"and {n_blocks * st.block} finite samples")
+    result["realtime"] = report
+    return result
+
+
 @contextlib.contextmanager
 def smi_sampler(period_ms: int = 100):
     """Samples of the card's SM clock, power draw, power limit and temperature
@@ -898,7 +1292,8 @@ def k1_timing(T: int, heads: int, n_valid: int, seed: int) -> dict:
         f"{prepass:.4f} ms), plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
     return {"shape": f"q/k/v {tuple(q.shape)} bf16, lens {n_valid}", "ms": ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+            "library_ms": lib}
 
 
 def k2_timing(rates) -> dict:
@@ -949,7 +1344,7 @@ def k1_row(t: dict, launches: int, err: float, path: str) -> dict:
             "max_abs_err": err, "tol": K1_TOL["bfloat16"][0], **t}
 
 
-def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict) -> dict:
+def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: dict) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -960,6 +1355,9 @@ def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict) -> dic
     # valid up to prompt + first chunk
     k1_main = k1_timing(MAIN_CONTEXT, 8, min(full["p_len"] + full["W"], MAIN_CONTEXT), seed=7)
     k1_svc = k1_timing(MAIN_CONTEXT, K1_SVC_HEADS, svc["lens"][0], seed=17)
+    # the real-time paths: 6 heads, T with the 2 prefix tokens
+    k1_rt = k1_timing(RT_OFFLINE_T, RT_HEADS, rt["lens"][0], seed=27)
+    k1_block = k1_timing(RT_BLOCK_T, RT_HEADS, RT_BLOCK_T, seed=28)
 
     # K3 at its entry point's shape: the microbench attention component,
     # q/k/v (2, 8, 2560, 64) bf16 after RoPE, every key valid
@@ -1005,7 +1403,24 @@ def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict) -> dic
          "bound_by": k3_by, "library_ms": k3_lib},
         k1_row(k1_svc, svc["counts"]["k1"], errs["k1_svc"], svc_path),
         k2_row(k2_svc, svc["counts"]["k2"], errs["k2_svc"], svc_path),
+        k1_row(k1_rt, rt["counts"]["k1"], errs["k1_rt"], f"{RT_PRESET} offline conversion"),
+        stream_k1_row(k1_block, rt, errs["k1_rt"]),
     ]}
+
+
+def stream_k1_row(t: dict, rt: dict, err: float) -> dict:
+    """K1 on the stream: the wrappers count the eager warm-up's launches and
+    the captured ones; a replay relaunches the captured ones on the device
+    without calling a wrapper. ``launches`` is what ran on the device in the
+    stream_bench run: the warm-up's, plus the captured per replay times the
+    replays the stream counted."""
+    counted = rt["bench_counts"]["k1"]
+    per_replay = rt["bench"]["graph_launches"]["k1"]
+    replays = rt["bench"]["replays"]
+    return {**k1_row(t, counted - per_replay + per_replay * replays, err,
+                     f"{RT_PRESET} stream_bench (eager warm-up, then {replays} replays of the "
+                     "captured block)"),
+            "wrapper_count": counted, "per_replay": per_replay, "replays": replays}
 
 
 def main(argv=None) -> int:
@@ -1027,7 +1442,9 @@ def main(argv=None) -> int:
     full = phase_full(card, args.profile)
     svc = phase_svc(card, args.profile)
     mb_counts = phase_microbench()
-    line = phase_kernel_line(errs, full, svc, mb_counts)
+    phase_rt_small()
+    rt = phase_rt_full(card, args.profile)
+    line = phase_kernel_line(errs, full, svc, mb_counts, rt)
     log(card)
     print(json.dumps(line), flush=True)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

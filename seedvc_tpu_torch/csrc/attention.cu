@@ -675,11 +675,28 @@ int make_map(CUtensorMap* map, const void* ptr, int BH, int T_len, int rows) {
   return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
 }
 
+// Sets a kernel's dynamic shared-memory limit once per device (the attribute
+// belongs to the current device). Once, not every call: the launches may be
+// captured into a CUDA graph, and a capture records launches only.
+constexpr int MAX_DEVICES = 64;
+
+template <typename Kernel>
+int set_smem_once(Kernel kernel, int bytes, bool (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  const bool tracked = dev < MAX_DEVICES;
+  if (tracked && done[dev]) return 0;
+  err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (!err && tracked) done[dev] = true;
+  return err;
+}
+
+bool core_smem_set[MAX_DEVICES];
+
 int launch_core(const void* q, const void* k, const void* v, const int* lens, void* out, int B,
                 int H, int T_len, float scale, void* stream) {
-  // set on every call: the attribute belongs to the current device
-  int err = (int)cudaFuncSetAttribute(attn_core_kernel,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, CORE_SMEM);
+  int err = set_smem_once(attn_core_kernel, CORE_SMEM, core_smem_set);
   if (err) return err;
   const int BH = B * H;
   CUtensorMap qm, km, vm;
@@ -702,14 +719,14 @@ int launch_prepass(const void* q, const void* k, const float* cosb, const float*
   return (int)cudaGetLastError();
 }
 
+bool f32_smem_set[2][MAX_DEVICES];
+
 template <bool ROPE>
 int launch_f32(const void* q, const void* k, const void* v, const float* cosb,
                const float* sinb, const int* lens, void* out, int B, int H, int T_len,
                void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<ROPE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
+  const int err = set_smem_once(attn_fwd_kernel<ROPE>, (int)SMEM_BYTES, f32_smem_set[ROPE]);
+  if (err) return err;
   dim3 grid((T_len + BQ - 1) / BQ, B * H);
   attn_fwd_kernel<ROPE><<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, cosb, sinb, lens, (float*)out, H, T_len,

@@ -1,10 +1,15 @@
-"""Host-side polyphase resampling for pipeline pre-processing."""
+"""Resampling: host-side polyphase (scipy) for pipeline pre-processing, and a
+device resampler with ``torchaudio.functional.resample`` semantics (port of
+``seedvc_tpu/dsp/resample.py``) for the streaming block path."""
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 from scipy.signal import resample_poly
 
 
@@ -17,3 +22,52 @@ def resample_host(wave, orig_sr: int, new_sr: int) -> np.ndarray:
     out = resample_poly(np.asarray(wave, np.float32), new_sr // g,
                         orig_sr // g, axis=-1)
     return out.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def resample_filters(orig: int, new: int, lowpass_filter_width: int = 6,
+                     rolloff: float = 0.99) -> tuple[np.ndarray, int]:
+    """Hann-windowed sinc filters, one per output phase, for the reduced
+    ratio ``orig -> new``: (new, 2 * width + orig) f32, and width."""
+    base_freq = min(orig, new) * rolloff
+    width = math.ceil(lowpass_filter_width * orig / base_freq)
+    idx = np.arange(-width, width + orig, dtype=np.float64) / orig
+    t = (-np.arange(new, dtype=np.float64) / new)[:, None] + idx[None, :]
+    t *= base_freq
+    t = np.clip(t, -lowpass_filter_width, lowpass_filter_width)
+    window = np.cos(t * np.pi / lowpass_filter_width / 2) ** 2
+    denom = np.where(t == 0, 1.0, np.pi * t)
+    kernels = np.where(t == 0, 1.0, np.sin(np.pi * t) / denom) * window * (base_freq / orig)
+    return kernels.astype(np.float32), width
+
+
+def resample_kernel(orig_sr: int, new_sr: int, device) -> torch.Tensor:
+    """The filters of ``orig_sr -> new_sr`` as a conv1d weight (new, 1, K) on
+    ``device``. Made once by the caller where the resampler runs inside a
+    CUDA graph: a host-to-device copy cannot be captured."""
+    g = math.gcd(orig_sr, new_sr)
+    kernels, _ = resample_filters(orig_sr // g, new_sr // g)
+    return torch.from_numpy(kernels[:, None, :]).to(device)
+
+
+def resample(wave: torch.Tensor, orig_sr: int, new_sr: int,
+             kernel: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, T) or (T,) -> resampled along the last axis to
+    ``ceil(new * T / orig)`` samples (zero edges), as one strided conv1d with
+    a filter per output phase. ``kernel``: :func:`resample_kernel` of the
+    same rates on wave's device, or None to make it here."""
+    if orig_sr == new_sr:
+        return wave
+    squeeze = wave.dim() == 1
+    if squeeze:
+        wave = wave[None]
+    g = math.gcd(orig_sr, new_sr)
+    orig, new = orig_sr // g, new_sr // g
+    width = resample_filters(orig, new)[1]
+    if kernel is None:
+        kernel = resample_kernel(orig_sr, new_sr, wave.device)
+    T = wave.shape[-1]
+    x = F.pad(wave, (width, width + orig))
+    y = F.conv1d(x[:, None, :], kernel, stride=orig)  # (B, new, T // orig + 1)
+    y = y.transpose(1, 2).reshape(wave.shape[0], -1)[:, : -(-new * T // orig)]
+    return y[0] if squeeze else y

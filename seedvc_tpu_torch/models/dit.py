@@ -6,6 +6,12 @@
 ``cond_drop`` mask zeroing every merged feature except x; a U-ViT trunk
 conditioned on the time embedding; a long skip from the input; a WaveNet
 post-net head with an adaLN final layer, or an MLP head.
+
+With ``style_as_token`` the style leaves the merge and enters as a token
+(``style_in``); with ``time_as_token`` the time embedding does, and the trunk
+runs unconditioned. The prefix is ``[time, style, x...]``: keys are valid up
+to ``x_lens`` plus the prefix, RoPE spans the prefix too, and the output drops
+it.
 """
 
 from __future__ import annotations
@@ -60,21 +66,21 @@ class DiT(nn.Module):
         dc = mp.DiT
         # f0_condition only gates the regulator's F0 embedding: the DiT does
         # no F0 work of its own
-        if dc.time_as_token or dc.style_as_token:
-            raise NotImplementedError("prefix tokens are not ported")
         self.mp = mp
         C = dc.in_channels
         static_in = C + C + dc.hidden_dim
-        if dc.style_condition:
+        if dc.style_condition and not dc.style_as_token:
             static_in += mp.style_encoder.dim
         self.cond_projection = nn.Linear(dc.content_dim, dc.hidden_dim)
         self.cond_x_merge_linear = SplitDense(static_in, dc.hidden_dim)
+        if dc.style_as_token:
+            self.style_in = nn.Linear(mp.style_encoder.dim, dc.hidden_dim)
         self.t_embedder = TimestepEmbedder(dc.hidden_dim)
         self.transformer = Transformer(TransformerConfig(
             dim=dc.hidden_dim, n_layer=dc.depth, n_head=dc.num_heads,
             head_dim=dc.hidden_dim // dc.num_heads, rope_base=dc.rope_base,
             norm_eps=dc.norm_eps, uvit_skip_connection=dc.uvit_skip_connection,
-            use_flash=dc.use_flash_attention))
+            time_as_token=dc.time_as_token, use_flash=dc.use_flash_attention))
         if dc.long_skip_connection:
             self.skip_linear = nn.Linear(dc.hidden_dim + C, dc.hidden_dim)
         if dc.final_layer_type == "wavenet":
@@ -96,25 +102,38 @@ class DiT(nn.Module):
         valid); t: (B,); style: (B, S); cond: (B, T, content_dim);
         cond_drop: (B,) 1.0 = null branch.
 
-        ``return_static=True`` returns only the step-invariant conditioning as
-        a dict; passing it back as ``static_cond`` skips recomputing it."""
+        ``return_static=True`` returns only the step-invariant conditioning
+        (``merged`` and, with ``style_as_token``, ``style_tok``) as a dict;
+        passing it back as ``static_cond`` skips recomputing it."""
         dc = self.mp.DiT
         B, T, C = x.shape
         if static_cond is None:
             keep = 1.0 if cond_drop is None else (1.0 - cond_drop)[:, None, None].to(x.dtype)
             parts = [prompt_x * keep, self.cond_projection(cond) * keep]
-            if dc.style_condition:
+            if dc.style_condition and not dc.style_as_token:
                 parts.append(style[:, None, :].expand(B, T, style.shape[-1]) * keep)
             merged_static = self.cond_x_merge_linear(torch.cat(parts, dim=-1), C, True)
+            style_tok = None
+            if dc.style_as_token:
+                style_tok = self.style_in(style) * (1.0 if cond_drop is None else keep[:, 0])
             if return_static:
-                return {"merged": merged_static}
+                return {"merged": merged_static, "style_tok": style_tok}
         else:
-            merged_static = static_cond["merged"]
+            merged_static, style_tok = static_cond["merged"], static_cond["style_tok"]
 
         t1 = self.t_embedder(t)
         x_in = self.cond_x_merge_linear(x, 0, False) + merged_static
-        lens = None if x_lens is None else torch.clamp(x_lens, max=T).to(torch.int32)
-        x_res = self.transformer(x_in, t1[:, None, :], lens)
+        prefix = []
+        if dc.time_as_token:
+            prefix.append(t1[:, None, :].to(x.dtype))
+        if dc.style_as_token:
+            prefix.append(style_tok[:, None, :])
+        n_prefix = len(prefix)
+        if prefix:
+            x_in = torch.cat([*prefix, x_in], dim=1)
+        lens = (None if x_lens is None
+                else torch.clamp(x_lens + n_prefix, max=T + n_prefix).to(torch.int32))
+        x_res = self.transformer(x_in, t1[:, None, :], lens)[:, n_prefix:]
 
         if dc.long_skip_connection:
             x_res = self.skip_linear(torch.cat([x_res, x], dim=-1))

@@ -39,14 +39,18 @@ class RMSNorm(nn.Module):
 
 
 class AdaptiveRMSNorm(nn.Module):
-    """RMSNorm with weight/bias projected from a conditioning embedding."""
+    """RMSNorm with weight/bias projected from a conditioning embedding.
+    Unconditioned (the time-as-token trunks, which pass ``emb=None``) it is
+    the plain norm and owns no ``project_layer``, as the flax module."""
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    def __init__(self, dim: int, eps: float = 1e-5, conditioned: bool = True):
         super().__init__()
         self.norm = RMSNorm(dim, eps)
-        self.project_layer = nn.Linear(dim, 2 * dim)
+        self.project_layer = nn.Linear(dim, 2 * dim) if conditioned else None
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor]) -> torch.Tensor:
+        if emb is None:
+            return self.norm(x)
         weight, bias = self.project_layer(emb).chunk(2, dim=-1)
         return weight * self.norm(x) + bias
 

@@ -4,7 +4,8 @@ Per block: AdaptiveRMSNorm conditioned on the time embedding, RoPE attention
 (K1, K3 or einsum, see ``nn.layers.Attention``), SwiGLU FFN. U-ViT skips:
 blocks i < n_layer//2 push their outputs on a stack, blocks i > n_layer//2
 pop one (LIFO) and mix it in through ``skip_in_linear``. The final norm is
-adaptive as well.
+adaptive as well. With ``time_as_token`` the time embedding travels as a
+prefix token instead: every norm gets ``c=None`` and is the plain RMSNorm.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ class TransformerConfig:
     rope_base: float = 10000.0
     norm_eps: float = 1e-5
     uvit_skip_connection: bool = False
+    time_as_token: bool = False
     use_flash: bool = False
 
 
@@ -38,10 +40,11 @@ class TransformerBlock(nn.Module):
         if receives_skip:
             self.skip_in_linear = nn.Linear(2 * cfg.dim, cfg.dim)
         self.receives_skip = receives_skip
-        self.attention_norm = AdaptiveRMSNorm(cfg.dim, cfg.norm_eps)
+        conditioned = not cfg.time_as_token
+        self.attention_norm = AdaptiveRMSNorm(cfg.dim, cfg.norm_eps, conditioned)
         self.attention = Attention(cfg.dim, cfg.n_head, cfg.n_local_heads, cfg.head_dim,
                                    use_flash=cfg.use_flash)
-        self.ffn_norm = AdaptiveRMSNorm(cfg.dim, cfg.norm_eps)
+        self.ffn_norm = AdaptiveRMSNorm(cfg.dim, cfg.norm_eps, conditioned)
         self.feed_forward = FeedForward(cfg.dim, ffn_intermediate_size(cfg.dim))
 
     def forward(self, x, c, freqs, lens, skip_in=None, rope_full=None):
@@ -62,7 +65,7 @@ class Transformer(nn.Module):
             self.emit, self.recv = set(), set()
         for i in range(cfg.n_layer):
             self.add_module(f"layers_{i}", TransformerBlock(cfg, receives_skip=i in self.recv))
-        self.norm = AdaptiveRMSNorm(cfg.dim, cfg.norm_eps)
+        self.norm = AdaptiveRMSNorm(cfg.dim, cfg.norm_eps, not cfg.time_as_token)
         self._rope: dict = {}
 
     def rope_tables(self, T: int, device: torch.device):
@@ -82,10 +85,12 @@ class Transformer(nn.Module):
 
     def forward(self, x: torch.Tensor, c: torch.Tensor,
                 lens: Optional[torch.Tensor]) -> torch.Tensor:
-        """x: (B, T, D); c: (B, 1, D) time embedding; lens: (B,) int32 valid
-        key counts or None (every key valid)."""
+        """x: (B, T, D); c: (B, 1, D) time embedding (unused with
+        ``time_as_token``); lens: (B,) int32 valid key counts or None (every
+        key valid)."""
         cfg = self.cfg
         freqs, rope_full = self.rope_tables(x.shape[1], x.device)
+        c = None if cfg.time_as_token else c
         skips: list[torch.Tensor] = []
         for i in range(cfg.n_layer):
             skip_in = skips.pop() if i in self.recv and skips else None

@@ -1,8 +1,10 @@
 """Offline voice-conversion pipeline (v1), port of ``seedvc_tpu/pipelines/convert.py``.
 
 1. resample source/reference to the model rate and to 16 kHz (host, scipy),
-2. Whisper semantic features in 30 s windows (5 s overlap, 250 overlapped
-   frames dropped on concat),
+2. semantic features in 30 s windows (5 s overlap, 250 overlapped frames
+   dropped on concat): Whisper on the window zero-padded to 30 s, or an SSL
+   encoder (XLS-R, the real-time preset) on the window zero-padded to a 5 s
+   bucket,
 3. mel of the reference, CAMPPlus style from a kaldi fbank,
 4. with F0 conditioning (the SVC presets): RMVPE F0 of source and reference,
    the source's matched to the reference's median log-F0 and shifted by
@@ -10,7 +12,8 @@
 5. length-regulate source and reference content (and F0),
 6. chunked CFM generation: per chunk, condition = [reference prompt ‖ source
    chunk] in one fixed context window chosen by :func:`plan_chunks`,
-7. BigVGAN vocoding per chunk, 16-frame cosine^2 crossfade joins.
+7. vocoding per chunk (BigVGAN, or HiFT for the real-time preset),
+   16-frame cosine^2 crossfade joins.
 
 The lengths are bucketed as in the JAX package (5 s mel buckets with a
 reflect-continued tail, 1 s style buckets, 256-frame regulate and F0
@@ -35,7 +38,9 @@ from seedvc_tpu_torch.dsp.whisper_mel import whisper_log_mel
 from seedvc_tpu_torch.models.bigvgan import BIGVGAN_22K_80, BIGVGAN_44K_128, BigVGAN
 from seedvc_tpu_torch.models.campplus import CAMPPlus
 from seedvc_tpu_torch.models.cfm import euler_solve
+from seedvc_tpu_torch.models.hifigan import HiFTConfig, HiFTGenerator
 from seedvc_tpu_torch.models.rmvpe import RMVPE, RMVPE_E2E
+from seedvc_tpu_torch.models.ssl import XLSR_300M_L12, SSLEncoder
 from seedvc_tpu_torch.models.vc import VCModel
 from seedvc_tpu_torch.models.whisper import WHISPER_SMALL, WhisperEncoder, WhisperEncoderConfig
 from seedvc_tpu_torch.weights import load_jax_params
@@ -77,9 +82,13 @@ class VoiceConverter:
     ``device`` defaults to ``cuda`` and raises when there is none; pass
     ``device="cpu"`` to run the plain PyTorch twins of the kernels.
     ``compute_dtype`` defaults to bfloat16 on cuda (the DiT/CFM path and the
-    Whisper encoder; regulator, CAMPPlus, BigVGAN, RMVPE and the DSP stay
-    f32) and f32 on cpu. On cuda the constructor turns TF32 off for both
-    cuDNN and matmuls (``torch.backends.cudnn.allow_tf32`` and
+    content encoder; regulator, CAMPPlus, the vocoder, RMVPE and the DSP stay
+    f32) and f32 on cpu. The preset's ``speech_tokenizer.type`` picks the
+    content encoder: Whisper (``whisper_cfg``), or for ``xlsr`` / ``cnhubert``
+    an SSL encoder (``whisper_cfg`` if it is an ``SSLConfig``, else XLS-R
+    300M at layer 12); its ``vocoder.type`` picks BigVGAN or HiFT
+    (``vocoder_cfg`` overrides either's geometry). On cuda the constructor
+    turns TF32 off for both cuDNN and matmuls (``torch.backends.cudnn.allow_tf32`` and
     ``torch.backends.cuda.matmul.allow_tf32``), because the vocoder is
     specified at full f32 precision. Parameters are random (from ``seed``)
     unless flax trees are given through the ``*_params`` arguments.
@@ -101,10 +110,13 @@ class VoiceConverter:
         mp = self.cfg.model_params
         if cfg_shard_axis is not None or seq_shard_axis is not None:
             raise NotImplementedError("sharded sampling is not ported")
-        if mp.speech_tokenizer.type != "whisper":
-            raise NotImplementedError(f"{mp.speech_tokenizer.type} tokenizer is not ported")
-        if mp.vocoder.type != "bigvgan":
-            raise NotImplementedError(f"{mp.vocoder.type} vocoder is not ported")
+        self.tokenizer_type = mp.speech_tokenizer.type
+        self.vocoder_type = mp.vocoder.type
+        if self.tokenizer_type not in ("whisper", "xlsr", "cnhubert"):
+            raise NotImplementedError(f"{self.tokenizer_type} tokenizer is not ported")
+        if self.vocoder_type not in ("bigvgan", "hifigan"):
+            raise NotImplementedError(f"{self.vocoder_type} vocoder is not ported")
+        self.ssl = self.tokenizer_type in ("xlsr", "cnhubert")
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         if self.device.type == "cuda":
@@ -123,14 +135,21 @@ class VoiceConverter:
         self.context = context_frames
         self.source_window = self.context - self.prompt_cap
 
-        voc_cfg = vocoder_cfg or (BIGVGAN_44K_128 if self.n_mels == 128 else BIGVGAN_22K_80)
         self.f0_condition = mp.DiT.f0_condition
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            self.whisper = WhisperEncoder(whisper_cfg)
+            if self.ssl:
+                self.whisper = SSLEncoder(whisper_cfg if hasattr(whisper_cfg, "conv_kernels")
+                                          else XLSR_300M_L12)
+            else:
+                self.whisper = WhisperEncoder(whisper_cfg)
             self.campplus = CAMPPlus(feat_dim=80, embedding_size=mp.style_encoder.dim)
             self.vc = VCModel(mp)
-            self.vocoder = BigVGAN(voc_cfg)
+            if self.vocoder_type == "hifigan":
+                self.vocoder = HiFTGenerator(vocoder_cfg or HiFTConfig(sampling_rate=self.sr))
+            else:
+                self.vocoder = BigVGAN(vocoder_cfg or (
+                    BIGVGAN_44K_128 if self.n_mels == 128 else BIGVGAN_22K_80))
             rmvpe_model = RMVPE_E2E() if self.f0_condition else None
         for module, tree in ((self.whisper, whisper_params), (self.campplus, campplus_params),
                              (self.vc, vc_params), (self.vocoder, vocoder_params),
@@ -148,23 +167,35 @@ class VoiceConverter:
 
     # ------------------------------------------------------------------
     def _whisper_fn(self, wave_16k: torch.Tensor) -> torch.Tensor:
+        """Content features (f32) of a (1, T) 16 kHz window, the encoder in
+        compute_dtype: an SSL encoder takes the wave cast to it (and
+        normalises it there, as the JAX package's cast does); Whisper takes
+        the log-mel of the wave zero-padded to 30 s."""
+        if self.ssl:
+            return self.whisper(wave_16k.to(self.compute_dtype)).float()
         wave_16k = F.pad(wave_16k, (0, 30 * 16000 - wave_16k.shape[1]))
         mel = whisper_log_mel(wave_16k).to(self.compute_dtype)
         return self.whisper(mel).float()
 
     def semantic_features(self, wave_16k: np.ndarray) -> torch.Tensor:
-        """Whisper features at 50 Hz with 30 s chunking (5 s overlap)."""
+        """Content features at 50 Hz with 30 s chunking (5 s overlap). Each
+        piece is zero-padded to a 1 s bucket (Whisper: the encoder pads to
+        30 s) and cropped to ``len // 320 + 1`` frames, or for an SSL encoder
+        to a 5 s bucket of at least 8000 samples and ``len // 320`` frames."""
         chunk = 30 * 16000
         overlap = 5 * 16000
         T = wave_16k.shape[-1]
 
         def encode(piece: np.ndarray) -> torch.Tensor:
             n = min(len(piece), chunk)
-            T_b = min(-(-max(n, 1) // 16000) * 16000, chunk)
+            if self.ssl:
+                T_b = -(-max(n, 8000) // (5 * 16000)) * (5 * 16000)
+            else:
+                T_b = min(-(-max(n, 1) // 16000) * 16000, chunk)
             padded = np.zeros(T_b, np.float32)
             padded[:n] = piece[:n]
             feats = self._whisper_fn(torch.from_numpy(padded[None]).to(self.device))
-            return feats[:, : len(piece) // 320 + 1]
+            return feats[:, : len(piece) // 320 + (0 if self.ssl else 1)]
 
         if T <= chunk:
             return encode(wave_16k)
@@ -263,9 +294,16 @@ class VoiceConverter:
             shifted[voiced_alt] = shifted[voiced_alt] * 2 ** (pitch_shift / 12)
         return shifted.astype(np.float32), f0_ori.astype(np.float32)
 
+    def vocode(self, mel: torch.Tensor, draws=None) -> torch.Tensor:
+        """f32 mel (B, T, n_mels) -> wave (B, T * hop); ``draws``: HiFT's
+        random draws (see ``models/hifigan.py``), None for BigVGAN."""
+        if self.vocoder_type == "hifigan":
+            return self.vocoder(mel, draws)
+        return self.vocoder(mel)
+
     def _sample_vocode(self, noise, chunk, prompt_cond, total_len, prompt_mel,
                        prompt_len: int, style, n_steps: int, cfg_rate: float,
-                       context: int) -> torch.Tensor:
+                       context: int, draws=None) -> torch.Tensor:
         """CFM sampling over [prompt ‖ chunk] in one context window, the
         generated region sliced out and vocoded; returns the f16 wave."""
         cd = self.compute_dtype
@@ -279,7 +317,7 @@ class VoiceConverter:
                               prompt_len, style.to(cd), n_timesteps=n_steps,
                               cfg_rate=cfg_rate, precompute_fn=self.vc.precompute_cond)
         gen = mel_out[:, prompt_len: prompt_len + W].float()
-        return self.vocoder(gen).half()
+        return self.vocode(gen, draws).half()
 
     # ------------------------------------------------------------------
     def convert(self, source, source_sr, reference, reference_sr,
@@ -301,13 +339,17 @@ class VoiceConverter:
                                diffusion_steps: int = 25, length_adjust: float = 1.0,
                                cfg_rate: float = 0.7, auto_f0_adjust: bool = True,
                                pitch_shift: float = 0.0, seed: int = 0, profile: bool = False,
-                               noise_fn: Optional[Callable] = None):
+                               noise_fn: Optional[Callable] = None,
+                               draws_fn: Optional[Callable] = None):
         """Generator yielding ``(sr, wave_chunk, stats)`` per crossfaded chunk.
         ``auto_f0_adjust`` and ``pitch_shift`` act with F0 conditioning only
         (see :meth:`extract_f0`).
 
         Each chunk's initial noise comes from a ``torch.Generator`` seeded
-        with ``seed``, or from ``noise_fn(shape)`` when given. With
+        with ``seed``, or from ``noise_fn(shape)`` when given. HiFT's draws
+        are made once a call and are the same for every chunk: its
+        ``default_draws``, or ``draws_fn((B, n_samples, H))`` -> (phase
+        (B, 1, H), noise) when given. With
         ``profile=True`` every stage ends in a device synchronise, so
         ``stats['stages']`` attributes device time to stages."""
         timer = StageTimer()
@@ -353,6 +395,12 @@ class VoiceConverter:
 
         gen = torch.Generator(device=self.device).manual_seed(seed)
         noise_shape = (1, context, self.n_mels)
+        draws = None
+        if self.vocoder_type == "hifigan":
+            shape = (1, W * self.hop, self.vocoder.cfg.nb_harmonics + 1)
+            draws = tuple(d.to(self.device) for d in (
+                draws_fn(shape) if draws_fn is not None
+                else self.vocoder.default_draws(1, shape[1], self.device)))
         dispatched = []
         processed = 0
         while processed < target_len:
@@ -366,7 +414,7 @@ class VoiceConverter:
                 dev_wave = sync(self._sample_vocode(
                     noise, cond_buf[:, processed: processed + W], prompt_cond_pad,
                     torch.tensor([p_len + w], device=self.device), prompt_mel_cap, p_len,
-                    style, diffusion_steps, cfg_rate, context))
+                    style, diffusion_steps, cfg_rate, context, draws))
             dispatched.append((w, is_last, dev_wave))
             processed += w if is_last else (w - OVERLAP_FRAMES)
 

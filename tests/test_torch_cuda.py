@@ -77,6 +77,47 @@ def test_attention_kernel_at_svc_heads(lens, dtype, tol, rel_tol):
     assert (out.float() - ref.float()).norm() / ref.float().norm() <= rel_tol
 
 
+@pytest.mark.parametrize("T,lens", [(331, None), (2050, (1968, 1968)), (2050, (1495, 1495)),
+                                    (2050, (0, 1968))])
+@pytest.mark.parametrize("dtype,tol,rel_tol", [(torch.float32, 1e-4, 1e-4),
+                                               (torch.bfloat16, 1e-2, 2e-2)])
+def test_attention_kernel_at_realtime_shapes(T, lens, dtype, tol, rel_tol):
+    """K1 at xlsr_tiny's 6 heads with its 2 prefix tokens: a streaming
+    block's T = 331 (every key valid) and the offline chunks' T = 2050 (no
+    multiple of 64) with their lens and a 0 entry; the limits of
+    test_attention_kernel_matches_twin."""
+    q, k, v = (_randn(s + 40, 2, 6, T, 64).to(dtype) for s in range(3))
+    lens_t = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+    cos, sin = (torch.from_numpy(a).cuda() for a in rope_full_cache(T, 64))
+    out = attention.dit_attention_fused(q, k, v, cos, sin, lens_t)
+    ref = attention.dit_attention_fused_reference(q, k, v, cos, sin, lens_t)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    assert (out.float() - ref.float()).norm() / ref.float().norm() <= rel_tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_kernel_replays_in_a_cuda_graph(dtype):
+    """K1 captured in a CUDA graph (as the streaming block program captures
+    it): the capture counts one launch, a replay on new inputs written into
+    the static buffers equals an eager call on them, bit for bit."""
+    T = 331
+    q, k, v = (_randn(s + 50, 2, 6, T, 64).to(dtype) for s in range(3))
+    cos, sin = (torch.from_numpy(a).cuda() for a in rope_full_cache(T, 64))
+    attention.dit_attention_fused(q, k, v, cos, sin)  # build, load, set attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = attention.LAUNCHES
+    with torch.cuda.graph(graph):
+        out = attention.dit_attention_fused(q, k, v, cos, sin)
+    assert attention.LAUNCHES == before + 1
+    for s in (60, 70):
+        for i, t in enumerate((q, k, v)):
+            t.copy_(_randn(s + i, 2, 6, T, 64).to(dtype))
+        graph.replay()
+        torch.testing.assert_close(out, attention.dit_attention_fused(q, k, v, cos, sin),
+                                   atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("T", [2048, 777, 1])
 def test_rope_prepass_matches_twin_exactly(T):
     """K1's pre-pass (roped q times 2^-3, roped k, bf16) equals its plain

@@ -2,9 +2,12 @@
 
 - neither ``chip_smoke.py`` nor any module of ``seedvc_tpu_torch`` imports
   ``jax``, ``flax`` or ``seedvc_tpu`` (AST scan, so lazy imports count too);
-- ``VoiceConverter()``, ``SeedVCWrapper()`` and the infer CLI, given no
-  device, raise when CUDA is absent (``device="cpu"`` is the only way to the
-  CPU);
+- ``VoiceConverter()``, ``SeedVCWrapper()``, ``StreamingConverter`` on a
+  default converter, and the infer, realtime and stream_bench CLIs, given no
+  device, raise when CUDA is absent (``device="cpu"`` / ``--device cpu`` is
+  the only way to the CPU);
+- the streaming path's SOLA loader never writes into ``native/`` (in
+  tests/test_torch_streaming.py);
 - the kernel build raises without ``nvcc``, and the wrappers refuse tensors
   that are on neither the CPU nor CUDA (the CUDA side of this is in
   tests/test_torch_cuda.py).
@@ -16,9 +19,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from seedvc_tpu_torch.apps import infer
+from seedvc_tpu_torch.apps import infer, realtime, stream_bench
 from seedvc_tpu_torch.ops import anti_alias, attention, build
-from seedvc_tpu_torch.pipelines import convert, wrapper
+from seedvc_tpu_torch.pipelines import convert, streaming, wrapper
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "seedvc_tpu")
@@ -50,7 +53,12 @@ def test_voice_converter_needs_cuda_by_default(monkeypatch):
     lambda: wrapper.SeedVCWrapper(),
     lambda: wrapper.SeedVCWrapper(device="cuda:0"),
     lambda: infer.main(["--source", "s.wav", "--target", "r.wav", "--f0-condition", "true"]),
-], ids=["converter_cuda", "wrapper", "wrapper_cuda0", "infer_cli"])
+    lambda: streaming.StreamingConverter(convert.VoiceConverter(convert.get_preset("xlsr_tiny"))),
+    lambda: realtime.main(["--reference", "r.wav", "--simulate", "s.wav", "--save-settings",
+                           "false"]),
+    lambda: stream_bench.main([]),
+], ids=["converter_cuda", "wrapper", "wrapper_cuda0", "infer_cli", "streaming", "realtime_cli",
+        "stream_bench"])
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
