@@ -16,10 +16,14 @@ failure exits non-zero:
    path's 12 heads with its lens (1966, 1493) and with a 0 entry, and K1 at
    the real-time paths' 6 heads: a block's T = 331 (every key valid) and the
    offline chunks' T = 2050 with lens (1968, 1968), (1495, 1495) and a 0
-   entry, each with a planted fault that must fail the limits; ``Attention(use_flash=True)``
+   entry, and K1 at the v2 path's 3-way CFG stack: (3, 8, 2560, 64) with
+   lens (2154, 2154, 2154) and (3, 8, 2048, 64) with (1966, 1497, 0) and
+   (1497, 1497, 1497), each with a planted fault that must fail the limits;
+   ``Attention(use_flash=True)``
    at a T that is no multiple of 512, which must launch K1 (or K3 with
    grouped KV heads) and agree with its plain twins; and K2 at every stage
-   shape of a 22 kHz and of a 44.1 kHz chunk and at its corners (T % 4 != 0,
+   shape of a 22 kHz and of a 44.1 kHz chunk, of the v2 path's 2046-frame
+   22 kHz chunk, and at its corners (T % 4 != 0,
    one tile and one tile +- 1, T = 1, B = 2, ``logscale=False``,
    |alpha * u| of a few hundred), each with a planted fault (one filter tap
    nudged) that must fail the limit, and one K2 call profiled: it must run
@@ -65,7 +69,22 @@ failure exits non-zero:
    steps; 90 K1 captured a block, 0 K2, 0 K3, 20 replays; block 0 within
    the steady spread); ``python -m seedvc_tpu_torch.apps.realtime --simulate`` on a
    written 10 s wav (length and finiteness of its output);
-9. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
+9. v2 (HuBERT -> ASTRAL tokens, the batched AR decode, DiTV2 with 3-way CFG,
+   BigVGAN 22 kHz): (a) a reduced ``V2Config`` in f32, cuda (kernels, the AR
+   decode as a CUDA graph) against cpu (plain twins), same weights, CFM
+   noise and AR draws: HuBERT features, narrow and wide token indices (equal
+   wherever every projected bit clears 1e-4), the AR's tokens (equal, or the
+   first divergence at a near tie of probs/q), the waves of
+   ``convert_timbre`` and ``convert_voice``; then the AR decode by graph
+   replay against the same step run eagerly on the card (tokens equal);
+   (b) ``V2Config()`` at full width, random weights: ``convert_timbre`` on
+   20 s + 5 s, 30 steps, both rates 0.7, cold, warm and synchronised (one
+   chunk at T = 2560: 390 K1, 109 K2, 0 K3); ``convert_voice`` on the same
+   clip with the AR decoded by graph replay, eagerly, and by graph again
+   (token counts, decode steps, replays, ms a token, plan; chunks x 390 K1
+   and chunks x 109 K2); ``python -m seedvc_tpu_torch.apps.infer_v2`` on
+   written wavs (its wav's length and finiteness);
+10. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
    library call at the shapes of every path (each timed window queued behind a
    spin kernel, so the host's dispatch rate does not enter), with each
    kernel's bound on an H100 SXM; before it, K3's time per head at
@@ -74,9 +93,10 @@ failure exits non-zero:
    clock, power and temperature sampled by ``nvidia-smi`` beside the windows.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
-profiled warm conversion to phases 5, 6 and 8, and one profiled block replay
-to phase 8 (device time by kernel, idle share), and times two layout choices
-of the real-time path (:func:`rt_layout_ab`).
+profiled warm conversion to phases 5, 6, 8 and 9 (a ``convert_timbre`` in
+9), one profiled block replay to phase 8 and one AR decode replay to phase 9
+(device time by kernel, idle share), and times two layout choices of the
+real-time path (:func:`rt_layout_ab`).
 """
 
 from __future__ import annotations
@@ -127,6 +147,14 @@ RT_HEADS = 6
 RT_BLOCK_T, RT_OFFLINE_T = 331, 2050
 K1_RT_CASES = [(RT_BLOCK_T, None), (RT_OFFLINE_T, (1968, 1968)), (RT_OFFLINE_T, (1495, 1495)),
                (RT_OFFLINE_T, (0, 1968))]
+# K1 on the v2 path: the 3-way CFG stack (B = 3), 8 heads, T with the 2
+# prefix tokens. A 20 s source with a 5 s reference (430 prompt frames) is
+# one chunk at context 2558 (T = 2560) with 430 + 1722 + 2 = 2154 valid keys
+# in every branch; a 30 s source is two chunks at context 2046 (T = 2048)
+# with 1966 and 1497 keys; and a 0 entry. K2 runs at a 2046-frame chunk's
+# stage shapes.
+V2_T, V2_LENS, V2_W = 2560, 2154, 2046
+K1_V2_CASES = [(V2_T, (V2_LENS,) * 3), (2048, (1966, 1497, 0)), (2048, (1497, 1497, 1497))]
 # K2: fp32 FIR sums in another order than cuDNN's, and sin^2 by a polynomial
 # (|err| <= 2e-7) where the twin calls sin. The planted fault is the twin with
 # one tap of the 12-tap filter nudged by 1e-4 (of 0.443), which must fail it.
@@ -149,7 +177,7 @@ def k2_cases() -> list:
                (1, 8, 2 * K2_TILE + 1), (1, 24, 3), (1, 48, 7), (1, 8, 1), (2, 96, 1000),
                (2, 24, 3001)]
     return ([(s, "default") for s in stage_shapes(UPSAMPLE_22K) + stage_shapes(UPSAMPLE_44K)
-             + corners]
+             + stage_shapes(UPSAMPLE_22K, V2_W) + corners]
             + [((1, 32, 1001), "linear"), ((2, 16, 4096), "linear"),
                ((1, 24, 4099), "large_alpha"), ((1, 96, 24576), "large_alpha")])
 
@@ -280,12 +308,14 @@ def sass_summary(path) -> dict:
 
 
 def _k1_inputs(T, dtype, lens, seed=0, heads=8):
+    """q, k, v (B, heads, T, 64) with B = len(lens) (2 without lens)."""
     import torch
 
     from seedvc_tpu_torch.nn.layers import rope_full_cache
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn((2, heads, T, 64), generator=g, device="cuda").to(dtype)
+    B = 2 if lens is None else len(lens)
+    q, k, v = (torch.randn((B, heads, T, 64), generator=g, device="cuda").to(dtype)
                for _ in range(3))
     cos, sin = (torch.from_numpy(a).cuda() for a in rope_full_cache(T, 64))
     lens_t = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -303,7 +333,8 @@ def phase_kernels() -> dict:
 
     from seedvc_tpu_torch.ops import anti_alias, attention
 
-    errs = {"k1": 0.0, "k1_svc": 0.0, "k1_rt": 0.0, "k2": 0.0, "k2_svc": 0.0, "k3": 0.0}
+    errs = {"k1": 0.0, "k1_svc": 0.0, "k1_rt": 0.0, "k1_v2": 0.0, "k2": 0.0, "k2_svc": 0.0,
+            "k2_v2": 0.0, "k3": 0.0}
     slots = {8: "", K1_SVC_HEADS: "_svc", RT_HEADS: "_rt"}
     # K1's first stage: roped q times 2^-3 and roped k, bit for bit
     for T in (2048, 777):
@@ -322,20 +353,23 @@ def phase_kernels() -> dict:
         if rope:
             cases += [(T, lens, K1_SVC_HEADS) for T, lens in K1_SVC_CASES]
             cases += [(T, lens, RT_HEADS) for T, lens in K1_RT_CASES]
+            cases += [(T, lens, "v2") for T, lens in K1_V2_CASES]
         for dtype in (torch.bfloat16, torch.float32):
             atol, rtol = K1_TOL[str(dtype).split(".")[1]]
-            for T, lens, heads in cases:
+            for T, lens, slot_heads in cases:
+                heads = 8 if slot_heads == "v2" else slot_heads
                 q, k, v, cos, sin, lens_t = _k1_inputs(T, dtype, lens, heads=heads)
                 args = (q, k, v, cos, sin) if rope else (q, k, v)
                 out = kernel(*args, lens_t)
                 ref = twin(*args, lens_t)
                 # planted fault: the twin with the last valid key tile dropped
                 n_valid = lens_t if lens_t is not None else torch.full(
-                    (2,), T, dtype=torch.int32, device="cuda")
+                    (q.shape[0],), T, dtype=torch.int32, device="cuda")
                 bad = twin(*args, n_valid - K1_FAULT_KEYS)
                 err, rel = k1_errors(out, ref)
                 f_err, f_rel = k1_errors(bad, ref)
-                what = f"{key.upper()} {kernel.__name__} (2,{heads},{T},64) {dtype} lens={lens}"
+                what = (f"{key.upper()} {kernel.__name__} {tuple(q.shape)} {dtype} "
+                        f"lens={lens}")
                 log(f"{what}: max_abs_err {err:.3e} tol {atol:g}, rel_l2 {rel:.3e} "
                     f"tol {rtol:g}; planted fault max_abs {f_err:.3e} rel_l2 {f_rel:.3e}")
                 if not (err <= atol and rel <= rtol):
@@ -343,7 +377,7 @@ def phase_kernels() -> dict:
                 if f_err <= atol and f_rel <= rtol:
                     fail(f"{what}: the limit passes a planted fault")
                 if dtype == torch.bfloat16:
-                    slot = key + slots[heads]
+                    slot = key + ("_v2" if slot_heads == "v2" else slots[heads])
                     errs[slot] = max(errs[slot], err)
     attention_module_check()
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -362,7 +396,8 @@ def phase_kernels() -> dict:
             fail(f"{what}: kernel disagrees with its plain twin")
         if f_err <= K2_TOL:
             fail(f"{what}: the limit passes a planted fault")
-        slot = "k2_svc" if shape in stage_shapes(UPSAMPLE_44K) else "k2"
+        slot = ("k2_svc" if shape in stage_shapes(UPSAMPLE_44K)
+                else "k2_v2" if shape in stage_shapes(UPSAMPLE_22K, V2_W) else "k2")
         errs[slot] = max(errs[slot], err)
     n = device_kernels(lambda: anti_alias.anti_alias_snake(x, alpha, beta, logscale))
     log(f"K2: one call ran {n} device kernel(s)")
@@ -406,9 +441,9 @@ def attention_module_check(T: int = 777):
             fail(f"Attention at T={T}: kernels and plain twins disagree")
 
 
-def stage_shapes(rates):
+def stage_shapes(rates, W: int = MAIN_W):
     """BigVGAN stage shapes (1, C, T_s) of one W-frame chunk."""
-    shapes, T = [], MAIN_W
+    shapes, T = [], W
     for i, u in enumerate(rates):
         T *= u
         shapes.append((1, 1536 // 2 ** (i + 1), T))
@@ -1250,6 +1285,355 @@ def phase_rt_full(card: str, profile: bool = False) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# v2: HuBERT -> ASTRAL tokens, the batched AR decode (one CUDA graph a
+# token), DiTV2 with 3-way CFG over K1, BigVGAN 22 kHz.
+V2_STEPS = 30
+# ASTRAL tokens, cuda against cpu: equal wherever every projected bit clears
+# this (elsewhere f32 summation order may flip a sign)
+V2_BIT_CLEAR = 1e-4
+# the AR's tokens, cuda against cpu: equal, or the first divergence at a
+# near tie, the top two probs/q within this (relative)
+V2_TIE = 1e-5
+# HuBERT features, cuda (cuDNN, TF32 off) against cpu, f32
+V2_SSL_TOL = 1e-3
+# the reduced AR's EOS weights are raised so its decode ends after several hundred
+# tokens (at random weights it would run to 2048 on both devices)
+V2_SMALL_EOS_BIAS = 0.05
+
+
+def v2_small_converter(device: str):
+    """A reduced V2Config in f32: HuBERT 128 wide (2 layers, 64 conv
+    channels, the positional conv at its real kernel and groups), ASTRAL
+    quantizers 64 wide (2 blocks; codebooks 32 and 2048), the DiT at full
+    width (512, 8 heads of 64) cut to depth 3, the AR 256 wide (2 layers, 4
+    query heads of 64 over 2 KV heads, vocab 2049, max_seq 4096), a small
+    BigVGAN; prompt cap 128, context 766."""
+    import torch
+
+    from seedvc_tpu_torch.models.ar import ARConfig
+    from seedvc_tpu_torch.models.astral import AstralConfig
+    from seedvc_tpu_torch.models.bigvgan import BigVGANConfig
+    from seedvc_tpu_torch.models.dit_v2 import DiTV2Config
+    from seedvc_tpu_torch.models.ssl import SSLConfig
+    from seedvc_tpu_torch.pipelines import convert_v2
+
+    astral = dict(dim=64, intermediate_dim=128, num_blocks=2, input_dim=128)
+    cfg = convert_v2.V2Config(
+        dit=DiTV2Config(depth=SMALL_DEPTH),
+        ar=ARConfig(dim=256, n_layer=2, n_head=4, n_local_heads=2, head_dim=64,
+                    intermediate_size=512),
+        ssl=SSLConfig(conv_dim=64, d_model=128, n_layers=2, n_heads=8, ffn_dim=256),
+        narrow=AstralConfig(codebook_size=32, **astral),
+        wide=AstralConfig(codebook_size=2048, **astral),
+        prompt_cap_frames=128, context_frames=766)
+    saved = convert_v2.BIGVGAN_22K_80
+    convert_v2.BIGVGAN_22K_80 = BigVGANConfig(upsample_initial_channel=128,
+                                              resblock_kernel_sizes=(3,),
+                                              resblock_dilation_sizes=((1, 3),))
+    try:
+        vc = convert_v2.VoiceConverterV2(cfg, seed=0, compute_dtype=torch.float32,
+                                         device=device)
+    finally:
+        convert_v2.BIGVGAN_22K_80 = saved
+    with torch.no_grad():
+        vc.ar.output.weight[cfg.ar.eos] += V2_SMALL_EOS_BIAS
+    return vc
+
+
+def v2_cpu_draws(shape):
+    """AR draws made on the CPU from a fixed seed, the same for a cuda and a
+    cpu run."""
+    import torch
+
+    g = torch.Generator().manual_seed(61)
+    return torch.empty(shape).exponential_(generator=g).clamp_min_(1e-30)
+
+
+@contextlib.contextmanager
+def ar_scores(log: list):
+    """Record the top two of each sample's probs/q (one (B, 2) tensor a
+    sampled step) while the block runs; eager steps only (a CUDA graph's
+    replays call no Python)."""
+    from seedvc_tpu_torch.models import ar
+
+    saved = ar.sample_token
+
+    def scored(*a, **kw):
+        scores = ar.token_scores(*a, **kw)
+        log.append(scores.topk(2, dim=-1).values.cpu())
+        return scores.argmax(-1)
+
+    ar.sample_token = scored
+    try:
+        yield log
+    finally:
+        ar.sample_token = saved
+
+
+def v2_bits(vc, wave16: np.ndarray):
+    """HuBERT features of the 5 s-bucketed wave, and each quantizer's
+    indices and projected bits (the l2-normalised ``project_in``)."""
+    import torch
+
+    from seedvc_tpu_torch.nn.bsq import l2norm
+
+    T = len(wave16)
+    padded = np.zeros(-(-max(T, 8000) // 80000) * 80000, np.float32)
+    padded[:T] = wave16
+    with torch.no_grad():
+        feats = vc.ssl(torch.from_numpy(padded[None]).to(vc.device))
+        out = {"ssl": feats.cpu().numpy()}
+        for name in ("narrow", "wide"):
+            q = getattr(vc, name)
+            out[name] = q(feats)[1].cpu().numpy()
+            out[name + "_bits"] = l2norm(q.quantizer.project_in(q.encoder(feats))).cpu().numpy()
+    return out
+
+
+def phase_v2_small():
+    """(a) the reduced V2Config in f32, cuda (K1, K2) against cpu (plain
+    twins), same weights, CFM noise and AR draws: HuBERT features, ASTRAL
+    indices, the AR's tokens and the waves of convert_timbre and
+    convert_voice; then the AR decode's graph replay against the same step
+    run eagerly on the card."""
+    import torch
+
+    from seedvc_tpu_torch.dsp.resample import resample_host
+
+    src = synthetic_audio(8.0, 22050, 140.0, seed=51)
+    ref = synthetic_audio(1.5, 22050, 220.0, seed=52)
+    noise = np.random.default_rng(53).standard_normal((768, 80)).astype(np.float32)
+    kw = dict(diffusion_steps=SMALL_STEPS, draws_fn=v2_cpu_draws,
+              noise_fn=lambda s: torch.from_numpy(noise[: s[1]][None]))
+
+    def tokens_of(vc, fn):
+        """fn()'s AR tokens and counts (from the generator's calls)."""
+        got = []
+        generate = vc.generator.generate
+
+        def rec(*a, **k):
+            got.append(tuple(t.cpu() for t in generate(*a, **k)))
+            return got[-1]
+
+        vc.generator.generate = rec
+        try:
+            out = fn()
+        finally:
+            vc.generator.generate = generate
+        return out, got[0]
+
+    runs = {}
+    for device in ("cpu", "cuda"):
+        vc = v2_small_converter(device)
+        bits = v2_bits(vc, resample_host(src, 22050, 16000))
+        reset_counts()
+        _, timbre, t_stats = vc.convert_timbre(src, 22050, ref, 22050, **kw)
+        t_counts = read_counts()
+        scores: list = []
+        with ar_scores(scores) if device == "cpu" else contextlib.nullcontext():
+            reset_counts()
+            (_, voice, v_stats), ar_out = tokens_of(
+                vc, lambda: vc.convert_voice(src, 22050, ref, 22050, **kw))
+        v_counts = read_counts()
+        log(f"v2 small on {device}: timbre {len(timbre)} samples, {t_stats['chunks']} chunks, "
+            f"launches {t_counts}; voice: narrow {v_stats['narrow_tokens']}, wide "
+            f"{v_stats['wide_tokens']} tokens, ar_batch {v_stats['ar_batch']}, decode steps "
+            f"{v_stats['decode_steps']}, replays {v_stats['replays']}, target_len "
+            f"{v_stats['target_len']}, plan {v_stats['plan']}, {v_stats['chunks']} chunks, "
+            f"launches {v_counts}")
+        for what, counts, stats in (("timbre", t_counts, t_stats), ("voice", v_counts, v_stats)):
+            k1 = stats["chunks"] * SMALL_STEPS * SMALL_DEPTH if device == "cuda" else 0
+            if counts["k1"] != k1 or counts["k3"] != 0 or (counts["k2"] > 0) != (device == "cuda"):
+                fail(f"v2 small {what} on {device}: launches {counts}, expected k1 = {k1}, "
+                     f"k3 = 0, k2 {'> 0' if device == 'cuda' else '= 0'}")
+        if device == "cuda" and v_stats["replays"] != v_stats["decode_steps"] - 1:
+            fail(f"v2 small: {v_stats['replays']} replays for {v_stats['decode_steps']} "
+                 "decode steps (the first runs eagerly)")
+        runs[device] = dict(vc=vc, bits=bits, timbre=timbre, voice=voice, ar=ar_out,
+                            scores=scores, stats=v_stats)
+
+    cpu, cuda = runs["cpu"], runs["cuda"]
+    ssl_err = float(np.abs(cpu["bits"]["ssl"] - cuda["bits"]["ssl"]).max())
+    log(f"v2 small HuBERT features {cpu['bits']['ssl'].shape} cuda vs cpu: max_abs_err "
+        f"{ssl_err:.3e} tol {V2_SSL_TOL:g}")
+    if not ssl_err <= V2_SSL_TOL:
+        fail("v2 small: HuBERT features disagree")
+    for name in ("narrow", "wide"):
+        clear = np.abs(cpu["bits"][name + "_bits"]).min(-1) > V2_BIT_CLEAR
+        same = cpu["bits"][name] == cuda["bits"][name]
+        log(f"v2 small {name} indices {same.shape}: equal on {int(same[clear].sum())} of "
+            f"{int(clear.sum())} frames whose bits clear {V2_BIT_CLEAR:g}; {int((~clear).sum())} "
+            f"frames not clear ({int(same[~clear].sum())} of them equal)")
+        if not same[clear].all():
+            fail(f"v2 small: {name} indices differ where every bit is clear")
+    (c_tok, c_n), (g_tok, g_n) = cpu["ar"], cuda["ar"]
+    if torch.equal(c_tok, g_tok) and torch.equal(c_n, g_n):
+        log(f"v2 small AR tokens cuda (graph) vs cpu: equal, counts {c_n.tolist()}")
+    else:
+        diff = (c_tok != g_tok).nonzero()
+        b, step = (int(diff[0, 0]), int(diff[0, 1])) if len(diff) else (0, -1)
+        if step < 0:
+            fail(f"v2 small AR: equal tokens but counts {c_n.tolist()} vs {g_n.tolist()}")
+        top2 = cpu["scores"][step][b]
+        margin = float((top2[0] - top2[1]) / top2[0])
+        log(f"v2 small AR tokens cuda vs cpu: first divergence row {b} step {step}, top-2 "
+            f"probs/q margin {margin:.3e} (relative) tol {V2_TIE:g}")
+        if not margin <= V2_TIE:
+            fail("v2 small AR: tokens diverge away from a near tie")
+    err, snr = compare_waves("v2 small timbre", cpu["timbre"], cuda["timbre"])
+    log(f"v2 small f32 convert_timbre cuda vs cpu: max_abs_err {err:.3e} tol {SMALL_TOL:g}, "
+        f"SNR {snr:.1f} dB")
+    if not err <= SMALL_TOL:
+        fail("v2 small convert_timbre: cuda and cpu disagree")
+    if torch.equal(c_tok, g_tok):
+        err, snr = compare_waves("v2 small voice", cpu["voice"], cuda["voice"])
+        log(f"v2 small f32 convert_voice cuda vs cpu: max_abs_err {err:.3e} tol "
+            f"{SMALL_TOL:g}, SNR {snr:.1f} dB")
+        if not err <= SMALL_TOL:
+            fail("v2 small convert_voice: cuda and cpu disagree")
+
+    vc = cuda["vc"]
+    vc.generator.use_graph = False
+    try:
+        (_, _, e_stats), e_ar = tokens_of(
+            vc, lambda: vc.convert_voice(src, 22050, ref, 22050, **kw))
+    finally:
+        vc.generator.use_graph = None
+    same = torch.equal(e_ar[0], g_tok) and torch.equal(e_ar[1], g_n)
+    log(f"v2 small AR on cuda, graph replay vs eager: tokens equal {same}; "
+        f"{cuda['stats']['replays']} replays vs {e_stats['replays']}")
+    if not same or e_stats["replays"] != 0:
+        fail("v2 small AR: graph replay and eager decode disagree")
+
+
+def phase_v2_full(card: str, profile: bool = False) -> dict:
+    """(b) V2Config() at full width, random weights from seed 0: convert_timbre
+    on a 20 s source with a 5 s reference, 30 steps, both rates 0.7, cold,
+    warm and synchronised (1 chunk: 390 K1, 109 K2, 0 K3); convert_voice
+    on the same clip, with the AR timed by graph replay and eagerly; the
+    infer_v2 CLI on written wavs."""
+    import tempfile
+
+    import torch
+
+    from seedvc_tpu_torch.apps import infer_v2
+    from seedvc_tpu_torch.apps.audio_io import load_wav, save_wav
+    from seedvc_tpu_torch.pipelines.convert import OVERLAP_FRAMES
+    from seedvc_tpu_torch.pipelines.convert_v2 import VoiceConverterV2
+
+    t0 = time.perf_counter()
+    vc = VoiceConverterV2(device="cuda")
+    c = vc.cfg
+    log(f"v2: V2Config() built in {time.perf_counter() - t0:.1f} s (compute dtype "
+        f"{vc.compute_dtype}; HuBERT {c.ssl.d_model} wide, {c.ssl.n_layers} layers; ASTRAL "
+        f"{c.wide.dim} wide, {c.wide.num_blocks} blocks; DiT {c.dit.hidden_dim} wide, "
+        f"{c.dit.depth} deep, {c.dit.num_heads} heads; AR {c.ar.dim} wide, {c.ar.n_layer} layers, "
+        f"max_seq {c.ar.max_seq_len})")
+    sr, hop = c.sr, c.hop
+    src = synthetic_audio(20.0, sr, 140.0, seed=54)
+    ref = synthetic_audio(5.0, sr, 220.0, seed=55)
+    kw = dict(diffusion_steps=V2_STEPS, intelligibility_cfg_rate=0.7, similarity_cfg_rate=0.7)
+
+    def check_plan(what, stats, counts):
+        cap, context, W = stats["plan"]
+        p_len = len(ref) // hop
+        n, lens, processed, tl = 0, [], 0, stats["target_len"]
+        while processed < tl:
+            w = min(W, tl - processed)
+            lens.append(p_len + w + 2)
+            processed += w if processed + W >= tl else w - OVERLAP_FRAMES
+            n += 1
+        expect = {"k1": n * V2_STEPS * c.dit.depth, "k2": n * 109, "k3": 0}
+        log(f"  {what}: plan {stats['plan']}, K1 at T = {context + 2} (B = 3), lens by chunk "
+            f"{lens}, {n} chunks")
+        if n != stats["chunks"]:
+            fail(f"{what}: {stats['chunks']} chunks, the plan gives {n}")
+        check_counts(what, counts, expect)
+        return lens
+
+    result = {}
+    for run, synced in (("cold", False), ("warm", False), ("warm, stages synced", True)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, wave, stats = vc.convert_timbre(src, sr, ref, sr, profile=synced, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        secs = len(wave) / sr
+        log(f"v2 timbre {run}: {wall:.3f} s wall for {secs:.2f} s of audio "
+            f"({secs / wall:.2f} audio-s/s), {stats['chunks']} chunks, launches {counts}, "
+            f"on {card}")
+        log("  stages: " + json.dumps({k: round(v["seconds"], 4)
+                                       for k, v in stats["stages"].items()}))
+        if not np.isfinite(wave).all() or len(wave) != len(src) // hop * hop:
+            fail(f"v2 timbre {run}: {len(wave)} samples (expected {len(src) // hop * hop}) "
+                 "or non-finite audio")
+        lens = check_plan(f"v2 timbre {run}", stats, counts)
+        if stats["plan"][1] + 2 != V2_T or lens != [V2_LENS]:
+            fail(f"v2 timbre: plan {stats['plan']}, lens {lens}; expected T = {V2_T}, lens "
+                 f"[{V2_LENS}]")
+        if run == "warm":
+            result.update(wall_s=wall, audio_s=secs, counts=counts, lens=lens)
+    if profile:
+        profile_conversion(lambda: vc.convert_timbre(src, sr, ref, sr, **kw), result["wall_s"])
+
+    voice = {}
+    for mode in ("graph", "eager", "graph"):
+        vc.generator.use_graph = mode == "graph"
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, wave, stats = vc.convert_voice(src, sr, ref, sr, profile=mode == "eager", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        ms_tok = stats["ar_seconds"] / max(stats["decode_steps"], 1) * 1e3
+        log(f"v2 voice ({mode} AR decode): {wall:.3f} s wall for {len(wave) / sr:.2f} s of "
+            f"audio; narrow {stats['narrow_tokens']} -> wide {stats['wide_tokens']} tokens, "
+            f"ar_batch {stats['ar_batch']}, decode steps {stats['decode_steps']}, replays "
+            f"{stats['replays']}, AR {stats['ar_seconds']:.3f} s ({ms_tok:.4f} ms a token), "
+            f"target_len {stats['target_len']}, launches {counts}, on {card}")
+        log("  stages: " + json.dumps({k: round(v["seconds"], 4)
+                                       for k, v in stats["stages"].items()}))
+        if not np.isfinite(wave).all() or len(wave) != stats["target_len"] * hop:
+            fail(f"v2 voice: {len(wave)} samples (expected {stats['target_len'] * hop}) or "
+                 "non-finite audio")
+        check_plan(f"v2 voice ({mode})", stats, counts)
+        voice[mode] = dict(ms_per_token=ms_tok, stats=stats, wall_s=wall)
+    vc.generator.use_graph = None
+    g = voice["graph"]["stats"]
+    if g["replays"] != g["decode_steps"] - 1:
+        fail(f"v2 voice: {g['replays']} replays for {g['decode_steps']} decode steps")
+    result["voice"] = voice
+    if profile:
+        from seedvc_tpu_torch.core.profiling import cuda_time_ms
+
+        replay = vc.generator.graph.replay
+        log(f"profile: one AR decode replay runs {device_kernels(replay)} device kernels, "
+            f"{cuda_time_ms(replay, iters=20):.4f} ms of device time (CUDA events)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src_path, ref_path = os.path.join(tmp, "src.wav"), os.path.join(tmp, "ref.wav")
+        save_wav(src_path, src, sr)
+        save_wav(ref_path, ref, sr)
+        reset_counts()
+        t0 = time.perf_counter()
+        out_path, stats = infer_v2.main(["--source", src_path, "--target", ref_path,
+                                         "--output", os.path.join(tmp, "out"),
+                                         "--diffusion-steps", str(V2_STEPS)])
+        torch.cuda.synchronize()
+        wave, out_sr = load_wav(out_path)
+        log(f"infer_v2 cli: {time.perf_counter() - t0:.1f} s (build included), wrote "
+            f"{os.path.basename(out_path)}: {out_sr} Hz, {len(wave)} samples, wide tokens "
+            f"{stats['wide_tokens']}, launches {read_counts()}")
+        if out_sr != sr or len(wave) != stats["target_len"] * hop or not np.isfinite(wave).all():
+            fail(f"infer_v2 wrote {out_sr} Hz, {len(wave)} samples, expected {sr} Hz and "
+                 f"{stats['target_len'] * hop} finite samples")
+    return result
+
+
 @contextlib.contextmanager
 def smi_sampler(period_ms: int = 100):
     """Samples of the card's SM clock, power draw, power limit and temperature
@@ -1266,16 +1650,16 @@ def smi_sampler(period_ms: int = 100):
         samples.extend(line.strip() for line in out.splitlines() if line.strip())
 
 
-def k1_timing(T: int, heads: int, n_valid: int, seed: int) -> dict:
+def k1_timing(T: int, heads: int, n_valid: int, seed: int, B: int = 2) -> dict:
     """K1 against its plain twin and SDPA (on the same roped q, k) at q/k/v
-    (2, heads, T, 64) bf16 with n_valid keys, and its bound."""
+    (B, heads, T, 64) bf16 with n_valid keys, and its bound."""
     import torch
     import torch.nn.functional as F
 
     from seedvc_tpu_torch.core.profiling import cuda_time_ms
     from seedvc_tpu_torch.ops import attention
 
-    q, k, v, cos, sin, lens = _k1_inputs(T, torch.bfloat16, (n_valid, n_valid), seed=seed,
+    q, k, v, cos, sin, lens = _k1_inputs(T, torch.bfloat16, (n_valid,) * B, seed=seed,
                                          heads=heads)
     ms = cuda_time_ms(lambda: attention.dit_attention_fused(q, k, v, cos, sin, lens))
     plain = cuda_time_ms(lambda: attention.dit_attention_fused_reference(
@@ -1296,7 +1680,7 @@ def k1_timing(T: int, heads: int, n_valid: int, seed: int) -> dict:
             "library_ms": lib}
 
 
-def k2_timing(rates) -> dict:
+def k2_timing(rates, W: int = MAIN_W) -> dict:
     """K2 at every stage shape of a chunk: kernel, plain twin, bound, and a
     device copy of x (the practical floor of the bytes; no yardstick of the
     function, so not a row's library_ms)."""
@@ -1307,7 +1691,7 @@ def k2_timing(rates) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(8)
     k2 = {}
-    for shape in stage_shapes(rates):
+    for shape in stage_shapes(rates, W):
         x, alpha, beta, _ = k2_inputs(shape, "default", g)
         ms = cuda_time_ms(lambda: anti_alias.anti_alias_snake(x, alpha, beta), iters=200)
         plain = cuda_time_ms(lambda: anti_alias.anti_alias_snake_reference(x, alpha, beta),
@@ -1344,7 +1728,8 @@ def k1_row(t: dict, launches: int, err: float, path: str) -> dict:
             "max_abs_err": err, "tol": K1_TOL["bfloat16"][0], **t}
 
 
-def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: dict) -> dict:
+def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: dict,
+                      v2: dict) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -1358,6 +1743,8 @@ def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: di
     # the real-time paths: 6 heads, T with the 2 prefix tokens
     k1_rt = k1_timing(RT_OFFLINE_T, RT_HEADS, rt["lens"][0], seed=27)
     k1_block = k1_timing(RT_BLOCK_T, RT_HEADS, RT_BLOCK_T, seed=28)
+    # the v2 path: the 3-way CFG stack at T = 2560, the timbre run's keys
+    k1_v2 = k1_timing(V2_T, 8, v2["lens"][0], seed=29, B=3)
 
     # K3 at its entry point's shape: the microbench attention component,
     # q/k/v (2, 8, 2560, 64) bf16 after RoPE, every key valid
@@ -1387,6 +1774,7 @@ def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: di
     with smi_sampler() as samples:
         k2_main = k2_timing(UPSAMPLE_22K)
         k2_svc = k2_timing(UPSAMPLE_44K)
+        k2_v2 = k2_timing(UPSAMPLE_22K, V2_W)
     log("K2 windows, nvidia-smi clocks.sm, power.draw, power.limit, temperature.gpu: "
         + " | ".join(samples))
     main_path, svc_path = "whisper_small_wavenet conversion", f"{SVC_PRESET} SVC conversion"
@@ -1405,6 +1793,8 @@ def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: di
         k2_row(k2_svc, svc["counts"]["k2"], errs["k2_svc"], svc_path),
         k1_row(k1_rt, rt["counts"]["k1"], errs["k1_rt"], f"{RT_PRESET} offline conversion"),
         stream_k1_row(k1_block, rt, errs["k1_rt"]),
+        k1_row(k1_v2, v2["counts"]["k1"], errs["k1_v2"], "v2 convert_timbre (V2Config())"),
+        k2_row(k2_v2, v2["counts"]["k2"], errs["k2_v2"], "v2 convert_timbre (V2Config())"),
     ]}
 
 
@@ -1444,7 +1834,9 @@ def main(argv=None) -> int:
     mb_counts = phase_microbench()
     phase_rt_small()
     rt = phase_rt_full(card, args.profile)
-    line = phase_kernel_line(errs, full, svc, mb_counts, rt)
+    phase_v2_small()
+    v2 = phase_v2_full(card, args.profile)
+    line = phase_kernel_line(errs, full, svc, mb_counts, rt, v2)
     log(card)
     print(json.dumps(line), flush=True)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

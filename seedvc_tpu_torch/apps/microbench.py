@@ -3,7 +3,7 @@
 
 Times the hot components of the 98M ``whisper_small_wavenet`` sampler at its
 production shape (B = 2 CFG stack, T = 2560, bf16 activations), the BigVGAN
-vocoder and the batched 25-step sampler, and prints one JSON row per
+vocoder, the batched 25-step sampler and the v2 AR decode, and prints one JSON row per
 component: ``name``, ``ms`` and, where the JAX package gives them,
 ``tflops_per_s`` / ``gb_per_s`` / ``audio_s_per_s`` from the same FLOP
 formulas; plus ``device`` (the card's name) and ``calls`` (how many times the
@@ -267,6 +267,63 @@ def bench_vocoder(B=1, T=512, device="cuda", cfg=None):
                   audio_seconds=B * T * voc_cfg.total_upsample / 22050)
 
 
+@torch.no_grad()
+def bench_ar_decode(B=1, n_tokens=128, max_seq=4096, device="cuda", cfg=None):
+    """Incremental AR decode, ms a token, at the v2 model's size (``cfg``,
+    default ``ARConfig()``: 768 wide, 12 layers, 2 KV heads) with a
+    ``max_seq`` cache, bf16 on cuda (f32 on the CPU): ``n_tokens`` decode
+    steps from position 0, each feeding its argmax back (no sampling), as
+    the JAX package's component. On cuda the step is captured as one CUDA
+    graph and the replays are timed (``ms_per_token``); the same step run
+    eagerly is timed beside it (``eager_ms_per_token``). ``gb_per_s`` counts
+    the weights and the whole KV cache read once a token."""
+    from seedvc_tpu_torch.models.ar import ARConfig, ARTransformer
+
+    dev = _device(device)
+    cfg = dataclasses.replace(cfg or ARConfig(), max_seq_len=max_seq)
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    model = _build(lambda: ARTransformer(cfg), dev, dtype)
+    kc, vc = model.new_caches(B, dev, dtype)
+    pos = torch.zeros((), dtype=torch.long, device=dev)
+    tok = torch.zeros(B, dtype=torch.long, device=dev)
+
+    def step():
+        logits = model.decode_step(model.embed_tokens(tok[:, None]), pos.expand(B), pos, kc, vc)
+        tok.copy_(torch.argmax(logits, dim=-1))
+        pos.add_(1)
+
+    def decode(one):
+        pos.zero_()
+        tok.zero_()
+        for _ in range(n_tokens):
+            one()
+
+    graph = None
+    if dev.type == "cuda":
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+    eager, calls = timeit(lambda: decode(step), dev, iters=2, inner=1)
+    per_token, more = ((eager, 0) if graph is None
+                       else timeit(lambda: decode(graph.replay), dev, iters=3, inner=1))
+    per_token, eager = per_token / n_tokens, eager / n_tokens
+    n_params = sum(w.numel() for w in model.parameters())
+    kv_bytes = kc.numel() * kc.element_size() * 2
+    row = {"name": f"ar_decode B{B} seq{max_seq} ({n_params / 1e6:.0f}M params)",
+           "ms_per_token": per_token * 1e3, "tokens_per_s": B / per_token,
+           "eager_ms_per_token": eager * 1e3, "graph": graph is not None,
+           "gb_per_s": (n_params * model.output.weight.element_size() + kv_bytes)
+           / per_token / 1e9,
+           "device": _device_name(dev), "calls": (calls + more) * n_tokens}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def _waiting(item: str):
     def run(*args, **kwargs):
         raise NotImplementedError(f"not ported: waits for ROADMAP queue 1 item {item}")
@@ -284,16 +341,16 @@ ALL = {
     "serving": bench_serving,
     "serving_b1": lambda **kw: bench_serving(B=1, **kw),
     "serving_b2": lambda **kw: bench_serving(B=2, **kw),
+    "ar_decode": bench_ar_decode,
+    "ar_decode_b4": lambda **kw: bench_ar_decode(B=4, **kw),
 }
 # The JAX package's components whose modules the port does not have yet:
 # named with --only they raise; the default run leaves them out.
 WAITING = {
-    "ar_decode": _waiting("4 (v2)"),
-    "ar_decode_b4": _waiting("4 (v2)"),
-    "train_step": _waiting("5 (training)"),
-    "train_step_bf16": _waiting("5 (training)"),
-    "train_onfly": _waiting("5 (training)"),
-    "train_onfly_sync": _waiting("5 (training)"),
+    "train_step": _waiting("3 (training)"),
+    "train_step_bf16": _waiting("3 (training)"),
+    "train_onfly": _waiting("3 (training)"),
+    "train_onfly_sync": _waiting("3 (training)"),
 }
 
 

@@ -1,0 +1,88 @@
+"""v2 CFM: the cosine t-schedule and the multi-condition CFG Euler sampler
+(port of the inference half of ``seedvc_tpu/models/cfm_v2.py``).
+
+``t <- t - (cos(pi t / 2) - 1 + t)``; the CFG batch stacks up to three
+branches [full / text-only / unconditional] and combines them with weights
+``(1 + r0 + r1, -r1, -r0)``, where (r0, r1) = (intelligibility, similarity);
+with either rate 0 the stack has two branches, with both none, and
+``random_voice`` (anonymisation) stacks [text-only / unconditional]. The
+Euler update runs in f32 and is cast back; the prompt region is re-zeroed
+every step. The initial noise is an argument.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Sequence
+
+import torch
+
+
+def cosine_t_span(n_timesteps: int) -> torch.Tensor:
+    """(n + 1,) f32 on the CPU."""
+    t = torch.linspace(0.0, 1.0, n_timesteps + 1, dtype=torch.float32)
+    return t - (torch.cos(math.pi / 2 * t) - 1 + t)
+
+
+def cfg_branches(prompt_x, style, mu, cfg_rates: Sequence[float], random_voice: bool):
+    """[(prompt, style, mu) per branch], weights: the five layouts."""
+    r0, r1 = float(cfg_rates[0]), float(cfg_rates[1])
+    zp, zs, zm = torch.zeros_like(prompt_x), torch.zeros_like(style), torch.zeros_like(mu)
+    if random_voice:  # [text-only / unconditional]
+        return [(zp, zs, mu), (zp, zs, zm)], (1.0 + r0, -r0)
+    if r0 == 0 and r1 == 0:
+        return [(prompt_x, style, mu)], (1.0,)
+    if r0 == 0:  # [full / text-only]
+        return [(prompt_x, style, mu), (zp, zs, mu)], (1.0 + r1, -r1)
+    if r1 == 0:  # [full / unconditional]
+        return [(prompt_x, style, mu), (zp, zs, zm)], (1.0 + r0, -r0)
+    # [full / text-only / unconditional]
+    return ([(prompt_x, style, mu), (zp, zs, mu), (zp, zs, zm)], (1.0 + r0 + r1, -r1, -r0))
+
+
+@torch.no_grad()
+def euler_solve_multicfg(estimate_fn: Callable, noise: torch.Tensor, mu: torch.Tensor,
+                         x_lens: Optional[torch.Tensor], prompt: torch.Tensor, prompt_len,
+                         style: torch.Tensor, n_timesteps: int = 10, temperature: float = 1.0,
+                         cfg_rates: Sequence[float] = (0.5, 0.5), random_voice: bool = False,
+                         precompute_fn: Optional[Callable] = None,
+                         shard_axis: Optional[str] = None,
+                         seq_shard_axis: Optional[str] = None) -> torch.Tensor:
+    """``estimate_fn(x, prompt_x, x_lens, t, style, mu[, static_cond]) -> v``.
+
+    noise: (B, T, n_mels) initial noise in mu's dtype (scaled by
+    ``temperature`` here); mu: (B, T, D); x_lens: (B,) or None; prompt:
+    (B, T, n_mels); prompt_len: int. ``precompute_fn(x, prompt_x, x_lens,
+    style, mu) -> static_cond`` hoists the step-invariant conditioning out of
+    the loop. Returns the generated mel; the prompt region holds zeros."""
+    if shard_axis is not None or seq_shard_axis is not None:
+        raise NotImplementedError("sharded sampling is not ported")
+    B, T, _ = mu.shape
+    z = noise * temperature
+    in_prompt = (torch.arange(T, device=mu.device) < prompt_len)[None, :, None]
+    prompt_x = torch.where(in_prompt, prompt, torch.zeros_like(prompt))
+    x = torch.where(in_prompt, torch.zeros_like(z), z)
+
+    branches, weights = cfg_branches(prompt_x, style, mu, cfg_rates, random_voice)
+    n_br = len(branches)
+    est_prompt, est_style, est_mu = (torch.cat([b[i] for b in branches], 0) for i in range(3))
+    est_lens = None if x_lens is None else torch.cat([x_lens] * n_br, 0)
+    w = torch.tensor(weights, dtype=mu.dtype, device=mu.device)
+
+    est_args = ()
+    if precompute_fn is not None:
+        x_shape = (n_br * B, T, noise.shape[-1])
+        est_args = (precompute_fn(torch.zeros(x_shape, dtype=mu.dtype, device=mu.device),
+                                  est_prompt, est_lens, est_style, est_mu),)
+
+    t_span = cosine_t_span(n_timesteps)
+    for i in range(n_timesteps):
+        t_cur = float(t_span[i])
+        dt = float(t_span[i + 1] - t_span[i])
+        tt = torch.full((n_br * B,), t_cur, dtype=mu.dtype, device=mu.device)
+        v = estimate_fn(torch.cat([x] * n_br, 0), est_prompt, est_lens, tt, est_style, est_mu,
+                        *est_args)
+        v = torch.tensordot(w, v.reshape(n_br, B, *v.shape[1:]), dims=1)
+        x = (x.float() + dt * v.float()).to(x.dtype)
+        x = torch.where(in_prompt, torch.zeros_like(x), x)
+    return x

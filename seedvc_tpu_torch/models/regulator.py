@@ -1,7 +1,9 @@
 """Length regulator: content features -> mel-rate conditioning
-(port of ``seedvc_tpu/models/regulator.py``, continuous content).
+(port of ``seedvc_tpu/models/regulator.py``; the VQ bottleneck waits for the
+training slice).
 
-Project the content, nearest-interpolate it along time to ``ylens.max()``,
+Embed discrete tokens (one codebook, or several summed with codebook i
+gated by ``n_quantizers > i``) or project continuous content, nearest-interpolate it along time to ``ylens.max()``,
 add the quantised-F0 embedding (or a learned mask when F0 conditioning is on
 and no F0 is given), then a conv -> GroupNorm(1) -> Mish stack and a 1x1
 projection. The output
@@ -80,10 +82,17 @@ class MaskedGroupNorm(nn.Module):
 class InterpolateRegulator(nn.Module):
     def __init__(self, cfg: LengthRegulatorConfig):
         super().__init__()
-        if cfg.is_discrete or cfg.vector_quantize:
-            raise NotImplementedError("discrete content and VQ are not ported")
+        if cfg.vector_quantize:
+            raise NotImplementedError("the VQ bottleneck is not ported: ROADMAP queue 1 "
+                                      "item 3 (training)")
         self.cfg = cfg
-        self.content_in_proj = nn.Linear(cfg.in_channels, cfg.channels)
+        if cfg.is_discrete:
+            self.embedding = nn.Embedding(cfg.content_codebook_size, cfg.channels)
+            for i in range(1, cfg.n_codebooks):
+                self.add_module(f"extra_codebooks_{i - 1}",
+                                nn.Embedding(cfg.content_codebook_size, cfg.channels))
+        else:
+            self.content_in_proj = nn.Linear(cfg.in_channels, cfg.channels)
         if cfg.f0_condition:
             self.f0_mask = nn.Parameter(torch.zeros(1, cfg.channels))
             self.f0_embedding = nn.Embedding(cfg.n_f0_bins, cfg.channels)
@@ -94,13 +103,26 @@ class InterpolateRegulator(nn.Module):
 
     def forward(self, x: torch.Tensor, ylens: torch.Tensor, target_len: int,
                 f0: Optional[torch.Tensor] = None, x_lens: Optional[torch.Tensor] = None,
-                f0_lens: Optional[torch.Tensor] = None):
-        """x: (B, T_in, C_in) content; ylens: (B,) target lengths; target_len:
-        the output buffer length; f0: (B, T_f0) Hz or None; x_lens / f0_lens:
-        () true content / F0 lengths inside their buffers, or None.
+                f0_lens: Optional[torch.Tensor] = None,
+                n_quantizers: Optional[torch.Tensor] = None):
+        """x: (B, T_in, C_in) continuous content, or int tokens (B, T_in) or
+        (B, n_q, T_in); ylens: (B,) target lengths; target_len: the output
+        buffer length; f0: (B, T_f0) Hz or None; x_lens / f0_lens: () true
+        content / F0 lengths inside their buffers, or None; n_quantizers: (B,)
+        active codebooks of a multi-codebook x (None: all).
         Returns (out (B, target_len, channels), ylens)."""
         c = self.cfg
-        h = self.content_in_proj(x)
+        if not c.is_discrete:
+            h = self.content_in_proj(x)
+        elif x.dim() == 3:
+            if n_quantizers is None:
+                n_quantizers = torch.full((x.shape[0],), c.n_codebooks, device=x.device)
+            h = self.embedding(x[:, 0])
+            for i in range(1, c.n_codebooks):
+                gate = (n_quantizers > i)[:, None, None].to(h.dtype)
+                h = h + gate * getattr(self, f"extra_codebooks_{i - 1}")(x[:, i])
+        else:
+            h = self.embedding(x)
         out_len = ylens.max()
         h = nearest_interpolate_to(h, out_len, target_len, in_len=x_lens)
         if c.f0_condition:

@@ -76,6 +76,32 @@ def cosine_crossfade(chunk1: np.ndarray, chunk2: np.ndarray, overlap: int) -> np
     return out
 
 
+def join_chunk(prev_tail: Optional[np.ndarray], wave: np.ndarray, is_last: bool,
+               overlap: int) -> tuple[np.ndarray, Optional[np.ndarray]]:
+    """One chunk's emitted piece and the tail kept for the next: the previous
+    tail crossfades into the chunk's head, and every chunk but the last keeps
+    its last ``overlap`` samples back."""
+    body = wave if is_last else wave[:-overlap]
+    piece = body if prev_tail is None else cosine_crossfade(prev_tail, body, overlap)
+    return piece, (prev_tail if is_last else wave[-overlap:])
+
+
+def campplus_style(campplus: CAMPPlus, wave_16k: np.ndarray, device) -> torch.Tensor:
+    """CAMPPlus style from a kaldi fbank of the wave padded to a 1 s bucket,
+    mean-subtracted and pooled over the true frame count."""
+    n = len(wave_16k)
+    bucket = -(-max(n, 1600) // 16000) * 16000
+    padded = np.zeros(bucket, np.float32)
+    padded[:n] = wave_16k
+    frame_lens = torch.tensor([max((n - 400) // 160 + 1, 1)], device=device)
+    fb = kaldi_fbank(torch.from_numpy(padded[None]).to(device))
+    fmask = (torch.arange(fb.shape[1], device=device)[None, :]
+             < frame_lens[:, None]).to(fb.dtype)[..., None]
+    mean = (fb * fmask).sum(dim=1, keepdim=True) / torch.clamp(
+        frame_lens[:, None, None].to(fb.dtype), min=1.0)
+    return campplus((fb - mean) * fmask, frame_lens)
+
+
 class VoiceConverter:
     """Frozen encoders + generative core + vocoder on one device.
 
@@ -247,19 +273,7 @@ class VoiceConverter:
         return plan_chunks(target_len, p_len, self.context, self.prompt_cap)
 
     def compute_style(self, wave_16k: np.ndarray) -> torch.Tensor:
-        """CAMPPlus style from a kaldi fbank of the wave padded to a 1 s
-        bucket, mean-subtracted and pooled over the true frame count."""
-        n = len(wave_16k)
-        bucket = -(-max(n, 1600) // 16000) * 16000
-        padded = np.zeros(bucket, np.float32)
-        padded[:n] = wave_16k
-        frame_lens = torch.tensor([max((n - 400) // 160 + 1, 1)], device=self.device)
-        fb = kaldi_fbank(torch.from_numpy(padded[None]).to(self.device))
-        fmask = (torch.arange(fb.shape[1], device=self.device)[None, :]
-                 < frame_lens[:, None]).to(fb.dtype)[..., None]
-        mean = (fb * fmask).sum(dim=1, keepdim=True) / torch.clamp(
-            frame_lens[:, None, None].to(fb.dtype), min=1.0)
-        return self.campplus((fb - mean) * fmask, frame_lens)
+        return campplus_style(self.campplus, wave_16k, self.device)
 
     def warm(self, *args, **kwargs):
         raise NotImplementedError("warm() is not ported: PyTorch runs eagerly")
@@ -425,17 +439,7 @@ class VoiceConverter:
             with timer("fetch"):
                 wave = dev_wave[0].float().cpu().numpy()[: w * self.hop]
             n_chunks += 1
-            if prev_tail is None:
-                if is_last:
-                    piece = wave
-                else:
-                    piece = wave[:-overlap_wave]
-                    prev_tail = wave[-overlap_wave:]
-            elif is_last:
-                piece = cosine_crossfade(prev_tail, wave, overlap_wave)
-            else:
-                piece = cosine_crossfade(prev_tail, wave[:-overlap_wave], overlap_wave)
-                prev_tail = wave[-overlap_wave:]
+            piece, prev_tail = join_chunk(prev_tail, wave, is_last, overlap_wave)
             emitted += len(piece)
             dt = time.time() - t_start
             yield self.sr, piece, {

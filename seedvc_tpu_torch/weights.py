@@ -10,7 +10,8 @@ The port's submodule names mirror the flax names (``layers_0``, ``wqkv``,
 - transposed-conv kernels ``ups_i_kernel`` (K, in, out) -> ConvTranspose1d
   ``ups_i.weight`` (in, out, K), and ``dec_i_up_kernel`` (kh, kw, in, out) ->
   ConvTranspose2d (in, out, kh, kw), unflipped (the JAX module flips it
-  inside its dilated conv);
+  inside its dilated conv); a flax ``ConvTranspose`` (the ConvNeXt stage's
+  ``up_conv_i``) lands the same way, and its port module flips it in time;
 - GRU leaves ``w_ih`` (F, 3H), ``w_hh`` (H, 3H), ``b_ih``, ``b_hh`` -> a
   one-layer ``nn.GRU``'s ``weight_ih_l0`` (3H, F), ``weight_hh_l0``,
   ``bias_ih_l0``, ``bias_hh_l0`` (both gate orders are r, z, n);
@@ -18,7 +19,8 @@ The port's submodule names mirror the flax names (``layers_0``, ``wqkv``,
   ``running_mean``/``running_var`` buffers (1-D and 2-D alike);
 - ``nn.Embed``'s ``embedding`` -> ``nn.Embedding.weight``;
 - any other leaf (``alpha``, ``beta``, ``embed_positions``, ``weight``,
-  ``f0_mask``) is copied as it is.
+  ``f0_mask``, GRN's ``gamma``, the AR's ``sep_token_emb``) is copied as it
+  is.
 
 Every parameter and buffer of the module must be filled, or this raises;
 BatchNorm's ``num_batches_tracked``, a training-time counter that holds no

@@ -95,6 +95,51 @@ def test_attention_kernel_at_realtime_shapes(T, lens, dtype, tol, rel_tol):
     assert (out.float() - ref.float()).norm() / ref.float().norm() <= rel_tol
 
 
+@pytest.mark.parametrize("T,lens", [(2560, (2154, 2154, 2154)), (2048, (1966, 1497, 0)),
+                                    (2048, (1497, 1497, 1497))])
+@pytest.mark.parametrize("dtype,tol,rel_tol", [(torch.float32, 1e-4, 1e-4),
+                                               (torch.bfloat16, 1e-2, 2e-2)])
+def test_attention_kernel_at_v2_shapes(T, lens, dtype, tol, rel_tol):
+    """K1 at the v2 DiT's shapes: the 3-way CFG stack (B = 3), 8 heads, T
+    with the 2 prefix tokens; a 20 s source with a 5 s reference is one
+    chunk at T = 2560 with 2154 valid keys, a 30 s source two chunks at T =
+    2048 (1966 and 1497 keys); a 0 entry. The limits of
+    test_attention_kernel_matches_twin."""
+    q, k, v = (_randn(s + 80, 3, 8, T, 64).to(dtype) for s in range(3))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    cos, sin = (torch.from_numpy(a).cuda() for a in rope_full_cache(T, 64))
+    out = attention.dit_attention_fused(q, k, v, cos, sin, lens_t)
+    ref = attention.dit_attention_fused_reference(q, k, v, cos, sin, lens_t)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    assert (out.float() - ref.float()).norm() / ref.float().norm() <= rel_tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ar_decode_graph_replay_matches_eager(dtype):
+    """The v2 AR decode (ARConfig() cut to 4 layers), two left-padded rows,
+    48 new tokens from the same draws: the decode step replayed from one
+    CUDA graph emits the tokens and counts of the same step run eagerly;
+    the replays run none of the kernel wrappers."""
+    from seedvc_tpu_torch.models.ar import ARConfig, ARGenerator, ARTransformer
+
+    torch.manual_seed(0)
+    model = ARTransformer(ARConfig(n_layer=4)).eval().cuda().to(dtype)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cond = torch.randn((2, 256, 768), generator=g, device="cuda")
+    prompt = torch.randint(0, 2048, (2, 64), generator=g, device="cuda")
+    out = {}
+    for graph in (True, False):
+        gen = ARGenerator(model, 48, graph=graph)
+        tokens, n = gen.generate(cond, torch.tensor([256, 100]), prompt, torch.tensor([40, 9]),
+                                 seed=3)
+        out[graph] = tokens.cpu(), n.cpu(), gen
+    assert torch.equal(out[True][0], out[False][0]) and torch.equal(out[True][1], out[False][1])
+    g_gen = out[True][2]
+    assert g_gen.graph is not None and g_gen.replays == g_gen.decode_steps - 1 > 0
+    assert g_gen.graph_launches == {"k1": 0, "k2": 0, "k3": 0}
+    assert out[False][2].replays == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_kernel_replays_in_a_cuda_graph(dtype):
     """K1 captured in a CUDA graph (as the streaming block program captures
@@ -188,7 +233,12 @@ def _k2_inputs(B, C, T, kind):
     return x, 0.3 * a, 0.3 * b, True
 
 
-@pytest.mark.parametrize("B,C,T,kind", K2_CASES + K2_44K)
+# the v2 path's BigVGAN-22k stage shapes of a 2046-frame chunk
+K2_V2 = [(1, 768, 8184, "default"), (1, 384, 32736, "default"), (1, 192, 65472, "default"),
+         (1, 96, 130944, "default"), (1, 48, 261888, "default"), (1, 24, 523776, "default")]
+
+
+@pytest.mark.parametrize("B,C,T,kind", K2_CASES + K2_44K + K2_V2)
 def test_anti_alias_kernel_matches_twin(B, C, T, kind):
     """fp32 FIR sums in another order, sin^2 by a polynomial -> 2e-5."""
     x, alpha, beta, logscale = _k2_inputs(B, C, T, kind)

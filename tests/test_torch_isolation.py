@@ -3,8 +3,9 @@
 - neither ``chip_smoke.py`` nor any module of ``seedvc_tpu_torch`` imports
   ``jax``, ``flax`` or ``seedvc_tpu`` (AST scan, so lazy imports count too);
 - ``VoiceConverter()``, ``SeedVCWrapper()``, ``StreamingConverter`` on a
-  default converter, and the infer, realtime and stream_bench CLIs, given no
-  device, raise when CUDA is absent (``device="cpu"`` / ``--device cpu`` is
+  default converter, ``VoiceConverterV2()``, the AR's ``ARGenerator``, and
+  the infer, infer_v2, realtime and stream_bench CLIs, given no device,
+  raise when CUDA is absent (``device="cpu"`` / ``--device cpu`` is
   the only way to the CPU);
 - the streaming path's SOLA loader never writes into ``native/`` (in
   tests/test_torch_streaming.py);
@@ -19,9 +20,10 @@ from pathlib import Path
 import pytest
 import torch
 
-from seedvc_tpu_torch.apps import infer, realtime, stream_bench
+from seedvc_tpu_torch.apps import infer, infer_v2, realtime, stream_bench
+from seedvc_tpu_torch.models import ar
 from seedvc_tpu_torch.ops import anti_alias, attention, build
-from seedvc_tpu_torch.pipelines import convert, streaming, wrapper
+from seedvc_tpu_torch.pipelines import convert, convert_v2, streaming, wrapper
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "seedvc_tpu")
@@ -57,8 +59,13 @@ def test_voice_converter_needs_cuda_by_default(monkeypatch):
     lambda: realtime.main(["--reference", "r.wav", "--simulate", "s.wav", "--save-settings",
                            "false"]),
     lambda: stream_bench.main([]),
+    lambda: convert_v2.VoiceConverterV2(),
+    lambda: infer_v2.main(["--source", "s.wav", "--target", "r.wav"]),
+    lambda: ar.ARGenerator(ar.ARTransformer(ar.ARConfig(dim=32, n_layer=1, n_head=4,
+                                                        n_local_heads=2, head_dim=8,
+                                                        intermediate_size=32, vocab_size=9))),
 ], ids=["converter_cuda", "wrapper", "wrapper_cuda0", "infer_cli", "streaming", "realtime_cli",
-        "stream_bench"])
+        "stream_bench", "converter_v2", "infer_v2_cli", "ar_generator"])
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -11,6 +11,7 @@ import torch
 
 from seedvc_tpu_torch.apps import microbench as mb
 from seedvc_tpu_torch.core import config as c
+from seedvc_tpu_torch.models.ar import ARConfig
 from seedvc_tpu_torch.models.bigvgan import BigVGANConfig
 from seedvc_tpu_torch.nn import layers
 from seedvc_tpu_torch.ops import attention
@@ -27,6 +28,8 @@ def _tiny_cfg():
         wavenet=dataclasses.replace(mp.wavenet, hidden_dim=32, num_layers=2)))
 
 
+TINY_AR = ARConfig(dim=32, n_layer=2, n_head=4, n_local_heads=2, head_dim=8,
+                   intermediate_size=64, vocab_size=33)
 TINY_VOC = BigVGANConfig(upsample_initial_channel=128, resblock_kernel_sizes=(3,),
                          resblock_dilation_sizes=((1,),))
 
@@ -42,6 +45,8 @@ CASES = {
     "serving": (dict(B=2, T=512, n_steps=2, cfg=_tiny_cfg()), "audio_s_per_s"),
     "serving_b1": (dict(T=512, n_steps=2, cfg=_tiny_cfg()), "audio_s_per_s"),
     "serving_b2": (dict(T=512, n_steps=2, cfg=_tiny_cfg()), "audio_s_per_s"),
+    "ar_decode": (dict(n_tokens=4, max_seq=64, cfg=TINY_AR), "tokens_per_s"),
+    "ar_decode_b4": (dict(n_tokens=4, max_seq=64, cfg=TINY_AR), "tokens_per_s"),
 }
 
 
@@ -56,7 +61,7 @@ def test_component_prints_jax_row(name, capsys):
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert rows == (out if isinstance(out, list) else [out])
     for row in rows:
-        assert row["ms"] > 0 and row[rate] > 0
+        assert row["ms_per_token" if name.startswith("ar_") else "ms"] > 0 and row[rate] > 0
         assert row["device"] == "cpu" and row["calls"] >= 2
     if name == "int8_matmul":
         assert [r["name"].split()[0] for r in rows] == ["matmul2_bf16", "matmul2_int8_dynamic"]
@@ -76,14 +81,33 @@ def test_component_takes_its_attention_branch(monkeypatch, name, expect):
     assert calls == ([expect] * per_call * row["calls"] if expect else [])
 
 
-@pytest.mark.parametrize("name,item", [("ar_decode", "item 4"), ("ar_decode_b4", "item 4"),
-                                       ("train_step", "item 5"), ("train_step_bf16", "item 5"),
-                                       ("train_onfly", "item 5"),
-                                       ("train_onfly_sync", "item 5")])
-def test_waiting_components_raise(name, item):
+@pytest.mark.parametrize("name", ["train_step", "train_step_bf16", "train_onfly",
+                                  "train_onfly_sync"])
+def test_waiting_components_raise(name):
+    """The training components wait for ROADMAP queue 1 item 3."""
     assert name not in mb.ALL
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 3 \(training\)"):
         mb.main(["--only", name])
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_ar_decode_feeds_back_the_argmax(monkeypatch, B):
+    """Each step decodes the previous step's argmax at the next position, as
+    the JAX component's loop does."""
+    from seedvc_tpu_torch.models import ar
+
+    seen = []
+    real = ar.ARTransformer.decode_step
+
+    def spy(self, x_emb, input_pos, kv_pos, *a, **kw):
+        seen.append((int(kv_pos), input_pos.tolist()))
+        return real(self, x_emb, input_pos, kv_pos, *a, **kw)
+
+    monkeypatch.setattr(ar.ARTransformer, "decode_step", spy)
+    row = mb.ALL["ar_decode" if B == 1 else "ar_decode_b4"](device="cpu", n_tokens=3,
+                                                           max_seq=16, cfg=TINY_AR)
+    assert row["name"].startswith(f"ar_decode B{B} seq16") and not row["graph"]
+    assert seen[:3] == [(i, [i] * B) for i in range(3)] and len(seen) == row["calls"]
 
 
 def test_main_needs_a_card(monkeypatch):

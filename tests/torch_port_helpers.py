@@ -104,3 +104,17 @@ def jax_hift_draws(shape, key=None):
     phase = jax.random.uniform(k_phase, (B, 1, H), minval=-np.pi, maxval=np.pi)
     return (torch.from_numpy(np.array(phase)),
             torch.from_numpy(np.array(jax.random.normal(k_noise, (B, T, H)))))
+
+
+def jax_ar_draws(key, B, vocab, max_new_tokens):
+    """The exponential draws the JAX AR ``generate`` makes from ``key``, as a
+    torch tensor (max_new_tokens, B, vocab): its key schedule is ``key, sub =
+    split(key)``, then ``split(sub, B)`` and one ``exponential(sub_b,
+    (vocab,))`` a row, first for the first token and then once a step."""
+    def body(k, _):
+        k, sub = jax.random.split(k)
+        subs = jax.random.split(sub, B)
+        return k, jax.vmap(lambda s: jax.random.exponential(s, (vocab,)))(subs)
+
+    _, q = jax.jit(lambda k: jax.lax.scan(body, k, None, length=max_new_tokens))(key)
+    return torch.from_numpy(np.array(q))
