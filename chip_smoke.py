@@ -27,7 +27,11 @@ failure exits non-zero:
    one tile and one tile +- 1, T = 1, B = 2, ``logscale=False``,
    |alpha * u| of a few hundred), each with a planted fault (one filter tap
    nudged) that must fail the limit, and one K2 call profiled: it must run
-   exactly one device kernel;
+   exactly one device kernel; then K1ᵇ, the backward of K1 (RoPE on) and of
+   K3 (RoPE off), against autograd through the twins in f32 and bf16 at
+   (2, 8, T, 64), T = 896, 2560 and 777, lens None, a 0 entry, one valid key
+   and partial, each with a planted fault (the last valid key tile dropped
+   from dk and dv);
 4. small: a small-config conversion on cuda (kernels) and on cpu (plain
    twins), f32, same weights and noise, compared; then the same config in
    bf16 (the main path's DiT precision) on cuda, kernels against the plain
@@ -53,7 +57,8 @@ failure exits non-zero:
 7. microbench: every component of ``seedvc_tpu_torch.apps.microbench`` at
    full width, its JSON rows printed, and each component's launch counts
    checked (``attention`` K3 only, ``dit`` 13 K1 a call, ``vocoder`` 109 K2
-   a call, ``serving*`` 25 x 13 K1 a sample, the rest none);
+   a call, ``serving*`` 25 x 13 K1 a sample, ``train*`` 13 K1 and 13 K1ᵇ a
+   step, the rest none);
 8. real-time, ``xlsr_tiny`` (XLS-R, a DiT with time and style tokens, HiFT):
    (a) a reduced converter, offline, cuda (K1) against cpu (plain twins) in
    f32 with the same weights, CFM noise and HiFT draws; then streaming in
@@ -84,19 +89,35 @@ failure exits non-zero:
    (token counts, decode steps, replays, ms a token, plan; chunks x 390 K1
    and chunks x 109 K2); ``python -m seedvc_tpu_torch.apps.infer_v2`` on
    written wavs (its wav's length and finiteness);
-10. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
+10. training (v1 fine-tuning): (a) a reduced ``whisper_small_wavenet``
+   (DiT 128 wide, 2 heads of 64, depth 3) on the same weights, batch and
+   ``TrainDraws``, cuda (K1 forward, K1ᵇ backward) against cpu (twins): the
+   loss and every parameter's gradient, then the parameters' change over 3
+   AdamW steps with warmup and the clip active; (b) at full width,
+   ``python -m seedvc_tpu_torch.apps.train`` in process on synthetic wavs
+   (eight 4-12 s clips and one 29.7 s clip), B = 2: 6 f32 steps saving at 3
+   and 6, a second run that resumes at 6 and trains to 9, 3 steps with
+   ``--compute-dtype bfloat16`` (each step 13 K1, 13 K1ᵇ, 0 K3, a finite
+   loss and grad norm; steps/s, prep and step seconds, peak device memory,
+   the T of each step), 10 steps on one fixed batch and draws that must
+   lower the loss, and the exported ``vc.pkl`` converted by ``VoiceConverter``
+   (5 s, finite, the right length);
+11. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
    library call at the shapes of every path (each timed window queued behind a
    spin kernel, so the host's dispatch rate does not enter), with each
    kernel's bound on an H100 SXM; before it, K3's time per head at
    B*H = 13, 16 and 26 (its wave tail), and K2 at all six stage shapes
    (time, bound share, a device copy of the same bytes) with the card's SM
-   clock, power and temperature sampled by ``nvidia-smi`` beside the windows.
+   clock, power and temperature sampled by ``nvidia-smi`` beside the windows;
+   and the training rows: K1 f32 and K1ᵇ f32 / bf16 at the training run's
+   largest T and its commonest other T, against SDPA's forward and SDPA's
+   backward alone.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
 profiled warm conversion to phases 5, 6, 8 and 9 (a ``convert_timbre`` in
 9), one profiled block replay to phase 8 and one AR decode replay to phase 9
-(device time by kernel, idle share), and times two layout choices of the
-real-time path (:func:`rt_layout_ab`).
+(device time by kernel, idle share), one profiled train step to phase 10,
+and times two layout choices of the real-time path (:func:`rt_layout_ab`).
 """
 
 from __future__ import annotations
@@ -166,6 +187,20 @@ K2_TILE = 1016  # outputs a block (TT in anti_alias.cu)
 # rounding FFMA and FADD, two Cody-Waite FFMAs, z*z, 7 Horner FFMAs and the
 # final FFMA (25 each, 50).
 K2_FLOPS = 98
+# K1ᵇ, the backward of K1 and K3, against autograd through the twin: f32 by
+# its relative L2 norm and its max abs error over the largest gradient
+# (summation order only), bf16 by its relative L2 norm. Set at 1e-5 / 1e-4
+# and 2e-2, then tightened from the measured worst (NVIDIA H100 80GB HBM3,
+# 700 W: f32 3.4e-7 / 5.4e-7, bf16 1.13e-3) to about 5x it. The planted fault is
+# the twin's gradient with the last valid key tile (64 keys) dropped from dk
+# and dv, which must fail them. Cases: the training path's T = 896 (10 s
+# clips, 128-frame buckets) and T = 2560 (a 29.7 s clip), and a ragged
+# T = 777; lens None, a 0 entry (every key masked: dv the mean of dO), a
+# single valid key, and partial.
+K1B_TOL = {"float32": (2e-6, 5e-6), "bfloat16": (5e-3, None)}
+K1B_CASES = [(896, None), (896, (0, 896)), (896, (896, 1)), (896, (815, 896)),
+             (2560, None), (2560, (0, 2558)), (2560, (2558, 1)), (2560, (2476, 2558)),
+             (777, None), (777, (0, 700)), (777, (700, 1))]
 
 
 def k2_cases() -> list:
@@ -406,6 +441,66 @@ def phase_kernels() -> dict:
     return errs
 
 
+def bwd_errors(got, ref) -> tuple[float, float]:
+    """(relative L2 norm, max abs error over the reference's max abs) of a
+    (dq, dk, dv) triple, the worst of the three."""
+    rel = max(((a.float() - b.float()).norm() / b.float().norm()).item()
+              for a, b in zip(got, ref))
+    mx = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+             for a, b in zip(got, ref))
+    return rel, mx
+
+
+def phase_kernels_bwd() -> dict:
+    """K1ᵇ (RoPE on: K1's backward; off: K3's) against autograd through the
+    twins at K1B_CASES, f32 and bf16, each with its planted fault. Returns
+    the worst relative L2 and max abs error by dtype."""
+    import torch
+
+    from seedvc_tpu_torch.ops import attention
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        rel_tol, max_tol = K1B_TOL[name]
+        worst = [0.0, 0.0, 0.0]  # rel L2, max abs over max|ref|, max abs
+        for rope in (True, False):
+            for T, lens in K1B_CASES:
+                q, k, v, cos, sin, lens_t = _k1_inputs(T, dtype, lens, seed=T + 5)
+                g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(T),
+                                device="cuda").to(dtype)
+                if rope:
+                    o = attention.dit_attention_fused(q, k, v, cos, sin, lens_t)
+                    got = attention.dit_attention_fused_bwd(q, k, v, cos, sin, lens_t, o, g)
+                    ref = attention.dit_attention_fused_bwd_reference(q, k, v, cos, sin, lens_t, g)
+                else:
+                    o = attention.dit_attention(q, k, v, lens_t)
+                    got = attention.dit_attention_bwd(q, k, v, lens_t, o, g)
+                    ref = attention.dit_attention_bwd_reference(q, k, v, lens_t, g)
+                torch.cuda.synchronize()
+                # planted fault: the last valid key tile dropped from dk and dv
+                bad = [t.clone() for t in ref]
+                for b in range(q.shape[0]):
+                    n = T if lens is None or lens[b] <= 0 else min(lens[b], T)
+                    for t in bad[1:]:
+                        t[b, :, max(n - K1_FAULT_KEYS, 0):n] = 0
+                rel, mx = bwd_errors(got, ref)
+                f_rel, f_mx = bwd_errors(bad, ref)
+                abs_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+                ok = rel <= rel_tol and (max_tol is None or mx <= max_tol)
+                fault_ok = f_rel <= rel_tol and (max_tol is None or f_mx <= max_tol)
+                what = f"K1b {'K1' if rope else 'K3'} {tuple(q.shape)} {name} lens={lens}"
+                log(f"{what}: rel_l2 {rel:.3e} tol {rel_tol:g}, max_abs/max|ref| {mx:.3e} "
+                    f"tol {max_tol}; planted fault rel_l2 {f_rel:.3e} max {f_mx:.3e}")
+                if not ok:
+                    fail(f"{what}: K1b disagrees with autograd through the twin")
+                if fault_ok:
+                    fail(f"{what}: the limit passes a planted fault")
+                worst = [max(worst[0], rel), max(worst[1], mx), max(worst[2], abs_err)]
+        errs[name] = worst
+    return errs
+
+
 def attention_module_check(T: int = 777):
     """``Attention(use_flash=True)`` at a T that is no multiple of 512 takes
     K1 (heads not grouped, rope_full given) or K3 (2 KV heads for 8 query
@@ -463,6 +558,7 @@ def reset_counts():
 
     attention.LAUNCHES = 0
     attention.DIT_ATTENTION_LAUNCHES = 0
+    attention.BWD_LAUNCHES = 0
     anti_alias.LAUNCHES = 0
 
 
@@ -667,7 +763,9 @@ def phase_full(card: str, profile: bool = False) -> dict:
     return result
 
 
-PORT_KERNELS = ("attn_core_kernel", "rope_prepass", "anti_alias_snake_kernel")
+PORT_KERNELS = ("attn_core_kernel", "rope_prepass", "attn_fwd_kernel", "bwd_prep_kernel",
+                "bwd_dq_kernel", "bwd_dkdv_kernel", "bwd_finish_kernel",
+                "anti_alias_snake_kernel")
 
 
 def profile_conversion(run, warm_wall: float):
@@ -897,19 +995,22 @@ def phase_svc(card: str, profile: bool = False) -> dict:
 MB_DEPTH, MB_ACTS, MB_STEPS = 13, 109, 25
 MB_LAUNCHES = {"attention": {"k3": 1}, "dit": {"k1": MB_DEPTH}, "vocoder": {"k2": MB_ACTS},
                "serving": {"k1": MB_STEPS * MB_DEPTH}, "serving_b1": {"k1": MB_STEPS * MB_DEPTH},
-               "serving_b2": {"k1": MB_STEPS * MB_DEPTH}}
+               "serving_b2": {"k1": MB_STEPS * MB_DEPTH},
+               **{t: {"k1": MB_DEPTH, "k1b": MB_DEPTH}
+                  for t in ("train_step", "train_step_bf16", "train_onfly", "train_onfly_sync")}}
 
 
 def phase_microbench() -> dict:
     """Every ported microbench component at full width; launch counts are
     zeroed before and read after each, and must be calls x the plan."""
     from seedvc_tpu_torch.apps import microbench as mb
+    from seedvc_tpu_torch.ops import attention
 
     counts = {}
     for name, fn in mb.ALL.items():
         reset_counts()
         out = fn()
-        got = read_counts()
+        got = {**read_counts(), "k1b": attention.BWD_LAUNCHES}
         calls = sum(r["calls"] for r in (out if isinstance(out, list) else [out]))
         expect = {k: MB_LAUNCHES.get(name, {}).get(k, 0) * calls for k in got}
         log(f"  microbench {name}: {calls} calls, launches {got}")
@@ -1634,6 +1735,325 @@ def phase_v2_full(card: str, profile: bool = False) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Training: v1 fine-tuning (the VCModel loss through K1 forward and K1ᵇ
+# backward, AdamW), reduced cuda against cpu, then apps.train at full width.
+TRAIN_DEPTH = 13
+# cuda (K1, K1ᵇ) against cpu (twins), f32 with TF32 off: the loss to 1e-5
+# relative, every parameter's gradient to 1e-4 relative L2, and after 3
+# AdamW steps each parameter's change to 1e-3 relative L2 (Adam divides by
+# sqrt(nu), which amplifies the gradients' last-digit differences where
+# nu is small)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_STEP_RTOL = 1e-5, 1e-4, 1e-3
+TRAIN_CLIP = 0.5
+TRAIN_CLIPS = (4.0, 5.0, 6.0, 7.0, 8.0, 10.0, 11.0, 12.0, 29.7)
+
+
+def small_train_params():
+    """whisper_small_wavenet reduced: DiT 128 wide (2 heads of 64, K1's head
+    width), depth 3, WaveNet 64 wide with 2 layers, regulator 128 wide fed
+    64-wide content."""
+    import dataclasses
+
+    from seedvc_tpu_torch.core.config import get_preset
+
+    mp = get_preset("whisper_small_wavenet").model_params
+    return dataclasses.replace(
+        mp, length_regulator=dataclasses.replace(mp.length_regulator, channels=128,
+                                                 in_channels=64),
+        DiT=dataclasses.replace(mp.DiT, hidden_dim=128, num_heads=2, depth=3, content_dim=128),
+        wavenet=dataclasses.replace(mp.wavenet, hidden_dim=64, num_layers=2))
+
+
+def rel_l2(a, b) -> float:
+    return ((a.float().cpu() - b.float().cpu()).norm()
+            / max(b.float().cpu().norm().item(), 1e-30)).item()
+
+
+def phase_train_small():
+    """(a) The reduced config on the same weights, batch and TrainDraws: loss
+    and every gradient, cuda against cpu; then 3 AdamW steps (warmup, clip
+    active) and the parameters they leave."""
+    import torch
+
+    from seedvc_tpu_torch.models.vc import VCModel, draw_train
+    from seedvc_tpu_torch.ops import attention
+    from seedvc_tpu_torch.train.optim import make_optimizer, warmup_cosine
+    from seedvc_tpu_torch.train.step import init_state, make_train_step
+
+    mp = small_train_params()
+    depth = mp.DiT.depth
+    torch.manual_seed(0)
+    models = {"cpu": VCModel(mp)}
+    models["cuda"] = VCModel(mp)
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    models["cuda"].cuda()
+    rng = np.random.default_rng(11)
+    B, T, Ts = 2, 384, 192
+    host = {"s_alt": rng.standard_normal((B, Ts, 64)), "s_ori": rng.standard_normal((B, Ts, 64)),
+            "mels": rng.standard_normal((B, T, 80)) - 4.0, "style": rng.standard_normal((B, 192))}
+    host = {k: torch.from_numpy(v.astype(np.float32)) for k, v in host.items()}
+    host["mel_lens"] = torch.tensor([T, 301], dtype=torch.int32)
+    host["s_lens"] = torch.tensor(171, dtype=torch.int32)
+    p = mp.DiT.class_dropout_prob
+
+    def draws_fn(key, shape, device):
+        return draw_train(torch.Generator().manual_seed(100 + key), *shape, p)
+
+    out = {}
+    for dev, model in models.items():
+        batch = {k: v.to(dev) for k, v in host.items()}
+        draws = draws_fn(0, (B, T, 80), "cpu")
+        draws = type(draws)(*(None if d is None else d.to(dev) for d in draws))
+        reset_counts()
+        loss, _ = model(batch["s_alt"], batch["s_ori"], batch["mels"], batch["mel_lens"],
+                        batch["style"], draws, s_lens=batch["s_lens"])
+        loss.backward()
+        launched = (attention.LAUNCHES, attention.BWD_LAUNCHES, attention.DIT_ATTENTION_LAUNCHES)
+        if launched != ((depth, depth, 0) if dev == "cuda" else (0, 0, 0)):
+            fail(f"train small {dev}: launches (K1, K1b, K3) {launched}")
+        grads = {n: q.grad.detach().clone() for n, q in model.named_parameters()
+                 if q.grad is not None}
+        opt = make_optimizer(warmup_cosine(1e-3, 2, 10), grad_clip=TRAIN_CLIP)
+        state = init_state(model, opt)
+        p0 = {n: q.detach().clone() for n, q in model.named_parameters()}
+        step = make_train_step(model, opt, draws_fn=draws_fn)
+        norms = []
+        for i in range(3):
+            state, metrics = step(state, batch, i)
+            norms.append(float(metrics["grad_norm"]))
+        out[dev] = (loss.item(), grads,
+                    {n: q.detach() - p0[n] for n, q in model.named_parameters()}, norms)
+    (l_c, g_c, d_c, n_c), (l_p, g_p, d_p, n_p) = out["cuda"], out["cpu"]
+    loss_rel = abs(l_c - l_p) / abs(l_p)
+    grad_rel = max(rel_l2(g_c[n], g_p[n]) for n in g_p)
+    step_rel = max(rel_l2(d_c[n], d_p[n]) for n in d_p)
+    log(f"train small: loss cuda {l_c:.6f} cpu {l_p:.6f} (rel {loss_rel:.2e} tol "
+        f"{TRAIN_LOSS_RTOL:g}); worst gradient rel_l2 {grad_rel:.2e} tol {TRAIN_GRAD_RTOL:g} "
+        f"over {len(g_p)} parameters; grad norms cuda {n_c} cpu {n_p} (clip {TRAIN_CLIP}); "
+        f"after 3 AdamW steps worst parameter-change rel_l2 {step_rel:.2e} tol "
+        f"{TRAIN_STEP_RTOL:g}")
+    if set(g_c) != set(g_p) or len(g_p) != sum(1 for _ in models["cpu"].parameters()):
+        fail("train small: a parameter got no gradient")
+    if loss_rel > TRAIN_LOSS_RTOL or grad_rel > TRAIN_GRAD_RTOL or step_rel > TRAIN_STEP_RTOL:
+        fail("train small: cuda and cpu disagree")
+    if min(n_p) <= TRAIN_CLIP:
+        fail("train small: the clip was not active")
+
+
+def train_step_log(history) -> tuple[float, list]:
+    """Steps/s over the steps after the first (log_interval 1 reads the loss
+    each step, so each step's end is synchronised) and per-step records."""
+    ends = [h["end"] for h in history]
+    rate = (len(ends) - 1) / (ends[-1] - ends[0]) if len(ends) > 1 else float("nan")
+    rows = []
+    for i, h in enumerate(history):
+        rows.append({"step": h["step"], "T": h["T"], "prep_s": round(h["prep_s"], 4),
+                     "step_s": None if i == 0 else round(ends[i] - ends[i - 1], 4),
+                     "loss": float(h["loss"]), "grad_norm": float(h["grad_norm"]),
+                     "k1": h["k1"], "k1b": h["k1b"], "k3": h["k3"]})
+    return rate, rows
+
+
+def check_train_history(what: str, rows, first_step: int, n: int):
+    if [r["step"] for r in rows] != list(range(first_step, first_step + n)):
+        fail(f"{what}: steps {[r['step'] for r in rows]}")
+    for r in rows:
+        if (r["k1"], r["k1b"], r["k3"]) != (TRAIN_DEPTH, TRAIN_DEPTH, 0):
+            fail(f"{what}: step {r['step']} launched K1/K1b/K3 {r['k1']}/{r['k1b']}/{r['k3']}, "
+                 f"expected {TRAIN_DEPTH}/{TRAIN_DEPTH}/0")
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            fail(f"{what}: step {r['step']} loss {r['loss']} grad norm {r['grad_norm']}")
+
+
+def phase_train(card: str, profile: bool = False) -> dict:
+    """(a) reduced, cuda against cpu; (b) ``apps.train`` at full width on
+    synthetic clips: 6 steps, resume to 9, 3 steps in bf16, 10 steps on one
+    fixed batch and draws, the export converted by ``VoiceConverter``."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    from seedvc_tpu_torch.apps import train as train_app
+    from seedvc_tpu_torch.apps.audio_io import save_wav
+    from seedvc_tpu_torch.models.vc import draw_train
+    from seedvc_tpu_torch.ops import attention
+    from seedvc_tpu_torch.pipelines.convert import VoiceConverter
+    from seedvc_tpu_torch.train.dataset import FTDataset
+    from seedvc_tpu_torch.train.optim import make_optimizer
+    from seedvc_tpu_torch.train.step import init_state, make_train_step
+
+    phase_train_small()
+    sr = 22050
+    result = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="train_smoke_") as tmp:
+        data, export = os.path.join(tmp, "data"), os.path.join(tmp, "export")
+        os.makedirs(data)
+        for i, secs in enumerate(TRAIN_CLIPS):
+            save_wav(os.path.join(data, f"clip{i}.wav"),
+                     synthetic_audio(secs, sr, 110.0 + 17 * i, seed=60 + i), sr)
+        os.chdir(tmp)  # apps.train writes ./runs/<run-name>
+        try:
+            base = ["--dataset-dir", data, "--batch-size", "2", "--log-interval", "1",
+                    "--export-dir", export]
+            for what, extra, first, n in (
+                    ("train f32", ["--max-steps", "6", "--save-interval", "3"], 1, 6),
+                    ("train resume", ["--max-steps", "9", "--save-interval", "3"], 7, 3),
+                    ("train bf16", ["--max-steps", "3", "--run-name", "bf16",
+                                    "--compute-dtype", "bfloat16", "--save-interval", "100"],
+                     1, 3)):
+                reset_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                trainer = train_app.main(base + extra)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                rate, rows = train_step_log(trainer.history)
+                for r in rows:
+                    log(f"  {what} step {r}")
+                check_train_history(what, rows, first, n)
+                totals = (attention.LAUNCHES, attention.BWD_LAUNCHES,
+                          attention.DIT_ATTENTION_LAUNCHES)
+                if totals != (TRAIN_DEPTH * n, TRAIN_DEPTH * n, 0):
+                    fail(f"{what}: launches (K1, K1b, K3) {totals} for {n} steps")
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                prep = float(np.mean([r["prep_s"] for r in rows]))
+                step_s = [r["step_s"] for r in rows if r["step_s"] is not None]
+                log(f"{what}: {n} steps in {wall:.1f} s wall (models built, data read, "
+                    f"saved and exported included); {rate:.3f} steps/s after the first; "
+                    f"prep {prep:.3f} s a step on the worker; step seconds (end to end, "
+                    f"a checkpoint save after steps 3 and 6 included) {step_s}, median "
+                    f"{float(np.median(step_s)) if step_s else float('nan'):.4f}; "
+                    f"T by step {[r['T'] for r in rows]}; peak device memory {peak:.2f} GiB; "
+                    f"launches (K1, K1b, K3) {totals}; {card}")
+                result[what] = {"steps_per_s": rate, "prep_s": prep, "step_s": step_s,
+                                "T": [r["T"] for r in rows], "peak_gib": peak,
+                                "launches": totals, "wall_s": wall}
+
+            # 10 steps on one fixed batch with fixed draws lower the loss
+            model = trainer.model
+            batch = next(iter(FTDataset(data, sr, 2).batches(shuffle=False)))
+            feats = trainer.prepare_batch(batch, np.random.default_rng(0), cache=False)
+            B, T = feats["mels"].shape[:2]
+            fixed = draw_train(torch.Generator(device="cuda").manual_seed(5), B, T, 80,
+                               model.mp.DiT.class_dropout_prob, device="cuda")
+            model.float()
+            opt = make_optimizer(1e-4)
+            state = init_state(model, opt)
+            step = make_train_step(model, opt, draws_fn=lambda *_a: fixed)
+            losses, walls = [], []
+            for i in range(10):
+                t0 = time.perf_counter()
+                state, metrics = step(state, feats, i)
+                losses.append(float(metrics["loss"]))  # reads the device: a synchronised step
+                walls.append(time.perf_counter() - t0)
+            fixed_wall = float(np.median(walls[1:]))
+            log(f"train fixed batch (B={B}, T={T}): losses over 10 steps "
+                f"{[round(x, 5) for x in losses]}; step wall median {fixed_wall:.4f} s; {card}")
+            if not losses[-1] < losses[0]:
+                fail("train: 10 steps on one fixed batch did not lower the loss")
+            result["fixed"] = {"T": T, "step_wall_s": fixed_wall}
+            if profile:
+                profile_conversion(lambda: step(state, feats, 0), fixed_wall)
+
+            # the export converts on the card
+            with open(os.path.join(export, "vc.pkl"), "rb") as f:
+                tree = pickle.load(f)
+            vc = VoiceConverter(vc_params=tree, device="cuda")
+            src = synthetic_audio(5.0, sr, 150.0, seed=71)
+            ref = synthetic_audio(3.0, sr, 210.0, seed=72)
+            _, wave, _ = vc.convert(src, sr, ref, sr, diffusion_steps=10, cfg_rate=0.7)
+            expect = len(src) // vc.hop * vc.hop
+            log(f"train export: converted 5 s with the exported weights: {len(wave)} samples "
+                f"(expected {expect}), finite {bool(np.isfinite(wave).all())}")
+            if len(wave) != expect or not np.isfinite(wave).all():
+                fail("train: the exported weights did not convert")
+        finally:
+            os.chdir(cwd)
+    return result
+
+
+def train_rows(train: dict, card: str) -> list:
+    """The kernels line's training rows: K1 f32 and K1ᵇ f32 / bf16 at the T
+    the f32 run used most and at its largest T, q/k/v (2, 8, T, 64) with
+    every key valid; launches at that T in the f32 run (K1ᵇ bf16 is on no
+    training path: bf16 compute runs attention in f32, as the JAX step's
+    type promotion does). Library: SDPA forward, and SDPA's backward alone
+    (autograd.grad through a retained graph)."""
+    import collections
+
+    import torch
+    import torch.nn.functional as F
+
+    from seedvc_tpu_torch.core.profiling import cuda_time_ms
+    from seedvc_tpu_torch.ops import attention
+
+    t_counts = collections.Counter(train["train f32"]["T"])
+    # the largest T, and the commonest other one (the smaller on a tie)
+    rest = sorted(t for t in t_counts if t != max(t_counts))
+    shapes = sorted({max(t_counts)} | ({max(rest, key=lambda t: (t_counts[t], -t))}
+                                        if rest else set()))
+    rows = []
+    for T in shapes:
+        launches = TRAIN_DEPTH * t_counts[T]
+        for dtype, kernel in ((torch.float32, "fwd"), (torch.float32, "bwd"),
+                              (torch.bfloat16, "bwd")):
+            q, k, v, cos, sin, _ = _k1_inputs(T, dtype, None, seed=T)
+            B, H, _, d = q.shape
+            g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                            device="cuda").to(dtype)
+            qr = attention.rope_scaled_reference(q, cos, sin)
+            kr = attention.rope_scaled_reference(k, cos, sin)
+            size = q.element_size()
+            if kernel == "fwd":
+                out = attention.dit_attention_fused(q, k, v, cos, sin)
+                err = (out - attention.dit_attention_fused_reference(q, k, v, cos, sin)
+                       ).abs().max().item()
+                ms = cuda_time_ms(lambda: attention.dit_attention_fused(q, k, v, cos, sin))
+                plain = cuda_time_ms(lambda: attention.dit_attention_fused_reference(
+                    q, k, v, cos, sin), iters=5)
+                lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v))
+                b_ms, b_by = bound(4.0 * B * H * T * T * d, PEAK_F32,
+                                   4 * B * H * T * d * size + 2 * T * d * 4)
+                name, n, replaces = ("dit_attention_fused", launches,
+                                     "seedvc_tpu/ops/pallas/attention.py:171")
+                source = "seedvc_tpu_torch/csrc/attention.cu"
+            else:
+                o = attention.dit_attention_fused(q, k, v, cos, sin)
+                got = attention.dit_attention_fused_bwd(q, k, v, cos, sin, None, o, g)
+                ref = attention.dit_attention_fused_bwd_reference(q, k, v, cos, sin, None, g)
+                err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+                ms = cuda_time_ms(lambda: attention.dit_attention_fused_bwd(
+                    q, k, v, cos, sin, None, o, g), iters=10)
+                plain = cuda_time_ms(lambda: attention.dit_attention_fused_bwd_reference(
+                    q, k, v, cos, sin, None, g), iters=3)
+                leaves = [t.detach().clone().requires_grad_() for t in (qr, kr, v)]
+                lib_out = F.scaled_dot_product_attention(*leaves)
+                lib = cuda_time_ms(lambda: torch.autograd.grad(lib_out, leaves, g,
+                                                               retain_graph=True), iters=10)
+                peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
+                b_ms, b_by = bound(10.0 * B * H * T * T * d, peak,
+                                   8 * B * H * T * d * size + 2 * T * d * 4)
+                name = "dit_attention_bwd"
+                n = launches if dtype == torch.float32 else 0
+                replaces = ("no Pallas kernel: the XLA recompute bwd of _fused_diff / "
+                            "_plain_diff, seedvc_tpu/ops/pallas/attention.py:326-335, :353-362")
+                source = "seedvc_tpu_torch/csrc/attention_bwd.cu"
+            dt = str(dtype).split(".")[1]
+            log(f"{name} ({kernel}) q/k/v {tuple(q.shape)} {dt}: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share "
+                f"{b_ms / ms:.3f}, max_abs_err {err:.3e}; {card}")
+            rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                         "path": ("v1 fine-tuning (apps.train, f32)" if n
+                                  else "none on the training path (phase 3 only)"),
+                         "shape": f"q/k/v {tuple(q.shape)} {dt}, lens None",
+                         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "card": card})
+    return rows
+
+
 @contextlib.contextmanager
 def smi_sampler(period_ms: int = 100):
     """Samples of the card's SM clock, power draw, power limit and temperature
@@ -1828,6 +2248,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_build()
     errs = phase_kernels()
+    errs_bwd = phase_kernels_bwd()
     phase_small()
     full = phase_full(card, args.profile)
     svc = phase_svc(card, args.profile)
@@ -1836,7 +2257,11 @@ def main(argv=None) -> int:
     rt = phase_rt_full(card, args.profile)
     phase_v2_small()
     v2 = phase_v2_full(card, args.profile)
+    train = phase_train(card, args.profile)
     line = phase_kernel_line(errs, full, svc, mb_counts, rt, v2)
+    line["kernels"] += train_rows(train, card)
+    log(f"K1b worst errors against the twin in phase 3 (rel_l2, max/max|ref|, max abs): "
+        f"{errs_bwd}")
     log(card)
     print(json.dumps(line), flush=True)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")

@@ -28,6 +28,7 @@ import json
 import math
 import time
 
+import numpy as np
 import torch
 
 from seedvc_tpu_torch.core.profiling import cuda_time_ms
@@ -89,8 +90,8 @@ def timeit(fn, dev: torch.device, iters: int = 3, inner: int = 20) -> tuple[floa
 
 def report(name: str, seconds: float, dev: torch.device, calls: int,
            flops: float | None = None, bytes_moved: float | None = None,
-           audio_seconds: float | None = None) -> dict:
-    row = {"name": name, "ms": seconds * 1e3}
+           audio_seconds: float | None = None, **extra) -> dict:
+    row = {"name": name, "ms": seconds * 1e3, **extra}
     if flops:
         row["tflops_per_s"] = flops / seconds / 1e12
     if bytes_moved:
@@ -324,6 +325,94 @@ def bench_ar_decode(B=1, n_tokens=128, max_seq=4096, device="cuda", cfg=None):
     return row
 
 
+def bench_train_step(B=4, T=512, Ts=256, compute_dtype=None, device="cuda", cfg=None):
+    """The v1 train step (98M DiT + WaveNet head, regulator; forward, backward
+    through K1ᵇ, the AdamW update) at a fine-tuning shape, with the frozen
+    encoders' features given as zeros, as the JAX component gives them:
+    steps/s and TFLOP/s from the JAX package's 3·2·params·B·T estimate."""
+    from seedvc_tpu_torch.models.vc import VCModel
+    from seedvc_tpu_torch.train.optim import make_optimizer
+    from seedvc_tpu_torch.train.step import init_state, make_train_step
+
+    dev = _device(device)
+    cfg, mp = _flash_model_params(cfg)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = VCModel(mp)
+    model.to(dev)
+    optimizer = make_optimizer(1e-4)
+    state = init_state(model, optimizer)
+    step = make_train_step(model, optimizer, compute_dtype=compute_dtype)
+    d_in = mp.length_regulator.in_channels
+    batch = {"s_alt": torch.zeros((B, Ts, d_in), device=dev),
+             "s_ori": torch.zeros((B, Ts, d_in), device=dev),
+             "mels": torch.zeros((B, T, mp.DiT.in_channels), device=dev),
+             "mel_lens": torch.full((B,), T, dtype=torch.int32, device=dev),
+             "style": torch.zeros((B, mp.style_encoder.dim), device=dev)}
+    holder = [state]
+
+    def one():
+        holder[0], metrics = step(holder[0], batch, (1, holder[0].step))
+        return metrics
+
+    dt, calls = timeit(one, dev, iters=3, inner=2)
+    n_params = sum(w.numel() for w in model.parameters())
+    tag = "" if compute_dtype is None else "_bf16"
+    row = report(f"train_step{tag} B{B} T{T} ({n_params / 1e6:.0f}M)", dt, dev, calls,
+                 3 * 2 * n_params * B * T, steps_per_s=1.0 / dt)
+    return row
+
+
+def bench_train_onfly(B=4, steps=12, prefetch=2, device="cuda", cfg=None, whisper_cfg=None):
+    """On-the-fly v1 fine-tuning through ``Trainer.train``: the frozen
+    encoders (Whisper's 30 s window, the mel, CAMPPlus) run every step, with
+    the prefetch worker (``prefetch=2``) or synchronously (0). 2B clips of
+    5.7-5.86 s in one 128-frame mel bucket (T = 512); 3 warm steps fill the
+    feature cache, then ``steps`` are timed by the host clock. TFLOP/s counts
+    the train step's 3·2·params·B·T alone."""
+    import os
+    import tempfile
+
+    from seedvc_tpu_torch.apps.audio_io import save_wav
+    from seedvc_tpu_torch.core.config import get_preset
+    from seedvc_tpu_torch.models.whisper import WHISPER_SMALL
+    from seedvc_tpu_torch.train.dataset import FTDataset
+    from seedvc_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = _device(device)
+    cfg = cfg or get_preset(PRESET)
+    sr = cfg.preprocess_params.sr
+    hop = cfg.preprocess_params.spect_params.hop_length
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory(prefix="onfly_") as tmp:
+        for i in range(2 * B):
+            t = np.arange(int((5.7 + 0.02 * i) * sr)) / sr
+            w = 0.3 * np.sin(2 * np.pi * 150 * t) + 0.01 * rng.standard_normal(len(t))
+            save_wav(os.path.join(tmp, f"c{i}.wav"), w.astype(np.float32), sr)
+        warm = 3
+        tcfg = TrainerConfig(run_dir="", batch_size=B, epochs=10 ** 6, max_steps=warm,
+                             log_interval=10 ** 9, save_interval=10 ** 9, mel_bucket=128,
+                             prefetch=prefetch)
+        trainer = Trainer(cfg, tcfg, whisper_cfg=whisper_cfg or WHISPER_SMALL, device=dev)
+        ds = FTDataset(tmp, sr, batch_size=B)
+        trainer.train(ds)
+        trainer.tcfg = dataclasses.replace(tcfg, max_steps=warm + steps)
+        _sync(dev)
+        t0 = time.perf_counter()
+        final = trainer.train(ds)
+        _sync(dev)
+        dt = (time.perf_counter() - t0) / (final - warm)
+    n_params = sum(w.numel() for w in trainer.model.parameters())
+    T = -(-int(5.86 * sr) // hop // 128) * 128
+    return report(f"train_onfly prefetch{prefetch} B{B} ({steps} steps)", dt, dev,
+                  final, 3 * 2 * n_params * B * T, steps_per_s=1.0 / dt)
+
+
+def _sync(dev: torch.device):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def _waiting(item: str):
     def run(*args, **kwargs):
         raise NotImplementedError(f"not ported: waits for ROADMAP queue 1 item {item}")
@@ -343,14 +432,15 @@ ALL = {
     "serving_b2": lambda **kw: bench_serving(B=2, **kw),
     "ar_decode": bench_ar_decode,
     "ar_decode_b4": lambda **kw: bench_ar_decode(B=4, **kw),
+    "train_step": bench_train_step,
+    "train_step_bf16": lambda **kw: bench_train_step(compute_dtype=torch.bfloat16, **kw),
+    "train_onfly": bench_train_onfly,
+    "train_onfly_sync": lambda **kw: bench_train_onfly(prefetch=0, **kw),
 }
 # The JAX package's components whose modules the port does not have yet:
 # named with --only they raise; the default run leaves them out.
 WAITING = {
-    "train_step": _waiting("3 (training)"),
-    "train_step_bf16": _waiting("3 (training)"),
-    "train_onfly": _waiting("3 (training)"),
-    "train_onfly_sync": _waiting("3 (training)"),
+    "train_onfly_v2": _waiting("3b (the v2 trainer)"),
 }
 
 

@@ -1,6 +1,7 @@
-"""Resampling: host-side polyphase (scipy) for pipeline pre-processing, and a
+"""Resampling: host-side polyphase (scipy) for pipeline pre-processing, a
 device resampler with ``torchaudio.functional.resample`` semantics (port of
-``seedvc_tpu/dsp/resample.py``) for the streaming block path."""
+``seedvc_tpu/dsp/resample.py``) for the streaming block path, and the
+trainer's linear-interpolation time warp :func:`warp_rate`."""
 
 from __future__ import annotations
 
@@ -71,3 +72,20 @@ def resample(wave: torch.Tensor, orig_sr: int, new_sr: int,
     y = F.conv1d(x[:, None, :], kernel, stride=orig)  # (B, new, T // orig + 1)
     y = y.transpose(1, 2).reshape(wave.shape[0], -1)[:, : -(-new * T // orig)]
     return y[0] if squeeze else y
+
+
+def warp_rate(wave: torch.Tensor, rate) -> torch.Tensor:
+    """Fixed-shape time warp for augmentation: ``out[i] = wave[i * rate]`` by
+    linear interpolation along the last axis, zero past the warped end (a
+    copy of ``seedvc_tpu/dsp/resample.py::warp_rate``). ``rate`` is a float
+    or a 0-d tensor; the trainer passes 1/(drawn rate). No anti-alias filter:
+    an augmentation, not a resampler for inference."""
+    T = wave.shape[-1]
+    rate = torch.as_tensor(rate, dtype=torch.float32, device=wave.device)
+    pos = torch.arange(T, dtype=torch.float32, device=wave.device) * rate
+    i0 = torch.clamp(torch.floor(pos).to(torch.int64), 0, T - 1)
+    frac = pos - i0.to(torch.float32)
+    g0 = wave[..., i0]
+    g1 = wave[..., torch.clamp(i0 + 1, 0, T - 1)]
+    out = g0 * (1.0 - frac) + g1 * frac
+    return torch.where(pos <= T - 1, out, torch.zeros_like(out))

@@ -1,7 +1,13 @@
-"""Conditional flow matching: the Euler ODE sampler (port of the inference
-half of ``seedvc_tpu/models/cfm.py``).
+"""Conditional flow matching: the OT-CFM training loss and the Euler ODE
+sampler (port of ``seedvc_tpu/models/cfm.py``).
 
-Fixed-step Euler over a linear ``t_span = linspace(0, 1, n+1)``;
+Training (:meth:`CFM.forward`): straight-path interpolant
+``y = (1-(1-σ)t)·z + t·x1`` with target velocity ``u = x1 - (1-σ)·z``, the
+prompt region of x1 spliced in as the prompt and zeroed in y, the loss taken
+over [prompt_len, x_len) only and reduced in f32. The time ``t``, the noise
+``z`` and the classifier-free dropout mask are arguments.
+
+Inference: fixed-step Euler over a linear ``t_span = linspace(0, 1, n+1)``;
 classifier-free guidance stacks the conditional batch with a null batch
 (zeroed prompt/style/mu) and combines ``(1+r)·cond − r·uncond``; the prompt
 region of x is re-zeroed every step. The initial noise is an argument.
@@ -17,13 +23,50 @@ from torch import nn
 from seedvc_tpu_torch.core.config import ModelParams
 from seedvc_tpu_torch.models.dit import DiT
 
+SIGMA_MIN = 1e-6
+
 
 class CFM(nn.Module):
-    """Owns the DiT estimator; ``estimate`` is the raw vector field."""
+    """Owns the DiT estimator; ``forward`` is the training loss, ``estimate``
+    the raw vector field."""
 
     def __init__(self, mp: ModelParams):
         super().__init__()
+        self.mp = mp
         self.estimator = DiT(mp)
+
+    def forward(self, x1: torch.Tensor, x_lens: torch.Tensor, prompt_lens: torch.Tensor,
+                mu: torch.Tensor, style: torch.Tensor, t: torch.Tensor, noise: torch.Tensor,
+                cond_drop: Optional[torch.Tensor] = None):
+        """OT-CFM loss. x1: (B, T, C) target mel; x_lens / prompt_lens: (B,)
+        ints; mu: (B, T, D) regulated content; style: (B, S); t: (B,) f32 in
+        [0, 1); noise: (B, T, C), taken in x1's dtype; cond_drop: (B,) 1.0 =
+        the null branch, or None. Returns (loss, estimator output + (1-σ)·z)."""
+        B, T, C = x1.shape
+        dc = self.mp.DiT
+        z = noise.to(x1.dtype)
+        tb = t[:, None, None].to(x1.dtype)
+        y = (1 - (1 - SIGMA_MIN) * tb) * z + tb * x1
+        u = x1 - (1 - SIGMA_MIN) * z
+
+        pos = torch.arange(T, device=x1.device)[None, :, None]
+        in_prompt = pos < prompt_lens[:, None, None]
+        prompt = torch.where(in_prompt, x1, torch.zeros_like(x1))
+        y = torch.where(in_prompt, torch.zeros_like(y), y)
+        if dc.zero_prompt_speech_token:
+            mu = torch.where(in_prompt, torch.zeros_like(mu), mu)
+        if cond_drop is not None:
+            cond_drop = cond_drop.to(x1.dtype)
+
+        out = self.estimator(y, prompt, x_lens, t, style, mu, cond_drop=cond_drop)
+
+        # per-sample mean over the valid region's elements, then the batch mean
+        valid = ((~in_prompt) & (pos < x_lens[:, None, None])).to(torch.float32)
+        diff = (out - u).to(torch.float32)
+        per = diff * diff if self.mp.reg_loss_type == "l2" else diff.abs()
+        denom = torch.clamp(valid.sum(dim=(1, 2)) * C, min=1.0)
+        loss = ((per * valid).sum(dim=(1, 2)) / denom).mean()
+        return loss, out + (1 - SIGMA_MIN) * z
 
     def estimate(self, x, prompt_x, x_lens, t, style, cond, static_cond=None):
         return self.estimator(x, prompt_x, x_lens, t, style, cond, static_cond=static_cond)

@@ -56,7 +56,8 @@ def euler_solve_multicfg(estimate_fn: Callable, noise: torch.Tensor, mu: torch.T
     style, mu) -> static_cond`` hoists the step-invariant conditioning out of
     the loop. Returns the generated mel; the prompt region holds zeros."""
     if shard_axis is not None or seq_shard_axis is not None:
-        raise NotImplementedError("sharded sampling is not ported")
+        raise NotImplementedError("sharded sampling is not ported: "
+                                  "ROADMAP queue 1 item 3c")
     B, T, _ = mu.shape
     z = noise * temperature
     in_prompt = (torch.arange(T, device=mu.device) < prompt_len)[None, :, None]

@@ -24,7 +24,7 @@ from torch import nn
 
 from seedvc_tpu_torch.core.config import ModelParams
 from seedvc_tpu_torch.core.utils import sequence_mask
-from seedvc_tpu_torch.nn.layers import TimestepEmbedder
+from seedvc_tpu_torch.nn.layers import Dense, TimestepEmbedder
 from seedvc_tpu_torch.nn.transformer import Transformer, TransformerConfig
 from seedvc_tpu_torch.nn.wavenet import WaveNet
 
@@ -41,8 +41,8 @@ class SplitDense(nn.Module):
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
 
     def forward(self, x: torch.Tensor, start: int, with_bias: bool) -> torch.Tensor:
-        w = self.weight[:, start: start + x.shape[-1]]
-        return F.linear(x, w, self.bias if with_bias else None)
+        w = self.weight[:, start: start + x.shape[-1]].to(x.dtype)
+        return F.linear(x, w, self.bias.to(x.dtype) if with_bias else None)
 
 
 class FinalLayer(nn.Module):
@@ -71,10 +71,10 @@ class DiT(nn.Module):
         static_in = C + C + dc.hidden_dim
         if dc.style_condition and not dc.style_as_token:
             static_in += mp.style_encoder.dim
-        self.cond_projection = nn.Linear(dc.content_dim, dc.hidden_dim)
+        self.cond_projection = Dense(dc.content_dim, dc.hidden_dim)
         self.cond_x_merge_linear = SplitDense(static_in, dc.hidden_dim)
         if dc.style_as_token:
-            self.style_in = nn.Linear(mp.style_encoder.dim, dc.hidden_dim)
+            self.style_in = Dense(mp.style_encoder.dim, dc.hidden_dim)
         self.t_embedder = TimestepEmbedder(dc.hidden_dim)
         self.transformer = Transformer(TransformerConfig(
             dim=dc.hidden_dim, n_layer=dc.depth, n_head=dc.num_heads,
@@ -82,19 +82,19 @@ class DiT(nn.Module):
             norm_eps=dc.norm_eps, uvit_skip_connection=dc.uvit_skip_connection,
             time_as_token=dc.time_as_token, use_flash=dc.use_flash_attention))
         if dc.long_skip_connection:
-            self.skip_linear = nn.Linear(dc.hidden_dim + C, dc.hidden_dim)
+            self.skip_linear = Dense(dc.hidden_dim + C, dc.hidden_dim)
         if dc.final_layer_type == "wavenet":
             wn = mp.wavenet
-            self.conv1 = nn.Linear(dc.hidden_dim, wn.hidden_dim)
+            self.conv1 = Dense(dc.hidden_dim, wn.hidden_dim)
             self.t_embedder2 = TimestepEmbedder(wn.hidden_dim)
             self.wavenet = WaveNet(wn.hidden_dim, wn.kernel_size, wn.dilation_rate,
                                    wn.num_layers, gin_channels=wn.hidden_dim)
-            self.res_projection = nn.Linear(dc.hidden_dim, wn.hidden_dim)
+            self.res_projection = Dense(dc.hidden_dim, wn.hidden_dim)
             self.final_layer = FinalLayer(wn.hidden_dim, wn.hidden_dim, dc.hidden_dim)
-            self.conv2 = nn.Linear(wn.hidden_dim, dc.in_channels)
+            self.conv2 = Dense(wn.hidden_dim, dc.in_channels)
         else:
-            self.final_mlp0 = nn.Linear(dc.hidden_dim, dc.hidden_dim)
-            self.final_mlp2 = nn.Linear(dc.hidden_dim, dc.in_channels)
+            self.final_mlp0 = Dense(dc.hidden_dim, dc.hidden_dim)
+            self.final_mlp2 = Dense(dc.hidden_dim, dc.in_channels)
 
     def forward(self, x, prompt_x, x_lens, t, style, cond, cond_drop=None,
                 return_static: bool = False, static_cond: Optional[dict] = None):
@@ -109,13 +109,14 @@ class DiT(nn.Module):
         B, T, C = x.shape
         if static_cond is None:
             keep = 1.0 if cond_drop is None else (1.0 - cond_drop)[:, None, None].to(x.dtype)
-            parts = [prompt_x * keep, self.cond_projection(cond) * keep]
+            parts = [prompt_x * keep, self.cond_projection(cond.to(x.dtype)) * keep]
             if dc.style_condition and not dc.style_as_token:
                 parts.append(style[:, None, :].expand(B, T, style.shape[-1]) * keep)
             merged_static = self.cond_x_merge_linear(torch.cat(parts, dim=-1), C, True)
             style_tok = None
             if dc.style_as_token:
-                style_tok = self.style_in(style) * (1.0 if cond_drop is None else keep[:, 0])
+                style_tok = (self.style_in(style.to(x.dtype))
+                             * (1.0 if cond_drop is None else keep[:, 0]))
             if return_static:
                 return {"merged": merged_static, "style_tok": style_tok}
         else:
@@ -136,13 +137,14 @@ class DiT(nn.Module):
         x_res = self.transformer(x_in, t1[:, None, :], lens)[:, n_prefix:]
 
         if dc.long_skip_connection:
-            x_res = self.skip_linear(torch.cat([x_res, x], dim=-1))
+            x_res = self.skip_linear(torch.cat([x_res.to(x.dtype), x], dim=-1))
+        x_res = x_res.to(x.dtype)
         if dc.final_layer_type == "wavenet":
             h = self.conv1(x_res)
             t2 = self.t_embedder2(t)
             mask = None if x_lens is None else sequence_mask(x_lens, T)[..., None].to(x.dtype)
-            h = self.wavenet(h, mask, g=t2[:, None, :])
+            h = self.wavenet(h, mask, g=t2[:, None, :].to(x.dtype))
             h = h + self.res_projection(x_res)
             h = self.final_layer(h, t1)
-            return self.conv2(h)
+            return self.conv2(h.to(x.dtype))
         return self.final_mlp2(F.silu(self.final_mlp0(x_res)))

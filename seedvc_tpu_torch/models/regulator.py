@@ -1,6 +1,5 @@
 """Length regulator: content features -> mel-rate conditioning
-(port of ``seedvc_tpu/models/regulator.py``; the VQ bottleneck waits for the
-training slice).
+(port of ``seedvc_tpu/models/regulator.py``).
 
 Embed discrete tokens (one codebook, or several summed with codebook i
 gated by ``n_quantizers > i``) or project continuous content, nearest-interpolate it along time to ``ylens.max()``,
@@ -9,7 +8,14 @@ and no F0 is given), then a conv -> GroupNorm(1) -> Mish stack and a 1x1
 projection. The output
 buffer has a fixed length ``target_len``; positions past ``ylens.max()`` are
 zeroed before every conv and excluded from the GroupNorm statistics, so the
-result equals running on a tensor that really ends there.
+result equals running on a tensor that really ends there. With
+``vector_quantize`` on continuous content, a DAC-style VQ bottleneck
+(:class:`VectorQuantize`) follows, with its commitment and codebook losses and
+the straight-through estimator. :func:`random_n_quantizers` turns the
+training draw of per-sample active codebooks into counts.
+
+Returns ``(out, ylens, codes, commitment_loss, codebook_loss)`` as the JAX
+module does; the last three are None without VQ.
 """
 
 from __future__ import annotations
@@ -79,12 +85,48 @@ class MaskedGroupNorm(nn.Module):
         return (normed * self.weight[:, None] + self.bias[:, None]).to(h.dtype)
 
 
+class VectorQuantize(nn.Module):
+    """DAC-style VQ: project to ``codebook_dim``, pick the nearest code by
+    cosine similarity, straight-through estimator, then project out.
+    Returns (out, commitment_loss, codebook_loss, codes); the losses are
+    means over every element of the (B, T, codebook_dim) codes, padding
+    included, as in the JAX module."""
+
+    def __init__(self, in_dim: int, codebook_size: int, codebook_dim: int = 8,
+                 out_dim: int = 512):
+        super().__init__()
+        self.in_proj = nn.Linear(in_dim, codebook_dim)
+        self.codebook = nn.Parameter(torch.randn(codebook_size, codebook_dim))
+        self.out_proj = nn.Linear(codebook_dim, out_dim)
+
+    def forward(self, z: torch.Tensor):
+        z_e = self.in_proj(z)
+        e = z_e / (torch.linalg.vector_norm(z_e, dim=-1, keepdim=True) + 1e-8)
+        cb = self.codebook / (torch.linalg.vector_norm(self.codebook, dim=-1, keepdim=True)
+                              + 1e-8)
+        codes = torch.argmax(torch.einsum("btd,kd->btk", e, cb), dim=-1)
+        z_q = self.codebook[codes]
+        commitment_loss = torch.mean((z_e - z_q.detach()) ** 2)
+        codebook_loss = torch.mean((z_e.detach() - z_q) ** 2)
+        z_q = z_e + (z_q - z_e).detach()  # straight-through
+        return self.out_proj(z_q), commitment_loss, codebook_loss, codes
+
+
+def random_n_quantizers(counts: torch.Tensor, n_codebooks: int,
+                        quantizer_dropout: float) -> torch.Tensor:
+    """Per-sample active codebooks for training: the first
+    ``int(B * quantizer_dropout)`` samples use their drawn count (``counts``,
+    (B,) ints in [1, n_codebooks], the JAX package's
+    ``randint(key, (B,), 1, n_codebooks + 1)``), the rest use all."""
+    B = counts.shape[0]
+    n_drop = int(B * quantizer_dropout)
+    full = torch.full_like(counts, n_codebooks)
+    return torch.where(torch.arange(B, device=counts.device) < n_drop, counts, full)
+
+
 class InterpolateRegulator(nn.Module):
     def __init__(self, cfg: LengthRegulatorConfig):
         super().__init__()
-        if cfg.vector_quantize:
-            raise NotImplementedError("the VQ bottleneck is not ported: ROADMAP queue 1 "
-                                      "item 3 (training)")
         self.cfg = cfg
         if cfg.is_discrete:
             self.embedding = nn.Embedding(cfg.content_codebook_size, cfg.channels)
@@ -100,6 +142,9 @@ class InterpolateRegulator(nn.Module):
             self.add_module(f"conv_{i}", nn.Conv1d(cfg.channels, cfg.channels, 3, padding=1))
             self.add_module(f"norm_{i}", MaskedGroupNorm(cfg.channels))
         self.out_proj = nn.Linear(cfg.channels, cfg.channels)
+        if cfg.vector_quantize and not cfg.is_discrete:
+            self.vq = VectorQuantize(cfg.channels, cfg.content_codebook_size,
+                                     out_dim=cfg.channels)
 
     def forward(self, x: torch.Tensor, ylens: torch.Tensor, target_len: int,
                 f0: Optional[torch.Tensor] = None, x_lens: Optional[torch.Tensor] = None,
@@ -110,10 +155,13 @@ class InterpolateRegulator(nn.Module):
         buffer length; f0: (B, T_f0) Hz or None; x_lens / f0_lens: () true
         content / F0 lengths inside their buffers, or None; n_quantizers: (B,)
         active codebooks of a multi-codebook x (None: all).
-        Returns (out (B, target_len, channels), ylens)."""
+        Returns (out (B, target_len, channels), ylens, codes, commitment_loss,
+        codebook_loss); the last three are None without VQ. The regulator
+        computes in f32 whatever x's float type (the JAX module's Dense
+        promotes a bf16 x with its f32 weights)."""
         c = self.cfg
         if not c.is_discrete:
-            h = self.content_in_proj(x)
+            h = self.content_in_proj(x.to(self.content_in_proj.weight.dtype))
         elif x.dim() == 3:
             if n_quantizers is None:
                 n_quantizers = torch.full((x.shape[0],), c.n_codebooks, device=x.device)
@@ -140,4 +188,7 @@ class InterpolateRegulator(nn.Module):
             h = h * torch.tanh(F.softplus(h)) * valid  # Mish
         out = self.out_proj(h.transpose(1, 2))
         mask = sequence_mask(ylens, target_len)[..., None].to(out.dtype)
-        return out * mask, ylens
+        if c.vector_quantize and not c.is_discrete:
+            out_q, commit, cb_loss, codes = self.vq(out)
+            return out_q * mask, ylens, codes, commit, cb_loss
+        return out * mask, ylens, None, None, None

@@ -34,7 +34,7 @@ class BSQ(nn.Module):
         aux_loss 0)."""
         if training:
             raise NotImplementedError("BSQ training terms are not ported: ROADMAP queue 1 "
-                                      "item 3 (training)")
+                                      "item 3b (the v2 trainer)")
         h = l2norm(self.project_in(x))
         quantized = torch.where(h > 0, 1.0, -1.0).to(h.dtype)
         mask = 2 ** torch.arange(self.codebook_dim - 1, -1, -1, device=x.device)

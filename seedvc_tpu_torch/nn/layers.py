@@ -7,8 +7,13 @@ timestep embedder with scale 1000. Submodule names follow the flax ones so
 
 ``Attention`` follows the JAX package's branch rule: K1
 (``ops.attention.dit_attention_fused``), K3 (``ops.attention.dit_attention``)
-or the einsum path. The kernels' wrappers send CPU tensors to their plain
-twins, so the branch taken does not depend on the device.
+or the einsum path; in grad mode K1 and K3 run through their autograd
+Functions, whose backward is K1ᵇ. The kernels' wrappers send CPU tensors to
+their plain twins, so the branch taken does not depend on the device.
+
+Compute types follow flax's: :class:`Dense` computes in its input's dtype
+(flax ``Dense(dtype=x.dtype)``), and mixed bf16 / f32 operands promote as
+jnp's do, which is what the trainer's bf16 compute with f32 weights relies on.
 """
 
 from __future__ import annotations
@@ -21,7 +26,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from seedvc_tpu_torch.ops.attention import dit_attention, dit_attention_fused
+from seedvc_tpu_torch.ops.attention import (dit_attention, dit_attention_diff,
+                                            dit_attention_fused, dit_attention_fused_diff)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` that computes in its input's dtype, casting its weights
+    to it: flax's ``nn.Dense(dtype=x.dtype)``, which the JAX modules use
+    wherever a layer's compute type follows the activations. With the
+    weights already in the input's dtype it is ``nn.Linear``. Under the
+    trainer's bf16 compute (f32 master weights, bf16 activations) the mixed
+    types promote as the JAX package's do."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
 
 
 class RMSNorm(nn.Module):
@@ -46,12 +65,12 @@ class AdaptiveRMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-5, conditioned: bool = True):
         super().__init__()
         self.norm = RMSNorm(dim, eps)
-        self.project_layer = nn.Linear(dim, 2 * dim) if conditioned else None
+        self.project_layer = Dense(dim, 2 * dim) if conditioned else None
 
     def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor]) -> torch.Tensor:
         if emb is None:
             return self.norm(x)
-        weight, bias = self.project_layer(emb).chunk(2, dim=-1)
+        weight, bias = self.project_layer(emb.to(x.dtype)).chunk(2, dim=-1)
         return weight * self.norm(x) + bias
 
 
@@ -91,7 +110,9 @@ class Attention(nn.Module):
     """Fused-QKV multi-head attention with grouped KV heads and key padding.
 
     With ``use_flash``: K1 (RoPE in the kernel) when the heads are not
-    grouped and ``rope_full`` is given, else RoPE here and K3. Otherwise the
+    grouped and ``rope_full`` is given, else RoPE here and K3; when grad mode
+    is on and q/k/v require grad, through ``dit_attention_fused_diff`` /
+    ``dit_attention_diff`` (K1ᵇ backward). Otherwise the
     einsum path: fp32 logits and softmax, probabilities cast to the input
     type before P.V. The JAX package also needs ``T % 512 == 0`` for its
     Pallas tiles; K1 and K3 mask keys >= T, so any T takes the kernels here.
@@ -104,8 +125,8 @@ class Attention(nn.Module):
         self.n_kv = n_local_heads or n_head
         self.head_dim = head_dim or dim // n_head
         self.use_flash = use_flash
-        self.wqkv = nn.Linear(dim, (n_head + 2 * self.n_kv) * self.head_dim, bias=False)
-        self.wo = nn.Linear(n_head * self.head_dim, dim, bias=False)
+        self.wqkv = Dense(dim, (n_head + 2 * self.n_kv) * self.head_dim, bias=False)
+        self.wo = Dense(n_head * self.head_dim, dim, bias=False)
 
     def forward(self, x: torch.Tensor, freqs: torch.Tensor, lens: Optional[torch.Tensor],
                 rope_full: Optional[tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
@@ -115,9 +136,13 @@ class Attention(nn.Module):
         B, T, _ = x.shape
         H, Hkv, hd = self.n_head, self.n_kv, self.head_dim
         q, k, v = self.wqkv(x).split([H * hd, Hkv * hd, Hkv * hd], dim=-1)
+        # a trainable call (grad mode on, q/k/v requiring grad) takes the
+        # autograd Functions: K1 or K3 forward, K1ᵇ backward
+        train = torch.is_grad_enabled() and q.requires_grad
         if self.use_flash and Hkv == H and rope_full is not None:
             q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2).contiguous() for t in (q, k, v))
-            out = dit_attention_fused(q, k, v, *rope_full, lens).transpose(1, 2)
+            fused = dit_attention_fused_diff if train else dit_attention_fused
+            out = fused(q, k, v, *rope_full, lens).transpose(1, 2)
             return self.wo(out.reshape(B, T, H * hd))
 
         q = apply_rope(q.reshape(B, T, H, hd), freqs)
@@ -128,7 +153,7 @@ class Attention(nn.Module):
             v = v.repeat_interleave(H // Hkv, dim=2)
         if self.use_flash:
             q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            out = dit_attention(q, k, v, lens).transpose(1, 2)
+            out = (dit_attention_diff if train else dit_attention)(q, k, v, lens).transpose(1, 2)
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
             if lens is not None:
@@ -145,9 +170,9 @@ class FeedForward(nn.Module):
 
     def __init__(self, dim: int, intermediate: int):
         super().__init__()
-        self.w1 = nn.Linear(dim, intermediate, bias=False)
-        self.w3 = nn.Linear(dim, intermediate, bias=False)
-        self.w2 = nn.Linear(intermediate, dim, bias=False)
+        self.w1 = Dense(dim, intermediate, bias=False)
+        self.w3 = Dense(dim, intermediate, bias=False)
+        self.w2 = Dense(intermediate, dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.w2(F.silu(self.w1(x)) * self.w3(x))

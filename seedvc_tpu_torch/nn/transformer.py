@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from seedvc_tpu_torch.nn.layers import (AdaptiveRMSNorm, Attention, FeedForward,
+from seedvc_tpu_torch.nn.layers import (AdaptiveRMSNorm, Attention, Dense, FeedForward,
                                         ffn_intermediate_size, rope_cache, rope_full_cache)
 
 
@@ -38,7 +38,7 @@ class TransformerBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, receives_skip: bool = False):
         super().__init__()
         if receives_skip:
-            self.skip_in_linear = nn.Linear(2 * cfg.dim, cfg.dim)
+            self.skip_in_linear = Dense(2 * cfg.dim, cfg.dim)
         self.receives_skip = receives_skip
         conditioned = not cfg.time_as_token
         self.attention_norm = AdaptiveRMSNorm(cfg.dim, cfg.norm_eps, conditioned)
@@ -49,7 +49,7 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x, c, freqs, lens, skip_in=None, rope_full=None):
         if self.receives_skip and skip_in is not None:
-            x = self.skip_in_linear(torch.cat([x, skip_in], dim=-1))
+            x = self.skip_in_linear(torch.cat([x, skip_in.to(x.dtype)], dim=-1))
         h = x + self.attention(self.attention_norm(x, c), freqs, lens, rope_full)
         return h + self.feed_forward(self.ffn_norm(h, c))
 

@@ -15,6 +15,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from seedvc_tpu_torch.nn.layers import Dense
+
+
+class CastConv1d(nn.Conv1d):
+    """``nn.Conv1d`` that computes in its input's dtype, casting its weights
+    to it, as the JAX module's ``DilatedConvAsMatmul`` casts its kernel."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), b)
+
 
 class WaveNet(nn.Module):
     def __init__(self, hidden_channels: int, kernel_size: int, dilation_rate: int,
@@ -24,12 +35,12 @@ class WaveNet(nn.Module):
         self.C, self.kernel_size, self.n_layers = C, kernel_size, n_layers
         self.dilation_rate = dilation_rate
         if gin_channels:
-            self.cond_layer = nn.Linear(gin_channels, 2 * C * n_layers)
+            self.cond_layer = Dense(gin_channels, 2 * C * n_layers)
         for i in range(n_layers):
-            self.add_module(f"in_layers_{i}", nn.Conv1d(
+            self.add_module(f"in_layers_{i}", CastConv1d(
                 C, 2 * C, kernel_size, dilation=dilation_rate ** i))
             out_ch = 2 * C if i < n_layers - 1 else C
-            self.add_module(f"res_skip_layers_{i}", nn.Conv1d(C, out_ch, 1))
+            self.add_module(f"res_skip_layers_{i}", CastConv1d(C, out_ch, 1))
 
     def forward(self, x: torch.Tensor, x_mask: Optional[torch.Tensor],
                 g: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -26,8 +26,30 @@ compile-time RoPE flag, replaces two TPU kernels:
   warpgroup runs both products on ``wgmma``, skipping key tiles that hold
   only masked keys. The f32 path uses scalar FMAs.
 
+K1ᵇ, the backward of both (``seedvc_tpu_torch/csrc/attention_bwd.cu``),
+is the counterpart of the ``bwd`` of ``_fused_diff`` / ``_plain_diff``
+(``seedvc_tpu/ops/pallas/attention.py:315-367``), which in the JAX package
+is an XLA vjp of the jnp reference, not a Pallas kernel.
+:func:`dit_attention_fused_bwd` / :func:`dit_attention_bwd` give dq, dk, dv
+of the plain twins' math from q, k, v, the forward's output and its
+upstream gradient; their plain versions are
+:func:`dit_attention_fused_bwd_reference` / :func:`dit_attention_bwd_reference`
+(``torch.autograd.grad`` through the twin). The autograd Functions
+:class:`DitAttentionFusedFn` and :class:`DitAttentionFn`, called as
+:func:`dit_attention_fused_diff` and :func:`dit_attention_diff` after the JAX
+names, run K1 or K3 forward and K1ᵇ backward.
+
+- what bounds K1ᵇ: operations, 10·B·H·T²·d (S, dP, dQ, dK, dV) against
+  about 11·B·H·T·d elements moved.
+- what its design does about it: the flash pattern in four launches (fp32
+  copies of the roped, 2⁻³-scaled q and of k, v, dO with D = rowsum(dO∘o);
+  dQ with the row statistics recomputed; dK/dV; RoPE's transpose and the
+  cast back), fp32 scalar FMAs, nothing (T, T)-sized in device memory.
+  ``wgmma`` and TMA are later work.
+
 A CPU tensor goes to the plain twin; a CUDA tensor launches the kernel or
-raises. ``LAUNCHES`` counts K1's calls, ``DIT_ATTENTION_LAUNCHES`` K3's.
+raises. ``LAUNCHES`` counts K1's calls, ``DIT_ATTENTION_LAUNCHES`` K3's,
+``BWD_LAUNCHES`` K1ᵇ's (for either forward).
 """
 
 from __future__ import annotations
@@ -43,6 +65,7 @@ NEG_INF = -1e30
 HEAD_DIM = 64
 LAUNCHES = 0
 DIT_ATTENTION_LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,11 +75,12 @@ _SIGNATURES = {
     "dit_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dit_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rope_prepass_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "dit_attention_bwd": [_P] * 12 + [_I] * 5 + [_P],
 }
 
 
-def _kernel(name: str):
-    lib = load_library("attention")
+def _kernel(name: str, source: str = "attention"):
+    lib = load_library(source)
     fn = getattr(lib, name)
     fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int
@@ -193,3 +217,121 @@ def rope_prepass(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"rope_prepass: CUDA launch failed (error {err})")
     return qo, ko
+
+
+# ---------------------------------------------------------------------------
+# K1ᵇ: the backward of K1 and K3, and the autograd Functions around them.
+
+def _twin_grads(twin, q, k, v, rest, g):
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = twin(*leaves, *rest)
+        return torch.autograd.grad(out, leaves, g.to(q.dtype))
+
+
+def dit_attention_fused_bwd_reference(q, k, v, cos, sin, lens, g):
+    """Plain version of K1ᵇ for K1: (dq, dk, dv) of
+    :func:`dit_attention_fused_reference` at q, k, v (before RoPE) for the
+    upstream gradient g (cast to q's dtype, as the JAX bwd casts it)."""
+    return _twin_grads(dit_attention_fused_reference, q, k, v, (cos, sin, lens), g)
+
+
+def dit_attention_bwd_reference(q, k, v, lens, g):
+    """Plain version of K1ᵇ for K3: (dq, dk, dv) of
+    :func:`dit_attention_reference` for the upstream gradient g."""
+    return _twin_grads(dit_attention_reference, q, k, v, (lens,), g)
+
+
+def _bwd_scratch_floats(B: int, H: int, T: int) -> int:
+    """fp32 scratch of one K1ᵇ call: q, k, v, dO, dq, dk, dv in fp32 and
+    three row vectors (D, max, sum)."""
+    return 7 * B * H * T * HEAD_DIM + 3 * B * H * T
+
+
+def _bwd(op: str, q, k, v, cos, sin, lens, o, g):
+    extra = () if cos is None else (("cos", cos), ("sin", sin))
+    _check(op, q, k, v, lens, extra)
+    g = g.to(q.dtype).contiguous()
+    for name, t in (("o", o), ("g", g)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{op}: {name} does not match q")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{op}: {name} must be contiguous and 16-byte aligned")
+    B, H, T, _ = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    scratch = torch.empty(_bwd_scratch_floats(B, H, T), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):  # the C side sets attributes of the current device
+        err = _kernel("dit_attention_bwd", "attention_bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
+            None if lens is None else lens.data_ptr(), o.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), B, H, T,
+            int(q.dtype == torch.bfloat16), int(cos is not None),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{op}: CUDA launch failed (error {err})")
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+def dit_attention_fused_bwd(q, k, v, cos, sin, lens, o, g):
+    """K1ᵇ for K1: (dq, dk, dv) in q's dtype. q/k/v (B, H, T, 64) before
+    RoPE, cos/sin (T, 64) f32, lens (B,) int32 or None, o the forward's
+    output, g its upstream gradient."""
+    if q.device.type == "cpu":
+        return dit_attention_fused_bwd_reference(q, k, v, cos, sin, lens, g)
+    if q.device.type != "cuda":
+        raise ValueError(f"dit_attention_fused_bwd: unsupported device {q.device}")
+    return _bwd("dit_attention_fused_bwd", q, k, v, cos, sin, lens, o, g)
+
+
+def dit_attention_bwd(q, k, v, lens, o, g):
+    """K1ᵇ for K3: (dq, dk, dv) in q's dtype; q/k already roped."""
+    if q.device.type == "cpu":
+        return dit_attention_bwd_reference(q, k, v, lens, g)
+    if q.device.type != "cuda":
+        raise ValueError(f"dit_attention_bwd: unsupported device {q.device}")
+    return _bwd("dit_attention_bwd", q, k, v, None, None, lens, o, g)
+
+
+class DitAttentionFusedFn(torch.autograd.Function):
+    """K1 forward, K1ᵇ backward; no gradient to cos, sin or lens."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, lens):
+        o = dit_attention_fused(q, k, v, cos, sin, lens)
+        ctx.save_for_backward(q, k, v, cos, sin, lens, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, cos, sin, lens, o = ctx.saved_tensors
+        dq, dk, dv = dit_attention_fused_bwd(q, k, v, cos, sin, lens, o, g)
+        return dq, dk, dv, None, None, None
+
+
+class DitAttentionFn(torch.autograd.Function):
+    """K3 forward, K1ᵇ backward; no gradient to lens."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lens):
+        o = dit_attention(q, k, v, lens)
+        ctx.save_for_backward(q, k, v, lens, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, lens, o = ctx.saved_tensors
+        dq, dk, dv = dit_attention_bwd(q, k, v, lens, o, g)
+        return dq, dk, dv, None
+
+
+def dit_attention_fused_diff(q, k, v, cos, sin, lens=None):
+    """``dit_attention_fused`` with K1ᵇ as its backward (trainable)."""
+    return DitAttentionFusedFn.apply(q, k, v, cos, sin, lens)
+
+
+def dit_attention_diff(q, k, v, lens=None):
+    """``dit_attention`` with K1ᵇ as its backward (trainable)."""
+    return DitAttentionFn.apply(q, k, v, lens)

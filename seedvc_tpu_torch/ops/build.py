@@ -19,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = {"attention": "attention.cu", "anti_alias": "anti_alias.cu"}
+SOURCES = {"attention": "attention.cu", "attention_bwd": "attention_bwd.cu",
+           "anti_alias": "anti_alias.cu"}
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

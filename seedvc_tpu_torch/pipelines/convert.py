@@ -135,7 +135,8 @@ class VoiceConverter:
         self.cfg = cfg or get_preset("whisper_small_wavenet")
         mp = self.cfg.model_params
         if cfg_shard_axis is not None or seq_shard_axis is not None:
-            raise NotImplementedError("sharded sampling is not ported")
+            raise NotImplementedError("sharded sampling is not ported: "
+                                      "ROADMAP queue 1 item 3c")
         self.tokenizer_type = mp.speech_tokenizer.type
         self.vocoder_type = mp.vocoder.type
         if self.tokenizer_type not in ("whisper", "xlsr", "cnhubert"):

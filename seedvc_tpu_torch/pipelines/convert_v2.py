@@ -94,7 +94,8 @@ class VoiceConverterV2:
             raise RuntimeError("VoiceConverterV2: no CUDA device; pass device='cpu' "
                                "to run on the CPU")
         if cfg_shard_axis is not None or seq_shard_axis is not None:
-            raise NotImplementedError("sharded sampling is not ported")
+            raise NotImplementedError("sharded sampling is not ported: "
+                                      "ROADMAP queue 1 item 3c")
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         if self.device.type == "cuda":

@@ -1,0 +1,70 @@
+"""Background-thread feature prefetch for the trainer (port of
+``seedvc_tpu/train/prefetch.py``).
+
+``prefetched`` runs the preparation callable in a daemon worker thread,
+``depth`` batches ahead of the consumer, over a bounded queue: the worker's
+host work (padding, resampling, the numpy RNG) and its device launches
+(Whisper, CAMPPlus, RMVPE) overlap the train step. An exception in the worker
+is raised in the consumer; abandoning the generator (early stop,
+``max_steps``) stops the worker. ``depth <= 0`` is the synchronous schedule,
+with no thread.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Callable, Iterable, Iterator, TypeVar
+
+T = TypeVar("T")
+U = TypeVar("U")
+
+_SENTINEL = object()
+
+
+def prefetched(iterable: Iterable[T], prepare: Callable[[T], U],
+               depth: int = 2) -> Iterator[U]:
+    """Yield ``prepare(item)`` for each item, computed ``depth`` ahead."""
+    if depth <= 0:
+        for item in iterable:
+            yield prepare(item)
+        return
+
+    q: "queue.Queue[object]" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    failure: list[BaseException] = []
+
+    def _put(item: object) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterable:
+                if stop.is_set():
+                    return
+                if not _put(prepare(item)):
+                    return
+        except BaseException as e:  # noqa: BLE001 - raised again in the consumer
+            failure.append(e)
+        finally:
+            _put(_SENTINEL)
+
+    thread = threading.Thread(target=worker, name="feature-prefetch", daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _SENTINEL:
+                if failure:
+                    raise failure[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        thread.join(timeout=10.0)

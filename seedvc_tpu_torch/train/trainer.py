@@ -1,0 +1,461 @@
+"""v1 fine-tuning trainer on one GPU (port of ``seedvc_tpu/train/trainer.py``).
+
+- frozen encoders: Whisper (in ``encoder_dtype``) for the content, CAMPPlus
+  for the style from a kaldi fbank over the true frame lengths, RMVPE for the
+  F0 of F0-conditioned presets; the trainable unit is ``VCModel`` (regulator
+  + CFM) in f32 master weights,
+- timbre perturbation: a random-rate time warp of the 16 kHz batch
+  (``dsp.resample.warp_rate``, rate drawn by the host numpy generator
+  ``default_rng((seed, step))``, so the rates equal the JAX trainer's bit for
+  bit); the OpenVoice converter of the JAX trainer is not ported (ROADMAP
+  queue 1 item 3b),
+- a per-clip feature cache of the perturbation-invariant features (clean
+  content and style) bounded by ``feat_cache_bytes``,
+- ``prepare_batch``: the mel and its -10 pad on the device in 128-frame
+  buckets, the 16 kHz batch in 1 s buckets, content cropped to its true
+  token count in 64-token buckets,
+- the loop: batches prepared ``prefetch`` ahead on a worker thread, one step
+  key ``(seed, step)`` a step, a loss EMA kept on the device and read only at
+  ``log_interval``, LR halving on a plateau, validation with early stop,
+- checkpoints in the port's own ``torch.save`` format under ``run_dir``
+  (newest two kept, one save a step), and ``export_serving``: ``vc.pkl``, a
+  flax-layout tree of numpy arrays (EMA weights preferred) that the port's
+  ``VoiceConverter(vc_params=...)`` and the JAX package load.
+
+Device: ``cuda`` unless the caller passes ``device="cpu"``; without a card the
+constructor raises. Multi-GPU training (``n_model > 1``, ``fsdp``) is not
+ported (ROADMAP queue 1 item 3c).
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import pickle
+import re
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from seedvc_tpu_torch.core.config import SeedVCConfig
+from seedvc_tpu_torch.dsp.fbank import kaldi_fbank
+from seedvc_tpu_torch.dsp.mel import MelFrontend
+from seedvc_tpu_torch.dsp.resample import warp_rate
+from seedvc_tpu_torch.dsp.whisper_mel import whisper_log_mel
+from seedvc_tpu_torch.models.campplus import CAMPPlus
+from seedvc_tpu_torch.models.vc import VCModel
+from seedvc_tpu_torch.models.whisper import WHISPER_SMALL, WhisperEncoder, WhisperEncoderConfig
+from seedvc_tpu_torch.ops import attention
+from seedvc_tpu_torch.train.dataset import Batch, FTDataset
+from seedvc_tpu_torch.train.optim import (get_lr_scale, make_multi_optimizer, make_optimizer,
+                                          set_lr_scale, warmup_cosine)
+from seedvc_tpu_torch.train.prefetch import prefetched
+from seedvc_tpu_torch.train.step import (MULTI_GPU, TrainState, init_state, make_eval_step,
+                                         make_train_step)
+from seedvc_tpu_torch.weights import load_jax_params, to_jax_params
+
+OPENVOICE = ("the OpenVoice timbre perturbation is not ported: ROADMAP queue 1 item 3b")
+CKPT_KEEP = 2
+
+
+@dataclass
+class TrainerConfig:
+    data_path: str = ""          # dataset directory that train() reads when given none
+    run_dir: str = "./runs/run1"  # checkpoints; "" = no checkpoints
+    batch_size: int = 2
+    epochs: int = 10
+    max_steps: int = 1000
+    base_lr: float = 1e-4
+    warmup_steps: int = 100
+    grad_clip: float = 10.0
+    log_interval: int = 10
+    save_interval: int = 500
+    mel_bucket: int = 128        # mel frames rounded up to this multiple
+    ema_decay: float = 0.99      # loss EMA for logging and the plateau rule
+    lr_halve_patience: int = 4   # plateaued logs before the LR is halved
+    validation_interval: int = 0  # steps between validate() (0 = off)
+    weight_ema_decay: float = 0.0  # parameter EMA (0 = off)
+    optimizer_kind: str = "single"  # "single": one AdamW; "multi": one per module
+    val_batches: int = 4          # batches averaged per validation
+    early_stop_patience: int = 10  # validations without improvement -> stop
+    compute_dtype: str = "float32"  # or "bfloat16": bf16 activations, f32 masters
+    # frozen Whisper's dtype; None = bfloat16 on cuda or under bf16 compute,
+    # else float32 (features leave it in f32 either way)
+    encoder_dtype: Optional[str] = None
+    feat_cache_bytes: int = 2 << 30  # per-clip feature cache on the device; 0 = off
+    fsdp: bool = False            # not ported (ROADMAP queue 1 item 3c): must stay False
+    perturb_min: float = 0.85
+    perturb_max: float = 1.15
+    prefetch: int = 2             # batches prepared ahead on a worker thread; 0 = off
+    seed: int = 1234
+
+
+def _dtype(name: str) -> torch.dtype:
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"unsupported dtype {name!r}")
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+class Trainer:
+    def __init__(self, cfg: SeedVCConfig, tcfg: TrainerConfig,
+                 whisper_cfg: WhisperEncoderConfig = WHISPER_SMALL,
+                 whisper_params=None, campplus_params=None, vc_params=None,
+                 openvoice_params=None, se_db: Optional[np.ndarray] = None,
+                 teacher_params=None, rmvpe_params=None, n_model: int = 1,
+                 device=None, draws_fn=None):
+        if openvoice_params is not None or se_db is not None:
+            raise NotImplementedError(f"Trainer(openvoice_params, se_db): {OPENVOICE}")
+        if n_model != 1 or tcfg.fsdp:
+            raise NotImplementedError(f"Trainer(n_model={n_model}, fsdp={tcfg.fsdp}): "
+                                      f"{MULTI_GPU}")
+        if tcfg.optimizer_kind not in ("single", "multi"):
+            raise ValueError(f"unknown optimizer_kind {tcfg.optimizer_kind!r}")
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU")
+        self.cfg, self.tcfg = cfg, tcfg
+        sp = cfg.preprocess_params.spect_params
+        self.sr = cfg.preprocess_params.sr
+        self.hop = sp.hop_length
+        self.n_mels = sp.n_mels
+        self.mel_fn = MelFrontend(self.sr, sp)
+        self.compute_dtype = _dtype(tcfg.compute_dtype)
+        if tcfg.encoder_dtype is not None:
+            self.enc_dtype = _dtype(tcfg.encoder_dtype)
+        else:
+            self.enc_dtype = (torch.bfloat16 if self.compute_dtype == torch.bfloat16
+                              or self.device.type == "cuda" else torch.float32)
+        mp = cfg.model_params
+        self.f0_condition = bool(mp.DiT.f0_condition)
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(tcfg.seed)
+            self.whisper = WhisperEncoder(whisper_cfg)
+            self.campplus = CAMPPlus(feat_dim=80, embedding_size=mp.style_encoder.dim)
+            self.model = VCModel(mp)
+            rmvpe_model = None
+            if self.f0_condition:
+                from seedvc_tpu_torch.models.rmvpe import RMVPE_E2E
+
+                rmvpe_model = RMVPE_E2E()
+        for module, tree in ((self.whisper, whisper_params), (self.campplus, campplus_params),
+                             (self.model, vc_params), (rmvpe_model, rmvpe_params)):
+            if module is not None and tree is not None:
+                load_jax_params(module, tree)
+        for frozen in (self.whisper, self.campplus, rmvpe_model):
+            if frozen is not None:
+                frozen.requires_grad_(False).eval().to(self.device)
+        self.whisper.to(self.enc_dtype)
+        self.rmvpe = None
+        if rmvpe_model is not None:
+            from seedvc_tpu_torch.models.rmvpe import RMVPE
+
+            self.rmvpe = RMVPE(rmvpe_model)
+        self.model.to(self.device).train()
+
+        schedule = warmup_cosine(tcfg.base_lr, tcfg.warmup_steps, tcfg.max_steps)
+        make = make_multi_optimizer if tcfg.optimizer_kind == "multi" else make_optimizer
+        self.optimizer = make(schedule, grad_clip=tcfg.grad_clip)
+        self.state: TrainState = init_state(self.model, self.optimizer,
+                                            ema=tcfg.weight_ema_decay > 0)
+        self.step_fn = make_train_step(
+            self.model, self.optimizer, teacher_params=teacher_params,
+            weight_ema_decay=tcfg.weight_ema_decay,
+            compute_dtype=None if self.compute_dtype == torch.float32 else self.compute_dtype,
+            draws_fn=draws_fn)
+        self.eval_fn = make_eval_step(self.model, draws_fn=draws_fn)
+
+        self._feat_cache: dict = {}  # clip id -> (s_ori row, style row), device tensors
+        self._feat_cache_used = 0
+        self.ema_loss: Optional[float] = None
+        self._ema_dev: Optional[torch.Tensor] = None  # loss EMA on the device
+        self.best_ema = float("inf")
+        self.plateau_count = 0
+        self.best_val_loss = float("inf")
+        self.val_patience = 0
+        # one record a step: step, mel frames T, host seconds of its prepare,
+        # host time at its end, loss and grad norm (device tensors, read
+        # by no one here) and the attention launches it made
+        self.history: list[dict] = []
+        if tcfg.run_dir:
+            os.makedirs(tcfg.run_dir, exist_ok=True)
+
+    # ------------------------------------------------------------------
+    def _put(self, x: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.array(x))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _whisper(self, w16: torch.Tensor) -> torch.Tensor:
+        """Content features (f32) of a (B, T<=30 s) 16 kHz batch, the encoder
+        on the wave zero-padded to its 30 s window."""
+        mel = whisper_log_mel(w16).to(self.enc_dtype)
+        return self.whisper(mel).float()
+
+    def _style(self, w16: torch.Tensor, frame_lens: torch.Tensor) -> torch.Tensor:
+        """CAMPPlus style from the true frame lengths: fbank over the padded
+        batch, per-sample mean subtraction over the valid frames, masked."""
+        fb = kaldi_fbank(w16)
+        fmask = (torch.arange(fb.shape[1], device=fb.device)[None, :]
+                 < frame_lens[:, None]).to(fb.dtype)[..., None]
+        mean = (fb * fmask).sum(dim=1, keepdim=True) / torch.clamp(
+            frame_lens[:, None, None].to(fb.dtype), min=1.0)
+        return self.campplus((fb - mean) * fmask, frame_lens)
+
+    def _mel(self, waves: torch.Tensor, mel_lens: torch.Tensor) -> torch.Tensor:
+        mels = self.mel_fn(waves)
+        pos = torch.arange(mels.shape[1], device=mels.device)[None, :]
+        return torch.where((pos < mel_lens[:, None])[..., None], mels,
+                           torch.full_like(mels, -10.0))
+
+    @torch.no_grad()
+    def prepare_batch(self, batch: Batch, rng: np.random.Generator,
+                      cache: bool = True) -> dict:
+        """The step's inputs on the device from one dataset batch. ``rng``
+        draws the perturbation rate (one ``uniform(perturb_min, perturb_max)``);
+        ``cache=False`` bypasses the per-clip feature cache (validation: its
+        clip ids index another dataset)."""
+        tb = self.tcfg
+        B = batch.waves.shape[0]
+        mel_lens = (batch.wave_lengths // self.hop).astype(np.int32)
+        bucket = -(-int(mel_lens.max()) // tb.mel_bucket) * tb.mel_bucket
+        waves = np.zeros((B, bucket * self.hop), np.float32)
+        n = min(waves.shape[1], batch.waves.shape[1])
+        waves[:, :n] = batch.waves[:, :n]
+        mel_lens_d = self._put(mel_lens)
+        mels = self._mel(self._put(waves), mel_lens_d)
+
+        # one 1 s-bucketed 16 kHz batch for every consumer
+        w16_T = min(-(-batch.waves_16k.shape[1] // 16000) * 16000, 30 * 16000)
+        w16b = np.zeros((B, w16_T), np.float32)
+        nb = min(w16_T, batch.waves_16k.shape[1])
+        w16b[:, :nb] = batch.waves_16k[:, :nb]
+        eff_16k = np.minimum(batch.wave_16k_lengths, w16_T)
+        frame_lens = np.maximum((eff_16k - 400) // 160 + 1, 1).astype(np.int32)
+        w16 = self._put(w16b)
+        # the warp takes 1/rate: out[i] = wave[i * r] compresses by r
+        rate = rng.uniform(tb.perturb_min, tb.perturb_max)
+        inv_rate = np.float32(1.0 / rate)
+
+        ids = batch.ids if (cache and tb.feat_cache_bytes > 0) else None
+        if ids is not None and all(int(i) in self._feat_cache for i in ids):
+            rows = [self._feat_cache[int(i)] for i in ids]
+            s_ori = torch.stack([r[0] for r in rows])
+            style = torch.stack([r[1] for r in rows])
+            s_alt = self._whisper(warp_rate(w16, inv_rate))
+        else:
+            s = self._whisper(torch.cat([w16, warp_rate(w16, inv_rate)], dim=0))
+            s_ori, s_alt = s[:B], s[B:]
+            style = self._style(w16, self._put(frame_lens))
+            if ids is not None:
+                for b, i in enumerate(ids):
+                    i = int(i)
+                    if i in self._feat_cache:
+                        continue
+                    row = (s_ori[b].clone(), style[b].clone())
+                    size = sum(r.numel() * r.element_size() for r in row)
+                    if self._feat_cache_used + size > tb.feat_cache_bytes:
+                        break
+                    self._feat_cache[i] = row
+                    self._feat_cache_used += size
+        # content cropped to the batch's true token count (len_16k // 320 + 1)
+        # in 64-token buckets; the true count rides along as s_lens
+        max16 = int(eff_16k.max())
+        s_true = max16 // 320 + 1
+        s_bucket = min(-(-s_true // 64) * 64, s_ori.shape[1], s_alt.shape[1])
+        feats = {"s_alt": s_alt[:, :s_bucket], "s_ori": s_ori[:, :s_bucket],
+                 "s_lens": self._put(np.asarray(min(s_true, s_bucket), np.int32)),
+                 "mels": mels, "mel_lens": mel_lens_d, "style": style}
+        if self.f0_condition:
+            f0 = self.rmvpe.infer_from_audio_batch(w16b)  # (B, T16 // 160 + 1)
+            feats["f0"] = self._put(f0.astype(np.float32))
+            feats["f0_lens"] = self._put(np.asarray(min(max16 // 160 + 1, f0.shape[1]),
+                                                    np.int32))
+        return feats
+
+    # ------------------------------------------------------------------
+    @property
+    def lr_scale(self) -> float:
+        return get_lr_scale(self.state.opt_state)
+
+    def halve_lr(self):
+        """Halve the runtime LR multiplier in the optimizer state."""
+        scale = self.lr_scale * 0.5
+        self.state = self.state._replace(opt_state=set_lr_scale(self.state.opt_state, scale))
+        print(f"plateau: halving LR (scale {scale})")
+
+    # ------------------------------------------------------------------
+    def _ckpt_paths(self) -> dict:
+        out = {}
+        for p in glob.glob(os.path.join(self.tcfg.run_dir, "ckpt_*.pt")):
+            m = re.fullmatch(r"ckpt_(\d+)\.pt", os.path.basename(p))
+            if m:
+                out[int(m.group(1))] = p
+        return out
+
+    def latest_step(self) -> Optional[int]:
+        if not self.tcfg.run_dir:
+            return None
+        paths = self._ckpt_paths()
+        return max(paths) if paths else None
+
+    def save(self, step: int):
+        """Checkpoint the params, optimizer state, step and EMA at ``step``
+        (``run_dir/ckpt_<step>.pt``); once a step, newest two kept."""
+        if not self.tcfg.run_dir or self.latest_step() == step:
+            return
+        st = self.state
+        opt = st.opt_state
+        tree = {
+            "params": {n: p.detach().cpu() for n, p in st.params.items()},
+            "opt_state": {"lr_scale": opt.lr_scale, "names": opt.names,
+                          "groups": {g: {"count": gs.count, "mu": [t.cpu() for t in gs.mu],
+                                         "nu": [t.cpu() for t in gs.nu]}
+                                     for g, gs in opt.groups.items()}},
+            "step": st.step,
+        }
+        if st.ema_params is not None:
+            tree["ema_params"] = {n: t.cpu() for n, t in st.ema_params.items()}
+        path = os.path.join(self.tcfg.run_dir, f"ckpt_{step:08d}.pt")
+        torch.save(tree, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        for old in sorted(self._ckpt_paths())[:-CKPT_KEEP]:
+            os.remove(self._ckpt_paths()[old])
+
+    def restore_latest(self) -> bool:
+        """Load the newest checkpoint of ``run_dir`` into the trainer; False if
+        there is none. A checkpoint without EMA restored into a run with EMA
+        seeds the EMA from its params."""
+        latest = self.latest_step()
+        if latest is None:
+            return False
+        tree = torch.load(self._ckpt_paths()[latest], map_location=self.device,
+                          weights_only=True)
+        st = self.state
+        with torch.no_grad():
+            for n, p in st.params.items():
+                p.copy_(tree["params"][n])
+        o = tree["opt_state"]
+        opt = st.opt_state
+        if o["names"] != opt.names:
+            raise ValueError("checkpoint optimizer groups do not match this trainer's")
+        for g, gs in opt.groups.items():
+            saved = o["groups"][g]
+            gs.count = int(saved["count"])
+            for dst, src in zip(gs.mu + gs.nu, saved["mu"] + saved["nu"]):
+                dst.copy_(src)
+        opt = set_lr_scale(opt, float(o["lr_scale"]))
+        ema = st.ema_params
+        if ema is not None:
+            src = tree.get("ema_params") or tree["params"]
+            with torch.no_grad():
+                for n, t in ema.items():
+                    t.copy_(src[n])
+        self.state = TrainState(st.params, opt, int(tree["step"]), ema)
+        return True
+
+    def export_serving(self, out_dir: Optional[str] = None, use_ema: bool = True) -> str:
+        """Write the trained weights as ``vc.pkl``, a flax-layout tree of numpy
+        arrays (EMA weights when kept and ``use_ema``), which
+        ``VoiceConverter(vc_params=...)``, ``apps.infer --checkpoint-dir`` and
+        the JAX package load."""
+        out_dir = out_dir or os.path.join(self.tcfg.run_dir, "ft_model")
+        os.makedirs(out_dir, exist_ok=True)
+        ema = self.state.ema_params
+        tree = to_jax_params(self.model, ema if use_ema and ema is not None else None)
+        path = os.path.join(out_dir, "vc.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(tree, f)
+        return path
+
+    # ------------------------------------------------------------------
+    def validate(self, val_dataset: FTDataset) -> float:
+        """Mean CFM loss over up to ``val_batches`` validation batches."""
+        tb = self.tcfg
+        rng = np.random.default_rng(tb.seed + 1)
+        losses = []
+        for i, batch in enumerate(val_dataset.batches(shuffle=False, epoch=0)):
+            if i >= tb.val_batches:
+                break
+            feats = self.prepare_batch(batch, rng, cache=False)
+            losses.append(float(self.eval_fn(self.state.params, feats, (tb.seed + i,))))
+        return float(np.mean(losses)) if losses else float("nan")
+
+    def train(self, dataset: Optional[FTDataset] = None,
+              val_dataset: Optional[FTDataset] = None) -> int:
+        """Train until ``max_steps`` (or ``epochs`` or an early stop); returns
+        the last step. ``dataset`` defaults to ``FTDataset(data_path)``."""
+        tb = self.tcfg
+        if dataset is None:
+            dataset = FTDataset(tb.data_path, self.sr, tb.batch_size)
+        step = self.state.step
+        d = tb.ema_decay
+        t0 = time.time()
+        for epoch in range(tb.epochs):
+            # each batch's numpy generator derives from (seed, step), so
+            # prefetched batches abandoned by a stop cannot shift the stream
+            prep_step = iter(range(step, step + 10 ** 9))
+
+            def _prep(batch, _steps=prep_step):
+                s = next(_steps)
+                t = time.perf_counter()
+                feats = self.prepare_batch(batch, np.random.default_rng((tb.seed, s)))
+                return feats, time.perf_counter() - t
+
+            for feats, prep_s in prefetched(dataset.batches(shuffle=True, epoch=epoch), _prep,
+                                            depth=tb.prefetch):
+                before = (attention.LAUNCHES, attention.BWD_LAUNCHES,
+                          attention.DIT_ATTENTION_LAUNCHES)
+                self.state, metrics = self.step_fn(self.state, feats, (tb.seed, step))
+                step += 1
+                after = (attention.LAUNCHES, attention.BWD_LAUNCHES,
+                         attention.DIT_ATTENTION_LAUNCHES)
+                loss = metrics["loss"]
+                self.history.append({
+                    "step": step, "T": int(feats["mels"].shape[1]), "prep_s": prep_s,
+                    "end": time.perf_counter(), "loss": loss, "grad_norm": metrics["grad_norm"],
+                    **{k: a - b for k, a, b in zip(("k1", "k1b", "k3"), after, before)}})
+                self._ema_dev = (loss if self._ema_dev is None
+                                 else d * self._ema_dev + (1 - d) * loss)
+                if step % tb.log_interval == 0:
+                    self.ema_loss = float(self._ema_dev)
+                    print(f"step {step} loss {float(loss):.4f} ema {self.ema_loss:.4f} "
+                          f"gnorm {float(metrics['grad_norm']):.3f} "
+                          f"({(time.time() - t0) / tb.log_interval:.2f}s/step)", flush=True)
+                    t0 = time.time()
+                    if self.ema_loss < self.best_ema - 1e-4:
+                        self.best_ema = self.ema_loss
+                        self.plateau_count = 0
+                    else:
+                        self.plateau_count += 1
+                        if self.plateau_count >= tb.lr_halve_patience:
+                            self.halve_lr()
+                            self.plateau_count = 0
+                if val_dataset is not None and tb.validation_interval \
+                        and step % tb.validation_interval == 0:
+                    val_loss = self.validate(val_dataset)
+                    if val_loss < self.best_val_loss - 1e-4:
+                        self.best_val_loss = val_loss
+                        self.val_patience = 0
+                    else:
+                        self.val_patience += 1
+                    print(f"step {step} val_loss {val_loss:.4f} (best {self.best_val_loss:.4f}, "
+                          f"patience {self.val_patience})", flush=True)
+                    if self.val_patience >= tb.early_stop_patience:
+                        print("early stop: validation plateau", flush=True)
+                        return self._finish(step)
+                if step % tb.save_interval == 0:
+                    self.save(step)
+                if step >= tb.max_steps:
+                    return self._finish(step)
+        return self._finish(step)
+
+    def _finish(self, step: int) -> int:
+        if self._ema_dev is not None:
+            self.ema_loss = float(self._ema_dev)
+        self.save(step)
+        return step

@@ -25,6 +25,14 @@ The port's submodule names mirror the flax names (``layers_0``, ``wqkv``,
 Every parameter and buffer of the module must be filled, or this raises;
 BatchNorm's ``num_batches_tracked``, a training-time counter that holds no
 weight, is the one exception.
+
+:func:`to_jax_params` is the inverse walk: a port module's parameters (or
+any tensors named like them, such as their gradients) as a flax tree of
+numpy arrays, which ``load_jax_params`` and the JAX package load. A
+``weight`` becomes a Dense / Conv ``kernel``, an ``embedding``, a norm's
+``scale`` or stays ``weight`` (RMSNorm) by the module that holds it;
+transposed convolutions, whose flax name the port cannot tell
+(``ups_i_kernel`` or ``up_conv_i/kernel``), raise.
 """
 
 from __future__ import annotations
@@ -89,3 +97,52 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
     if missing:
         raise KeyError(f"parameters not in the tree: {missing[:8]}")
     return module
+
+
+_NORMS = (nn.GroupNorm, nn.LayerNorm, nn.modules.batchnorm._NormBase)
+_INVERSE_RENAME = {"running_mean": "mean", "running_var": "var"}
+
+
+def _to_flax(mod: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+    if isinstance(mod, (nn.ConvTranspose1d, nn.ConvTranspose2d)):
+        raise NotImplementedError("to_jax_params: transposed convolutions have no "
+                                  "single flax name")
+    if isinstance(mod, nn.GRU):
+        inverse = {v: k for k, v in _GRU.items()}
+        return inverse[name], arr.T
+    if name in _INVERSE_RENAME:
+        return _INVERSE_RENAME[name], arr
+    if name != "weight":
+        return name, arr
+    if isinstance(mod, (nn.Conv1d, nn.Conv2d)):
+        perm = (arr.ndim - 1, arr.ndim - 2, *range(arr.ndim - 2))
+        return "kernel", arr.transpose(np.argsort(perm))
+    if isinstance(mod, nn.Embedding):
+        return "embedding", arr
+    if isinstance(mod, _NORMS) or type(mod).__name__ == "MaskedGroupNorm":
+        return "scale", arr
+    if isinstance(mod, nn.Linear) or type(mod).__name__ == "SplitDense":
+        return "kernel", arr.T
+    return name, arr
+
+
+def to_jax_params(module: nn.Module, values: Mapping | None = None) -> dict:
+    """``module``'s parameters and buffers as a flax ``params`` tree of numpy
+    arrays (f32 copies), the inverse of :func:`load_jax_params`. ``values``
+    maps some of the module's parameter names (``named_parameters``) to
+    tensors to write in their place, e.g. their gradients; None writes the
+    parameters themselves."""
+    if values is None:
+        values = dict(module.named_parameters())
+        values.update((n, b) for n, b in module.named_buffers()
+                      if not n.endswith("num_batches_tracked"))
+    tree: dict = {}
+    for full, tensor in values.items():
+        *path, leaf = full.split(".")
+        mod = module.get_submodule(".".join(path))
+        name, arr = _to_flax(mod, leaf, tensor.detach().float().cpu().numpy())
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(arr)
+    return tree

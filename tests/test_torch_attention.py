@@ -222,18 +222,25 @@ def test_attention_branch_rule(monkeypatch, flash, n_kv, T, expect):
     """JAX's rule without its TPU check and without its Pallas tiling limit
     (T % 512 == 0; K1 and K3 mask keys >= T, so any T takes them): K1 with
     flash, heads not grouped and rope_full; K3 with flash otherwise; else
-    einsum. Also K3 when rope_full is not given (the microbench's call)."""
+    einsum. Also K3 when rope_full is not given (the microbench's call). In
+    grad mode the same branch runs through its autograd Function (K1ᵇ
+    backward)."""
     calls = []
-    monkeypatch.setattr(layers, "dit_attention_fused",
-                        lambda *a: calls.append("k1") or port.dit_attention_fused(*a))
-    monkeypatch.setattr(layers, "dit_attention",
-                        lambda *a: calls.append("k3") or port.dit_attention(*a))
+    for name, tag in (("dit_attention_fused", "k1"), ("dit_attention", "k3"),
+                      ("dit_attention_fused_diff", "k1_diff"), ("dit_attention_diff", "k3_diff")):
+        monkeypatch.setattr(layers, name, lambda *a, _f=getattr(port, name), _t=tag:
+                            calls.append(_t) or _f(*a))
     pm, _, args = _module_case(128, 2, n_kv, flash, T, None)
-    pm(*args)
+    with torch.no_grad():
+        pm(*args)
     assert calls == ([] if expect == "einsum" else [expect])
+    calls.clear()
+    pm(*args)
+    assert calls == ([] if expect == "einsum" else [expect + "_diff"])
     if expect == "k1":
         calls.clear()
-        pm(*args[:3])
+        with torch.no_grad():
+            pm(*args[:3])
         assert calls == ["k3"]
 
 

@@ -204,6 +204,95 @@ def test_attention_module_takes_kernel_at_ragged_T(monkeypatch, n_kv, counter, o
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
 
 
+def _rel_l2(out, ref):
+    return ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+@pytest.mark.parametrize("rope", [True, False], ids=["k1", "k3"])
+@pytest.mark.parametrize("T,lens", [(896, None), (777, (700, 0)), (2560, (2558, 1)),
+                                    (64, (1, 64)), (130, (300, 65))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_kernel_matches_twin(T, lens, dtype, rope):
+    """K1ᵇ (dq, dk, dv of K1 or K3) against autograd through the twin, on the
+    same CUDA inputs and the forward kernel's output. f32: relative L2 norm
+    2e-6 and max abs 5e-6 times the largest gradient (summation order only;
+    measured up to 3.4e-7 / 5.4e-7 on an H100); bf16: relative L2 5e-3
+    (measured 1.4e-3). Cases: the training path's T = 896, a ragged T
+    with a row whose keys are all masked (dv the mean of dO), K1's v2 shape
+    with one valid key, T of one tile, lens past T."""
+    q, k, v, g = (_randn(10 + s, 2, 8, T, 64).to(dtype) for s in range(4))
+    lens_t = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = attention.BWD_LAUNCHES
+    if rope:
+        cos, sin = (torch.from_numpy(a).cuda() for a in rope_full_cache(T, 64))
+        o = attention.dit_attention_fused(q, k, v, cos, sin, lens_t)
+        got = attention.dit_attention_fused_bwd(q, k, v, cos, sin, lens_t, o, g)
+        ref = attention.dit_attention_fused_bwd_reference(q, k, v, cos, sin, lens_t, g)
+    else:
+        o = attention.dit_attention(q, k, v, lens_t)
+        got = attention.dit_attention_bwd(q, k, v, lens_t, o, g)
+        ref = attention.dit_attention_bwd_reference(q, k, v, lens_t, g)
+    torch.cuda.synchronize()
+    assert attention.BWD_LAUNCHES == before + 1
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        if dtype == torch.float32:
+            assert _rel_l2(a, b) <= 2e-6, name
+            assert (a - b).abs().max().item() <= 5e-6 * b.abs().max().item(), name
+        else:
+            assert _rel_l2(a, b) <= 5e-3, name
+
+
+@pytest.mark.parametrize("n_kv", [None, 2], ids=["k1", "k3"])
+def test_attention_module_grad_on_card(n_kv):
+    """``Attention(use_flash=True)`` in grad mode on the card: one forward
+    launch (K1, or K3 with grouped heads) and one K1ᵇ launch, no twin; the
+    input's and every weight's gradient agree with the same module on the
+    CPU (the twins' autograd). f32, TF32 off: 1e-4 relative L2."""
+    from seedvc_tpu_torch.nn import layers
+
+    T, H, hd = 777, 8, 64
+    torch.manual_seed(0)
+    cpu = layers.Attention(H * hd, H, n_local_heads=n_kv, use_flash=True)
+    card = layers.Attention(H * hd, H, n_local_heads=n_kv, use_flash=True)
+    card.load_state_dict(cpu.state_dict())
+    card.cuda()
+    x = _randn(7, 2, T, H * hd)
+    w = _randn(8, 2, T, H * hd)
+    lens = torch.tensor([700, 300], dtype=torch.int32)
+    grads = []
+    for m, dev in ((card, "cuda"), (cpu, "cpu")):
+        xx = x.detach().to(dev).requires_grad_()
+        freqs = torch.from_numpy(layers.rope_cache(T, hd)).to(dev)
+        rope_full = None if n_kv else tuple(torch.from_numpy(a).to(dev)
+                                            for a in rope_full_cache(T, hd))
+        before = (attention.LAUNCHES, attention.DIT_ATTENTION_LAUNCHES, attention.BWD_LAUNCHES)
+        (m(xx, freqs, lens.to(dev), rope_full) * w.to(dev)).sum().backward()
+        after = (attention.LAUNCHES, attention.DIT_ATTENTION_LAUNCHES, attention.BWD_LAUNCHES)
+        launched = tuple(a - b for a, b in zip(after, before))
+        if dev == "cuda":
+            assert launched == ((1, 0, 1) if n_kv is None else (0, 1, 1))
+        else:
+            assert launched == (0, 0, 0)
+        grads.append([xx.grad] + [p.grad for p in m.parameters()])
+    for a, b in zip(*grads):
+        assert _rel_l2(a.cpu(), b) <= 1e-4
+
+
+def test_attention_bwd_raises_when_build_fails(monkeypatch):
+    """No fallback to the twin for K1ᵇ either."""
+    def broken(name):
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(attention, "load_library", broken)
+    x = torch.zeros((1, 1, 64, 64), device="cuda")
+    cs = torch.zeros((64, 64), device="cuda")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        attention.dit_attention_fused_bwd(x, x, x, cs, cs, None, x, x)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        attention.dit_attention_bwd(x, x, x, None, x, x)
+
+
 # K2 cases: the main path's largest and most frequent stage shapes, then the
 # kernel's corners: T % 4 != 0 (scalar loads and stores), T of one tile (1016
 # outputs, TT in anti_alias.cu) and one tile +- 1, two tiles + 1, T < 4 and

@@ -3,8 +3,9 @@
 - neither ``chip_smoke.py`` nor any module of ``seedvc_tpu_torch`` imports
   ``jax``, ``flax`` or ``seedvc_tpu`` (AST scan, so lazy imports count too);
 - ``VoiceConverter()``, ``SeedVCWrapper()``, ``StreamingConverter`` on a
-  default converter, ``VoiceConverterV2()``, the AR's ``ARGenerator``, and
-  the infer, infer_v2, realtime and stream_bench CLIs, given no device,
+  default converter, ``VoiceConverterV2()``, the AR's ``ARGenerator``, the
+  trainer, and the infer, infer_v2, realtime, stream_bench and train CLIs,
+  given no device,
   raise when CUDA is absent (``device="cpu"`` / ``--device cpu`` is
   the only way to the CPU);
 - the streaming path's SOLA loader never writes into ``native/`` (in
@@ -21,9 +22,11 @@ import pytest
 import torch
 
 from seedvc_tpu_torch.apps import infer, infer_v2, realtime, stream_bench
+from seedvc_tpu_torch.apps import train as train_app
 from seedvc_tpu_torch.models import ar
 from seedvc_tpu_torch.ops import anti_alias, attention, build
 from seedvc_tpu_torch.pipelines import convert, convert_v2, streaming, wrapper
+from seedvc_tpu_torch.train import trainer
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "seedvc_tpu")
@@ -64,8 +67,11 @@ def test_voice_converter_needs_cuda_by_default(monkeypatch):
     lambda: ar.ARGenerator(ar.ARTransformer(ar.ARConfig(dim=32, n_layer=1, n_head=4,
                                                         n_local_heads=2, head_dim=8,
                                                         intermediate_size=32, vocab_size=9))),
+    lambda: trainer.Trainer(convert.get_preset("whisper_small_wavenet"),
+                            trainer.TrainerConfig(run_dir="")),
+    lambda: train_app.main(["--dataset-dir", "d"]),
 ], ids=["converter_cuda", "wrapper", "wrapper_cuda0", "infer_cli", "streaming", "realtime_cli",
-        "stream_bench", "converter_v2", "infer_v2_cli", "ar_generator"])
+        "stream_bench", "converter_v2", "infer_v2_cli", "ar_generator", "trainer", "train_cli"])
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -96,6 +102,10 @@ def test_wrappers_refuse_other_devices():
         attention.dit_attention_fused(q, q, q, cs, cs)
     with pytest.raises(ValueError, match="unsupported device"):
         attention.dit_attention(q, q, q)
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention.dit_attention_fused_bwd(q, q, q, cs, cs, None, q, q)
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention.dit_attention_bwd(q, q, q, None, q, q)
     with pytest.raises(ValueError, match="unsupported device"):
         anti_alias.anti_alias_snake(torch.empty((1, 4, 16), device="meta"),
                                     torch.empty(4, device="meta"), torch.empty(4, device="meta"))

@@ -1,7 +1,8 @@
 """The port's microbench entry point (seedvc_tpu_torch/apps/microbench.py),
 every ported component at tiny sizes on the CPU: each prints one JSON row
 with the JAX package's keys, and the attention components take the branch
-they name. Times here are CPU times and are not read."""
+they name; the training components train through the K1 Function. Times here
+are CPU times and are not read."""
 
 import dataclasses
 import json
@@ -13,6 +14,7 @@ from seedvc_tpu_torch.apps import microbench as mb
 from seedvc_tpu_torch.core import config as c
 from seedvc_tpu_torch.models.ar import ARConfig
 from seedvc_tpu_torch.models.bigvgan import BigVGANConfig
+from seedvc_tpu_torch.models.whisper import WhisperEncoderConfig
 from seedvc_tpu_torch.nn import layers
 from seedvc_tpu_torch.ops import attention
 
@@ -28,6 +30,16 @@ def _tiny_cfg():
         wavenet=dataclasses.replace(mp.wavenet, hidden_dim=32, num_layers=2)))
 
 
+def _tiny_train_cfg():
+    """The tiny DiT with a 64-wide regulator, fed by a 64-wide Whisper."""
+    cfg = _tiny_cfg()
+    mp = cfg.model_params
+    return dataclasses.replace(cfg, model_params=dataclasses.replace(
+        mp, length_regulator=dataclasses.replace(mp.length_regulator, in_channels=64,
+                                                 channels=64)))
+
+
+TINY_WHISPER = WhisperEncoderConfig(d_model=64, n_layers=1, n_heads=4, ffn_dim=128)
 TINY_AR = ARConfig(dim=32, n_layer=2, n_head=4, n_local_heads=2, head_dim=8,
                    intermediate_size=64, vocab_size=33)
 TINY_VOC = BigVGANConfig(upsample_initial_channel=128, resblock_kernel_sizes=(3,),
@@ -47,6 +59,12 @@ CASES = {
     "serving_b2": (dict(T=512, n_steps=2, cfg=_tiny_cfg()), "audio_s_per_s"),
     "ar_decode": (dict(n_tokens=4, max_seq=64, cfg=TINY_AR), "tokens_per_s"),
     "ar_decode_b4": (dict(n_tokens=4, max_seq=64, cfg=TINY_AR), "tokens_per_s"),
+    "train_step": (dict(B=1, T=64, Ts=32, cfg=_tiny_train_cfg()), "steps_per_s"),
+    "train_step_bf16": (dict(B=1, T=64, Ts=32, cfg=_tiny_train_cfg()), "steps_per_s"),
+    "train_onfly": (dict(B=1, steps=1, cfg=_tiny_train_cfg(), whisper_cfg=TINY_WHISPER),
+                    "steps_per_s"),
+    "train_onfly_sync": (dict(B=1, steps=1, cfg=_tiny_train_cfg(), whisper_cfg=TINY_WHISPER),
+                         "steps_per_s"),
 }
 
 
@@ -81,12 +99,11 @@ def test_component_takes_its_attention_branch(monkeypatch, name, expect):
     assert calls == ([expect] * per_call * row["calls"] if expect else [])
 
 
-@pytest.mark.parametrize("name", ["train_step", "train_step_bf16", "train_onfly",
-                                  "train_onfly_sync"])
+@pytest.mark.parametrize("name", ["train_onfly_v2"])
 def test_waiting_components_raise(name):
-    """The training components wait for ROADMAP queue 1 item 3."""
+    """The v2 trainer's component waits for ROADMAP queue 1 item 3b."""
     assert name not in mb.ALL
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 3 \(training\)"):
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 3b"):
         mb.main(["--only", name])
 
 

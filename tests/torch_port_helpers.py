@@ -118,3 +118,178 @@ def jax_ar_draws(key, B, vocab, max_new_tokens):
 
     _, q = jax.jit(lambda k: jax.lax.scan(body, k, None, length=max_new_tokens))(key)
     return torch.from_numpy(np.array(q))
+
+
+def port_cfg(j):
+    """A JAX package config dataclass rebuilt, field for field, in the port's
+    ``seedvc_tpu_torch.core.config`` classes of the same names."""
+    import dataclasses
+
+    from seedvc_tpu_torch.core import config as pc
+
+    if not dataclasses.is_dataclass(j):
+        return j
+    cls = getattr(pc, type(j).__name__)
+    return cls(**{f.name: port_cfg(getattr(j, f.name)) for f in dataclasses.fields(j)})
+
+
+def jax_train_draws(key, B, T, n_mels, p, dtype=None):
+    """The draws the JAX v1 train step makes from its step key ``key``, as the
+    port's ``TrainDraws`` (torch tensors): ``split(key, 4)`` gives the
+    prompt, t, noise and drop keys (``train/step.py::loss_fn``); the prompt
+    key splits into the fraction and the zero mask (``models/vc.py``); t is
+    uniform, the noise normal in ``dtype`` (the step's compute dtype; f32
+    default) and the dropout mask Bernoulli(p), drawn only when p > 0
+    (``models/cfm.py``)."""
+    import jax.numpy as jnp
+
+    from seedvc_tpu_torch.models.vc import TrainDraws
+
+    keys = jax.random.split(key, 4)
+    key_len, key_zero = jax.random.split(keys[0])
+    frac = jax.random.uniform(key_len, (B,))
+    zero = jax.random.bernoulli(key_zero, 0.1, (B,))
+    t = jax.random.uniform(keys[1], (B,), dtype=jnp.float32)
+    noise = jax.random.normal(keys[2], (B, T, n_mels), dtype=dtype or jnp.float32)
+    drop = (jax.random.bernoulli(keys[3], p, (B,)).astype(jnp.float32) if p > 0 else None)
+
+    def tt(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    return TrainDraws(tt(frac), torch.from_numpy(np.array(zero)), tt(t), tt(noise),
+                      None if drop is None else tt(drop))
+
+
+# ---------------------------------------------------------------------------
+# the training slice's tiny config and batches
+
+B, T, T_S, N_MELS, S_DIM = 2, 48, 24, 80, 192
+
+
+def tiny_train_cfg(**over):
+    """A small whisper_small_wavenet: every branch of its DiT (U-ViT and long
+    skips, WaveNet head, flash attention) at 64 wide, 2 heads, depth 3.
+    ``reg=`` / ``dit=`` override regulator / DiT fields."""
+    from seedvc_tpu.core import config as jc
+
+    reg = dict(channels=32, is_discrete=False, in_channels=48, sampling_ratios=(1, 1))
+    dit = dict(hidden_dim=64, num_heads=2, depth=3, in_channels=N_MELS, content_dim=32,
+               final_layer_type="wavenet", long_skip_connection=True,
+               uvit_skip_connection=True, use_flash_attention=True)
+    reg.update(over.pop("reg", {}))
+    dit.update(over.pop("dit", {}))
+    mp = jc.ModelParams(length_regulator=jc.LengthRegulatorConfig(**reg),
+                        DiT=jc.DiTConfig(**dit),
+                        wavenet=jc.WavenetConfig(hidden_dim=32, num_layers=2))
+    return jc.SeedVCConfig(model_params=mp)
+
+
+def vc_tree(mp, seed=3):
+    """A random flax tree of the JAX ``VCModel`` of ``mp`` (numpy)."""
+    import jax.numpy as jnp
+
+    from seedvc_tpu.models.vc import VCModel as JVCModel
+
+    z = lambda *s: jnp.zeros(s)  # noqa: E731
+    key = jax.random.PRNGKey(0)
+    return jax_init(JVCModel(mp), z(1, 16, 48), z(1, 16, 48), z(1, 16, N_MELS),
+                    jnp.full((1,), 16, jnp.int32), z(1, S_DIM), seed=seed, deterministic=True,
+                    rngs_dict={"prompt": key, "t": key, "noise": key, "drop": key})
+
+
+def train_batch(seed=0, f0=False):
+    """A prepared training batch (numpy) at the tiny config's widths."""
+    rng = np.random.default_rng(seed)
+    b = {"s_alt": rng.standard_normal((B, T_S, 48)).astype(np.float32),
+         "s_ori": rng.standard_normal((B, T_S, 48)).astype(np.float32),
+         "mels": rng.standard_normal((B, T, N_MELS)).astype(np.float32) - 4.0,
+         "mel_lens": np.array([T, 37], np.int32),
+         "style": rng.standard_normal((B, S_DIM)).astype(np.float32),
+         "s_lens": np.array(21, np.int32)}
+    if f0:
+        b["f0"] = np.where(rng.random((B, 40)) < 0.3, 0.0,
+                           rng.uniform(80, 400, (B, 40))).astype(np.float32)
+        b["f0_lens"] = np.array(33, np.int32)
+    return b
+
+
+# ---------------------------------------------------------------------------
+# the trainer's parity tests (tests/test_torch_trainer*.py)
+
+def trainer_wav_dir(d):
+    """Four 1.0-1.4 s tones with noise and one too-short clip (which the
+    md5 rule replaces), at 22.05 kHz, written into ``d``."""
+    from seedvc_tpu.apps.audio_io import save_wav
+
+    SR = 22050
+    rng = np.random.default_rng(0)
+    for i in range(4):
+        t = np.arange(SR + i * 3000) / SR
+        wave = 0.3 * np.sin(2 * np.pi * (150 + 40 * i) * t) + 0.05 * rng.standard_normal(t.size)
+        save_wav(str(d / f"a{i}.wav"), wave.astype(np.float32), SR)
+    save_wav(str(d / "short.wav"), np.zeros(1000, np.float32), SR)  # replaced by the md5 rule
+    return str(d)
+
+
+TRAINER_WHISPER = dict(d_model=48, n_layers=1, n_heads=4, ffn_dim=96)
+
+
+def trainer_trees():
+    """(JAX config, flax trees of a 48-wide one-layer Whisper, CAMPPlus and
+    the tiny VCModel with an MLP head, no skips and depth 2: every DiT branch
+    is held by tests/test_torch_train_losses.py, and the JAX trainer's
+    compile time grows with each)."""
+    import jax.numpy as jnp
+
+    from seedvc_tpu.models.campplus import CAMPPlus as JCAMPPlus
+    from seedvc_tpu.models.whisper import WhisperEncoder as JWhisperEncoder
+    from seedvc_tpu.models.whisper import WhisperEncoderConfig as JWhisperEncoderConfig
+
+    z = lambda *s: jnp.zeros(s)  # noqa: E731
+    jcfg = tiny_train_cfg(dit=dict(depth=2, final_layer_type="mlp",
+                                   long_skip_connection=False, uvit_skip_connection=False))
+    return jcfg, dict(
+        whisper_params=jax_init(JWhisperEncoder(JWhisperEncoderConfig(**TRAINER_WHISPER)),
+                                z(1, 3000, 80), seed=1),
+        campplus_params=jax_init(JCAMPPlus(), z(1, 300, 80), seed=2),
+        vc_params=vc_tree(jcfg.model_params, seed=3))
+
+
+def _trainer_cfgs(wav_dir):
+    from seedvc_tpu.train.trainer import TrainerConfig as JTrainerConfig
+    from seedvc_tpu_torch.train.trainer import TrainerConfig
+
+    base = dict(data_path=wav_dir, run_dir="", batch_size=2, epochs=2, max_steps=2,
+                log_interval=1, save_interval=1000, mel_bucket=64, warmup_steps=1, base_lr=1e-3)
+    return JTrainerConfig(**base), TrainerConfig(**base)
+
+
+def jax_chain_draws(p):
+    """The port's ``draws_fn`` replaying the JAX loop's key schedule: from
+    ``PRNGKey(seed)``, ``key, sub = split(key)`` once a step."""
+    def draws_fn(key, shape, device):
+        seed, step = key
+        k = jax.random.PRNGKey(seed)
+        for _ in range(step + 1):
+            k, sub = jax.random.split(k)
+        return jax_train_draws(sub, *shape, p)
+
+    return draws_fn
+
+
+def trainer_pair(wav_dir):
+    """A JAX trainer (n_model=4 on the 8-device CPU mesh) and a port trainer
+    on the CPU, on the same trees and config; the port draws JAX's draws."""
+    from seedvc_tpu.models.whisper import WhisperEncoderConfig as JWhisperEncoderConfig
+    from seedvc_tpu.train.trainer import Trainer as JTrainer
+    from seedvc_tpu_torch.models.whisper import WhisperEncoderConfig
+    from seedvc_tpu_torch.train.trainer import Trainer
+
+    jcfg, params = trainer_trees()
+    jt, pt = _trainer_cfgs(wav_dir)
+    jtr = JTrainer(jcfg, jt, whisper_cfg=JWhisperEncoderConfig(**TRAINER_WHISPER), n_model=4,
+                   **params)
+    ptr = Trainer(port_cfg(jcfg), pt, whisper_cfg=WhisperEncoderConfig(**TRAINER_WHISPER),
+                  device="cpu", draws_fn=jax_chain_draws(jcfg.model_params.DiT.class_dropout_prob),
+                  **params)
+    return jtr, ptr
