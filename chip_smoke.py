@@ -7,7 +7,8 @@ failure exits non-zero:
 1. device: require CUDA, print the card's name and power limit;
 2. build: compile every CUDA kernel of the port from ``seedvc_tpu_torch/csrc``,
    print ptxas's register lines and each kernel's SASS instruction count and
-   commonest opcodes (``cuobjdump -sass``);
+   commonest opcodes (``cuobjdump -sass``); every f32 attention kernel must
+   run TF32 tensor-core instructions (``HMMA.1688.F32.TF32``);
 3. kernels: each kernel against its plain PyTorch twin, on the card, at the
    shapes of both conversion paths plus ragged ones, with the tolerance
    printed: K1's RoPE pre-pass bit for bit; K1 and K3 (one source, RoPE on
@@ -31,7 +32,11 @@ failure exits non-zero:
    K3 (RoPE off), against autograd through the twins in f32 and bf16 at
    (2, 8, T, 64), T = 896, 2560 and 777, lens None, a 0 entry, one valid key
    and partial, each with a planted fault (the last valid key tile dropped
-   from dk and dv);
+   from dk and dv), given the forward's log-sum-exp and (f32) computing the
+   statistics itself; a row with one valid key must get dq = dk = 0 exactly;
+   the f32 forward's log-sum-exp against the twin's; SDPA's own f32 error
+   against the twins printed beside the kernels' as a yardstick; and one
+   K1ᵇ call repeated (dq is summed by atomics);
 4. small: a small-config conversion on cuda (kernels) and on cpu (plain
    twins), f32, same weights and noise, compared; then the same config in
    bf16 (the main path's DiT precision) on cuda, kernels against the plain
@@ -111,13 +116,16 @@ failure exits non-zero:
    clock, power and temperature sampled by ``nvidia-smi`` beside the windows;
    and the training rows: K1 f32 and K1ᵇ f32 / bf16 at the training run's
    largest T and its commonest other T, against SDPA's forward and SDPA's
-   backward alone.
+   backward alone, the f32 bounds at 3xTF32 (3x the operations at the TF32
+   peak), with the share of the bound.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
 profiled warm conversion to phases 5, 6, 8 and 9 (a ``convert_timbre`` in
 9), one profiled block replay to phase 8 and one AR decode replay to phase 9
-(device time by kernel, idle share), one profiled train step to phase 10,
-and times two layout choices of the real-time path (:func:`rt_layout_ab`).
+(device time by kernel, idle share), one profiled train step to phase 10
+and the step's account at the training rows' two T (wall, device time, the
+share of K1 and K1ᵇ), and times two layout choices of the real-time path
+(:func:`rt_layout_ab`).
 """
 
 from __future__ import annotations
@@ -134,11 +142,15 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, fp32 outside
-# the tensor cores, HBM3 bandwidth.
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 and TF32 tensor cores, fp32
+# outside the tensor cores, HBM3 bandwidth. The f32 attention kernels do each
+# f32 product as three TF32 ones (3xTF32), so their bound is 3x the f32
+# operations at the TF32 peak (bound_3xtf32).
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+BOUND_3XTF32 = "3xTF32: 3x the f32 operations at the 495 TFLOP/s dense TF32 peak"
 
 # Main-path plan of a 30 s source with a 5 s reference (see plan_chunks);
 # the SVC path's plan is the same at 44.1 kHz, hop 512.
@@ -283,6 +295,12 @@ def bound(ops: float, peak_ops: float, nbytes: float) -> tuple[float, str]:
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
+def bound_3xtf32(ops: float, nbytes: float) -> tuple[float, str]:
+    """The bound of an f32 attention kernel: its f32 operations, each done
+    as three TF32 products on the tensor cores, at the TF32 peak."""
+    return bound(3 * ops, PEAK_TF32, nbytes)
+
+
 # ---------------------------------------------------------------------------
 def phase_device():
     import torch
@@ -311,16 +329,28 @@ def phase_build():
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "error", "Performance Loss")):
                 log(f"  ptxas[{name}]: {line.strip()}")
+    tf32_kernels = []
     for name in build.SOURCES:
         build.load_library(name)
-        for fn, (total, ops) in sass_summary(build.library_path(name)).items():
+        for fn, (total, ops, mma) in sass_summary(build.library_path(name)).items():
             top = ", ".join(f"{op} {n}" for op, n in ops.most_common(14))
-            log(f"  sass[{name}] {fn}: {total} instructions; {top}")
+            log(f"  sass[{name}] {fn}: {total} instructions; {top}; tensor-core ops {dict(mma)}")
+            if any(k in fn for k in F32_MMA_KERNELS):
+                tf32_kernels.append(fn)
+                if not any("TF32" in op for op in mma):
+                    fail(f"phase 2: {fn} runs no TF32 tensor-core instruction")
+    if tf32_kernels:
+        log(f"  sass: TF32 HMMA in every f32 attention kernel ({len(tf32_kernels)} kernels)")
+
+
+# the f32 attention kernels must run on the tensor cores (HMMA with TF32)
+F32_MMA_KERNELS = ("attn_fwd_tf32", "bwd_dkdv_kernel")
 
 
 def sass_summary(path) -> dict:
-    """{kernel: (instruction count, Counter of opcodes)} of a built library's
-    SASS (``cuobjdump -sass``); empty if cuobjdump is missing."""
+    """{kernel: (instruction count, Counter of opcodes, Counter of the
+    tensor-core opcodes in full, e.g. HMMA.1688.F32.TF32)} of a built
+    library's SASS (``cuobjdump -sass``); empty if cuobjdump is missing."""
     import collections
     import re
     import shutil
@@ -329,17 +359,20 @@ def sass_summary(path) -> dict:
     if not os.path.exists(tool):
         return {}
     text = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True).stdout
-    kernels, fn = {}, None
+    kernels, mma, fn = {}, {}, None
     for line in text.splitlines():
         head = re.match(r"\s*Function : (\S+)", line)
         if head:
             fn = head.group(1)
-            kernels[fn] = collections.Counter()
+            kernels[fn], mma[fn] = collections.Counter(), collections.Counter()
             continue
         ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if fn and ins:
-            kernels[fn][ins.group(1).split(".")[0]] += 1
-    return {f: (sum(c.values()), c) for f, c in kernels.items()}
+            op = ins.group(1)
+            kernels[fn][op.split(".")[0]] += 1
+            if op.split(".")[0] in ("HMMA", "HGMMA"):
+                mma[fn][op] += 1
+    return {f: (sum(c.values()), c, mma[f]) for f, c in kernels.items()}
 
 
 def _k1_inputs(T, dtype, lens, seed=0, heads=8):
@@ -395,7 +428,8 @@ def phase_kernels() -> dict:
                 heads = 8 if slot_heads == "v2" else slot_heads
                 q, k, v, cos, sin, lens_t = _k1_inputs(T, dtype, lens, heads=heads)
                 args = (q, k, v, cos, sin) if rope else (q, k, v)
-                out = kernel(*args, lens_t)
+                f32 = dtype == torch.float32
+                out, lse = kernel(*args, lens_t, return_lse=True)
                 ref = twin(*args, lens_t)
                 # planted fault: the twin with the last valid key tile dropped
                 n_valid = lens_t if lens_t is not None else torch.full(
@@ -411,6 +445,8 @@ def phase_kernels() -> dict:
                     fail(f"{what}: kernel disagrees with its plain twin")
                 if f_err <= atol and f_rel <= rtol:
                     fail(f"{what}: the limit passes a planted fault")
+                if f32:
+                    lse_check(what, q, k, v, cos, sin, lens_t, lse, ref, rope)
                 if dtype == torch.bfloat16:
                     slot = key + ("_v2" if slot_heads == "v2" else slots[heads])
                     errs[slot] = max(errs[slot], err)
@@ -441,6 +477,47 @@ def phase_kernels() -> dict:
     return errs
 
 
+# The f32 kernel's row log-sum-exp (kept for K1ᵇ) against the plain one of
+# the twin's logits: 1e-5 of max(1, |lse|) (logits from 3xTF32 products,
+# exp2 and log in f32; with one valid key lse is that key's logit, which can
+# lie near 0); -1e30 where no key is valid.
+LSE_RTOL = 1e-5
+
+
+def masked_sdpa_inputs(q, k, cos, sin, lens, rope: bool):
+    """q, k as SDPA takes them (roped for K1) and the twin's mask as an
+    additive -1e30 bias (B, 1, 1, T), or None."""
+    import torch
+
+    from seedvc_tpu_torch.ops import attention
+
+    if rope:
+        q, k = (attention.rope_scaled_reference(x, cos, sin) for x in (q, k))
+    if lens is None:
+        return q, k, None
+    T = q.shape[2]
+    keep = torch.arange(T, device=q.device)[None, :] < lens[:, None]
+    bias = torch.zeros(keep.shape, dtype=q.dtype, device=q.device).masked_fill(~keep, -1e30)
+    return q, k, bias[:, None, None, :]
+
+
+def lse_check(what, q, k, v, cos, sin, lens, lse, ref, rope: bool):
+    """The f32 kernel's log-sum-exp against the twin's; SDPA's own f32 error
+    against the twin (ref) is printed beside it, as a yardstick."""
+    import torch.nn.functional as F
+
+    from seedvc_tpu_torch.ops import attention
+
+    qr, kr, bias = masked_sdpa_inputs(q, k, cos, sin, lens, rope)
+    lse_ref = attention.dit_attention_lse_reference(qr, kr, lens)
+    lse_err = ((lse - lse_ref).abs() / lse_ref.abs().clamp(min=1.0)).max().item()
+    s_err, s_rel = k1_errors(F.scaled_dot_product_attention(qr, kr, v, attn_mask=bias), ref)
+    log(f"{what}: lse rel err {lse_err:.3e} tol {LSE_RTOL:g}; yardstick: SDPA f32 against "
+        f"the twin max_abs_err {s_err:.3e}, rel_l2 {s_rel:.3e}")
+    if not lse_err <= LSE_RTOL:
+        fail(f"{what}: the kernel's log-sum-exp disagrees with the twin's")
+
+
 def bwd_errors(got, ref) -> tuple[float, float]:
     """(relative L2 norm, max abs error over the reference's max abs) of a
     (dq, dk, dv) triple, the worst of the three."""
@@ -453,11 +530,25 @@ def bwd_errors(got, ref) -> tuple[float, float]:
 
 def phase_kernels_bwd() -> dict:
     """K1ᵇ (RoPE on: K1's backward; off: K3's) against autograd through the
-    twins at K1B_CASES, f32 and bf16, each with its planted fault. Returns
-    the worst relative L2 and max abs error by dtype."""
+    twins at K1B_CASES, f32 and bf16, each with its planted fault: given the
+    forward's log-sum-exp, as the autograd Functions call it, and (f32)
+    computing the statistics itself. A batch row with one valid key must
+    have dq = dk = 0 and dv = 0 past key 0 exactly. SDPA's own backward
+    error against the twin is printed beside K3's f32 cases as a yardstick,
+    and one case runs twice: dq is summed by atomics. Returns the worst
+    relative L2 and max abs error by dtype."""
     import torch
+    import torch.nn.functional as F
 
     from seedvc_tpu_torch.ops import attention
+
+    def run(rope, q, k, v, cos, sin, lens_t, g, with_lse=True):
+        if rope:
+            o, lse = attention.dit_attention_fused(q, k, v, cos, sin, lens_t, return_lse=True)
+            return attention.dit_attention_fused_bwd(q, k, v, cos, sin, lens_t, o, g,
+                                                     lse if with_lse else None)
+        o, lse = attention.dit_attention(q, k, v, lens_t, return_lse=True)
+        return attention.dit_attention_bwd(q, k, v, lens_t, o, g, lse if with_lse else None)
 
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -470,34 +561,59 @@ def phase_kernels_bwd() -> dict:
                 g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(T),
                                 device="cuda").to(dtype)
                 if rope:
-                    o = attention.dit_attention_fused(q, k, v, cos, sin, lens_t)
-                    got = attention.dit_attention_fused_bwd(q, k, v, cos, sin, lens_t, o, g)
                     ref = attention.dit_attention_fused_bwd_reference(q, k, v, cos, sin, lens_t, g)
                 else:
-                    o = attention.dit_attention(q, k, v, lens_t)
-                    got = attention.dit_attention_bwd(q, k, v, lens_t, o, g)
                     ref = attention.dit_attention_bwd_reference(q, k, v, lens_t, g)
-                torch.cuda.synchronize()
                 # planted fault: the last valid key tile dropped from dk and dv
                 bad = [t.clone() for t in ref]
                 for b in range(q.shape[0]):
                     n = T if lens is None or lens[b] <= 0 else min(lens[b], T)
                     for t in bad[1:]:
                         t[b, :, max(n - K1_FAULT_KEYS, 0):n] = 0
-                rel, mx = bwd_errors(got, ref)
                 f_rel, f_mx = bwd_errors(bad, ref)
-                abs_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
-                ok = rel <= rel_tol and (max_tol is None or mx <= max_tol)
-                fault_ok = f_rel <= rel_tol and (max_tol is None or f_mx <= max_tol)
                 what = f"K1b {'K1' if rope else 'K3'} {tuple(q.shape)} {name} lens={lens}"
-                log(f"{what}: rel_l2 {rel:.3e} tol {rel_tol:g}, max_abs/max|ref| {mx:.3e} "
-                    f"tol {max_tol}; planted fault rel_l2 {f_rel:.3e} max {f_mx:.3e}")
-                if not ok:
-                    fail(f"{what}: K1b disagrees with autograd through the twin")
-                if fault_ok:
+                if f_rel <= rel_tol and (max_tol is None or f_mx <= max_tol):
                     fail(f"{what}: the limit passes a planted fault")
-                worst = [max(worst[0], rel), max(worst[1], mx), max(worst[2], abs_err)]
+                calls = ([("lse", True), ("own stats", False)] if dtype == torch.float32
+                         else [("own stats: the bf16 core writes no lse", True)])
+                for how, with_lse in calls:
+                    got = run(rope, q, k, v, cos, sin, lens_t, g, with_lse)
+                    torch.cuda.synchronize()
+                    rel, mx = bwd_errors(got, ref)
+                    abs_err = max((a.float() - b.float()).abs().max().item()
+                                  for a, b in zip(got, ref))
+                    log(f"{what} ({how}): rel_l2 {rel:.3e} tol {rel_tol:g}, max_abs/max|ref| "
+                        f"{mx:.3e} tol {max_tol}; planted fault rel_l2 {f_rel:.3e} max {f_mx:.3e}")
+                    if not (rel <= rel_tol and (max_tol is None or mx <= max_tol)):
+                        fail(f"{what} ({how}): K1b disagrees with autograd through the twin")
+                    for b in range(q.shape[0]):
+                        if lens is not None and lens[b] == 1 and (
+                                got[0][b].any() or got[1][b].any() or got[2][b, :, 1:].any()):
+                            fail(f"{what} ({how}): batch row {b} has one valid key, but dq, dk "
+                                 "or dv past key 0 is not exactly 0")
+                    worst = [max(worst[0], rel), max(worst[1], mx), max(worst[2], abs_err)]
+                if dtype == torch.float32 and not rope and not (lens and min(lens) <= 0):
+                    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                    _, _, bias = masked_sdpa_inputs(q, k, None, None, lens_t, False)
+                    lib = torch.autograd.grad(
+                        F.scaled_dot_product_attention(*leaves, attn_mask=bias), leaves, g)
+                    s_rel, s_mx = bwd_errors(lib, ref)
+                    log(f"{what}: yardstick: SDPA's f32 backward against the twin rel_l2 "
+                        f"{s_rel:.3e}, max_abs/max|ref| {s_mx:.3e}")
         errs[name] = worst
+    # dq is added up by atomics: the same call twice
+    q, k, v, cos, sin, _ = _k1_inputs(2560, torch.float32, None, seed=99)
+    g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(99),
+                    device="cuda")
+    first, second = (run(True, q, k, v, cos, sin, None, g) for _ in range(2))
+    torch.cuda.synchronize()
+    dq_diff = (first[0] - second[0]).abs().max().item()
+    same_kv = torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    log(f"K1b atomics repeat (2, 8, 2560, 64) f32: dq max abs difference {dq_diff:.3e} "
+        f"(rel_l2 {((first[0] - second[0]).norm() / first[0].norm()).item():.3e}), "
+        f"dk and dv bit for bit: {same_kv}")
+    if not same_kv or dq_diff > 1e-6 * first[0].abs().max().item():
+        fail("K1b: two runs on the same inputs differ beyond dq's atomic order")
     return errs
 
 
@@ -763,9 +879,8 @@ def phase_full(card: str, profile: bool = False) -> dict:
     return result
 
 
-PORT_KERNELS = ("attn_core_kernel", "rope_prepass", "attn_fwd_kernel", "bwd_prep_kernel",
-                "bwd_dq_kernel", "bwd_dkdv_kernel", "bwd_finish_kernel",
-                "anti_alias_snake_kernel")
+PORT_KERNELS = ("attn_core_kernel", "rope_prepass", "attn_fwd_tf32", "bwd_prep_kernel",
+                "bwd_dkdv_kernel", "bwd_finish_kernel", "anti_alias_snake_kernel")
 
 
 def profile_conversion(run, warm_wall: float):
@@ -1957,6 +2072,23 @@ def phase_train(card: str, profile: bool = False) -> dict:
             result["fixed"] = {"T": T, "step_wall_s": fixed_wall}
             if profile:
                 profile_conversion(lambda: step(state, feats, 0), fixed_wall)
+                # the step at the training rows' two T: wall, device time and
+                # the share of K1 and K1ᵇ
+                shapes = train_shapes(result)
+                ds = FTDataset(data, sr, 2)
+                # the run's own batches (an epoch drops the odd clip out)
+                for batch in (b for e in range(4) for b in ds.batches(epoch=e)):
+                    if not shapes:
+                        break
+                    feats = trainer.prepare_batch(batch, np.random.default_rng(0), cache=False)
+                    B, T = feats["mels"].shape[:2]
+                    if T not in shapes:
+                        continue
+                    shapes.remove(T)
+                    fixed = draw_train(torch.Generator(device="cuda").manual_seed(5), B, T, 80,
+                                       model.mp.DiT.class_dropout_prob, device="cuda")
+                    step = make_train_step(model, opt, draws_fn=lambda *_a, d=fixed: d)
+                    result[f"step_T{T}"] = train_step_account(step, state, feats, B, T, card)
 
             # the export converts on the card
             with open(os.path.join(export, "vc.pkl"), "rb") as f:
@@ -1975,12 +2107,62 @@ def phase_train(card: str, profile: bool = False) -> dict:
     return result
 
 
+def train_shapes(train: dict) -> list:
+    """The training run's largest T and its commonest other T (the smaller
+    on a tie): the shapes of the training rows and of the step account."""
+    import collections
+
+    t_counts = collections.Counter(train["train f32"]["T"])
+    rest = sorted(t for t in t_counts if t != max(t_counts))
+    return sorted({max(t_counts)} | ({max(rest, key=lambda t: (t_counts[t], -t))}
+                                     if rest else set()))
+
+
+def train_step_account(step, state, feats, B: int, T: int, card: str) -> dict:
+    """One f32 train step on a fixed batch at mel length T: its synchronised
+    wall (median of 5 after 2 warm-ups) and, from one profiled step, the
+    device time and the share of it that K1 (RoPE pre-pass and core) and
+    K1ᵇ (its four kernels) take."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    walls = []
+    for i in range(7):
+        t0 = time.perf_counter()
+        float(step(state, feats, i)[1]["loss"])  # reads the device: a synchronised step
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls[2:]))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, feats, 0)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def ms(names):
+        return sum(e.self_device_time_total for e in kernels
+                   if any(n in e.key for n in names)) / 1e3
+
+    k1 = ms(("attn_fwd_tf32", "rope_prepass_f32"))
+    k1b = ms(("bwd_prep_kernel", "bwd_dkdv_kernel", "bwd_finish_kernel"))
+    log(f"train step account (B={B}, T={T}, f32): wall {wall:.4f} s (median of 5), device "
+        f"{busy:.2f} ms (idle {1 - busy / 1e3 / wall:.3f}); K1 {k1:.2f} ms ({k1 / busy:.1%}), "
+        f"K1b {k1b:.2f} ms ({k1b / busy:.1%}), both {(k1 + k1b) / busy:.1%} of device time; "
+        f"{card}")
+    return {"wall_s": wall, "device_ms": busy, "k1_ms": k1, "k1b_ms": k1b}
+
+
 def train_rows(train: dict, card: str) -> list:
     """The kernels line's training rows: K1 f32 and K1ᵇ f32 / bf16 at the T
     the f32 run used most and at its largest T, q/k/v (2, 8, T, 64) with
     every key valid; launches at that T in the f32 run (K1ᵇ bf16 is on no
     training path: bf16 compute runs attention in f32, as the JAX step's
-    type promotion does). Library: SDPA forward, and SDPA's backward alone
+    type promotion does). K1 is timed writing the log-sum-exp and K1ᵇ given
+    it, as the autograd Functions call them (K1ᵇ computing the statistics
+    itself is timed and printed too). The f32 bounds are at 3xTF32, bf16 at
+    the bf16 peak. Library: SDPA forward, and SDPA's backward alone
     (autograd.grad through a retained graph)."""
     import collections
 
@@ -1991,12 +2173,8 @@ def train_rows(train: dict, card: str) -> list:
     from seedvc_tpu_torch.ops import attention
 
     t_counts = collections.Counter(train["train f32"]["T"])
-    # the largest T, and the commonest other one (the smaller on a tie)
-    rest = sorted(t for t in t_counts if t != max(t_counts))
-    shapes = sorted({max(t_counts)} | ({max(rest, key=lambda t: (t_counts[t], -t))}
-                                        if rest else set()))
     rows = []
-    for T in shapes:
+    for T in train_shapes(train):
         launches = TRAIN_DEPTH * t_counts[T]
         for dtype, kernel in ((torch.float32, "fwd"), (torch.float32, "bwd"),
                               (torch.bfloat16, "bwd")):
@@ -2007,25 +2185,30 @@ def train_rows(train: dict, card: str) -> list:
             qr = attention.rope_scaled_reference(q, cos, sin)
             kr = attention.rope_scaled_reference(k, cos, sin)
             size = q.element_size()
+            f32 = dtype == torch.float32
+            own = None
             if kernel == "fwd":
                 out = attention.dit_attention_fused(q, k, v, cos, sin)
                 err = (out - attention.dit_attention_fused_reference(q, k, v, cos, sin)
                        ).abs().max().item()
-                ms = cuda_time_ms(lambda: attention.dit_attention_fused(q, k, v, cos, sin))
+                ms = cuda_time_ms(lambda: attention.dit_attention_fused(q, k, v, cos, sin,
+                                                                        return_lse=True))
                 plain = cuda_time_ms(lambda: attention.dit_attention_fused_reference(
                     q, k, v, cos, sin), iters=5)
                 lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v))
-                b_ms, b_by = bound(4.0 * B * H * T * T * d, PEAK_F32,
-                                   4 * B * H * T * d * size + 2 * T * d * 4)
+                b_ms, b_by = bound_3xtf32(4.0 * B * H * T * T * d,
+                                          4 * B * H * T * d * size + 2 * T * d * 4 + B * H * T * 4)
                 name, n, replaces = ("dit_attention_fused", launches,
                                      "seedvc_tpu/ops/pallas/attention.py:171")
                 source = "seedvc_tpu_torch/csrc/attention.cu"
             else:
-                o = attention.dit_attention_fused(q, k, v, cos, sin)
-                got = attention.dit_attention_fused_bwd(q, k, v, cos, sin, None, o, g)
+                o, lse = attention.dit_attention_fused(q, k, v, cos, sin, return_lse=True)
+                got = attention.dit_attention_fused_bwd(q, k, v, cos, sin, None, o, g, lse)
                 ref = attention.dit_attention_fused_bwd_reference(q, k, v, cos, sin, None, g)
                 err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
                 ms = cuda_time_ms(lambda: attention.dit_attention_fused_bwd(
+                    q, k, v, cos, sin, None, o, g, lse), iters=10)
+                own = cuda_time_ms(lambda: attention.dit_attention_fused_bwd(
                     q, k, v, cos, sin, None, o, g), iters=10)
                 plain = cuda_time_ms(lambda: attention.dit_attention_fused_bwd_reference(
                     q, k, v, cos, sin, None, g), iters=3)
@@ -2033,24 +2216,31 @@ def train_rows(train: dict, card: str) -> list:
                 lib_out = F.scaled_dot_product_attention(*leaves)
                 lib = cuda_time_ms(lambda: torch.autograd.grad(lib_out, leaves, g,
                                                                retain_graph=True), iters=10)
-                peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
-                b_ms, b_by = bound(10.0 * B * H * T * T * d, peak,
-                                   8 * B * H * T * d * size + 2 * T * d * 4)
+                ops, nbytes = 10.0 * B * H * T * T * d, 8 * B * H * T * d * size + 2 * T * d * 4
+                b_ms, b_by = (bound_3xtf32(ops, nbytes + (B * H * T * 4 if f32 else 0)) if f32
+                              else bound(ops, PEAK_BF16, nbytes))
                 name = "dit_attention_bwd"
                 n = launches if dtype == torch.float32 else 0
                 replaces = ("no Pallas kernel: the XLA recompute bwd of _fused_diff / "
                             "_plain_diff, seedvc_tpu/ops/pallas/attention.py:326-335, :353-362")
                 source = "seedvc_tpu_torch/csrc/attention_bwd.cu"
             dt = str(dtype).split(".")[1]
-            log(f"{name} ({kernel}) q/k/v {tuple(q.shape)} {dt}: kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share "
+            rate = BOUND_3XTF32 if f32 else "the 989 TFLOP/s dense bf16 peak"
+            log(f"{name} ({kernel}) q/k/v {tuple(q.shape)} {dt}: kernel {ms:.4f} ms"
+                + ("" if own is None else f" (computing its own statistics {own:.4f} ms)")
+                + f", plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}"
+                f"{' (3xTF32)' if f32 and b_by == 'operations' else ''}), share "
                 f"{b_ms / ms:.3f}, max_abs_err {err:.3e}; {card}")
-            rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                         "path": ("v1 fine-tuning (apps.train, f32)" if n
-                                  else "none on the training path (phase 3 only)"),
-                         "shape": f"q/k/v {tuple(q.shape)} {dt}, lens None",
-                         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib, "card": card})
+            row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                   "path": ("v1 fine-tuning (apps.train, f32)" if n
+                            else "none on the training path (phase 3 only)"),
+                   "shape": f"q/k/v {tuple(q.shape)} {dt}, lens None",
+                   "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                   "bound_ms": b_ms, "bound_by": b_by, "bound_rate": rate,
+                   "share": b_ms / ms, "library_ms": lib, "card": card}
+            if own is not None:
+                row["ms_own_statistics"] = own
+            rows.append(row)
     return rows
 
 

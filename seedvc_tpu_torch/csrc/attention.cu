@@ -1,5 +1,6 @@
 // DiT attention for Hopper (sm_90a): K1 (RoPE in the call) and K3 (q/k
-// arrive roped) share one bf16 attention core; an fp32 kernel serves tests.
+// arrive roped) share one bf16 attention core (every serving path) and one
+// f32 core on 3xTF32 tensor-core products (the fine-tuning path).
 //
 // What it replaces. K1, dit_attention_fused_bf16, replaces the TPU kernel
 // seedvc_tpu/ops/pallas/attention.py::dit_attention_fused (body
@@ -15,7 +16,10 @@
 // What bounds them on an H100: operations. 4*B*H*T*n*d products (n the keys
 // that count) against 8*B*H*T*d bytes of q/k/v/o: 17.2 GFLOP against 8.4 MB at
 // the main path's (2, 8, 2048, 64), far above the card's 295 operations per
-// byte, so the core belongs on wgmma, the only route to the 989 TFLOP/s.
+// byte, so the bf16 core belongs on wgmma, the only route to the 989 TFLOP/s.
+// In f32 each product is three TF32 products (3xTF32, attention_tf32.cuh):
+// the bound is 3x the operations at the 495 TFLOP/s TF32 peak (0.0199 ms at
+// the fine-tuning path's (2, 8, 896, 64), 0.163 ms at T = 2560).
 //
 // Design of the bf16 path.
 // 1. RoPE once per call (K1 only): rope_prepass_kernel reads pre-RoPE q/k and
@@ -58,162 +62,30 @@
 //    reaching cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the
 //    library needs no -lcuda.
 //
-// The fp32 kernel (tests and parity runs, not the main path) keeps scalar fp32
-// FMAs: 256 threads, each owning a 4x4 patch of the 64x64 logit and output
-// tiles (rows ty + 16*i, columns tx + 16*j), RoPE applied as tiles are loaded.
+// The f32 path (K1 and K3 in f32; the fine-tuning path, whose DiT trunk
+// attention runs in f32 as the JAX step's type promotion gives it):
+// 1. K1's RoPE once per call: rope_prepass_f32_kernel writes roped q times
+//    2^-3 and roped k in f32 into scratch the wrapper allocates, each product
+//    and the sum rounded on their own, as the plain twin rounds them.
+// 2. The core, tf32::attn_fwd_tf32 (attention_tf32.cuh): 4 warps of 16 query
+//    rows a block; Q's fragments split into TF32 hi/lo once; K and V tiles of
+//    64 keys through a 2-stage cp.async ring; S = Q.K^T and O += P.V as
+//    3xTF32 mma.sync.m16n8k8 with P fed from the S accumulators; an online
+//    softmax in f32; key tiles past the valid keys skipped as in the bf16
+//    core. It writes the row log-sum-exp when the caller passes a buffer
+//    (the autograd Functions keep it for K1b).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_tf32.cuh"
+
 namespace {
 
 constexpr int D = 64;
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
-constexpr int LD = D + 1;  // padded row stride of the shared tiles
 constexpr float NEG = -1e30f;
-constexpr size_t SMEM_BYTES = sizeof(float) * (BQ * LD + BK * LD + BK * D + BQ * LD);
-
-template <bool ROPE>
-__global__ void __launch_bounds__(NT)
-attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ cosb,
-                const float* __restrict__ sinb, const int* __restrict__ lens,
-                float* __restrict__ out, int H, int T_len, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;            // [BQ][LD] (roped,) scaled q
-  float* Ks = Qs + BQ * LD;    // [BK][LD] (roped) k
-  float* Vs = Ks + BK * LD;    // [BK][D]
-  float* Ps = Vs + BK * D;     // [BQ][LD] probabilities of this key tile
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int q0 = blockIdx.x * BQ;
-  const size_t base = (size_t)bh * T_len * D;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int n_valid = lens ? lens[b] : T_len;
-
-  for (int idx = tid; idx < BQ * D; idx += NT) {
-    const int r = idx / D, dd = idx % D, t = q0 + r;
-    float val = 0.f;
-    if (t < T_len) {
-      const float* row = q + base + (size_t)t * D;
-      if constexpr (ROPE)
-        val = (row[dd] * cosb[t * D + dd] + row[dd ^ 1] * sinb[t * D + dd]) * scale;
-      else
-        val = row[dd] * scale;
-    }
-    Qs[r * LD + dd] = val;
-  }
-
-  float m_i[4], l_i[4], o[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = NEG;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-  }
-
-  const int n_tiles = (T_len + BK - 1) / BK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's Ks/Vs/Ps are no longer read
-    for (int idx = tid; idx < BK * D; idx += NT) {
-      const int c = idx / D, dd = idx % D, t = k0 + c;
-      float kval = 0.f, vval = 0.f;
-      if (t < T_len) {
-        const float* row = k + base + (size_t)t * D;
-        if constexpr (ROPE)
-          kval = row[dd] * cosb[t * D + dd] + row[dd ^ 1] * sinb[t * D + dd];
-        else
-          kval = row[dd];
-        vval = v[base + (size_t)t * D + dd];
-      }
-      Ks[c * LD + dd] = kval;
-      Vs[c * D + dd] = vval;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int dd = 0; dd < D; ++dd) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty + 16 * i) * LD + dd];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * LD + dd];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tmax = NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx + 16 * j;
-        if (c >= n_valid) s[i][j] += NEG;  // key-padding bias, as the TPU kernel adds it
-        if (c < T_len) tmax = fmaxf(tmax, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_new = fmaxf(m_i[i], tmax);
-      const float alpha = expf(m_i[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx + 16 * j;
-        const float p = c < T_len ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty + 16 * i) * LD + tx + 16 * j] = p;
-        psum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l_i[i] = l_i[i] * alpha + psum;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) o[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int c = 0; c < BK; ++c) {
-      float pa[4], vb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = Ps[(ty + 16 * i) * LD + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) vb[j] = Vs[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = fmaf(pa[i], vb[j], o[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= T_len) continue;
-    const float inv = 1.f / l_i[i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[base + (size_t)t * D + tx + 16 * j] = o[i][j] * inv;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 path: RoPE pre-pass, then the warp-specialised wgmma/TMA core.
@@ -719,18 +591,49 @@ int launch_prepass(const void* q, const void* k, const float* cosb, const float*
   return (int)cudaGetLastError();
 }
 
-bool f32_smem_set[2][MAX_DEVICES];
+// f32 RoPE pre-pass: one thread per 4 features of one row of q and of k;
+// roped q times 2^-3 to qo, roped k to ko, each product and the sum rounded on
+// their own (the plain twin's separate tensor ops), so the f32 core reads the
+// twin's roped q (times 2^-3, exact) and k bit for bit.
+__global__ void __launch_bounds__(256)
+rope_prepass_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ cosb, const float* __restrict__ sinb,
+                        float* __restrict__ qo, float* __restrict__ ko, int T_len,
+                        long long n_chunks) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n_chunks;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long row = i >> 4;
+    const int d0 = (int)(i & 15) * 4;
+    const size_t cs = (size_t)(row % T_len) * D + d0;
+    const float4 c4 = *reinterpret_cast<const float4*>(cosb + cs);
+    const float4 s4 = *reinterpret_cast<const float4*>(sinb + cs);
+    const float cv[4] = {c4.x, c4.y, c4.z, c4.w}, sv[4] = {s4.x, s4.y, s4.z, s4.w};
+    const float* src[2] = {q, k};
+    float* dst[2] = {qo, ko};
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      const float4 x4 = *reinterpret_cast<const float4*>(src[w] + row * D + d0);
+      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+      const float scale = w == 0 ? 0.125f /* 1/sqrt(64) */ : 1.f;
+      float y[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        y[j] = __fmul_rn(__fadd_rn(__fmul_rn(x[j], cv[j]), __fmul_rn(x[j ^ 1], sv[j])), scale);
+      *reinterpret_cast<float4*>(dst[w] + row * D + d0) = make_float4(y[0], y[1], y[2], y[3]);
+    }
+  }
+}
 
-template <bool ROPE>
-int launch_f32(const void* q, const void* k, const void* v, const float* cosb,
-               const float* sinb, const int* lens, void* out, int B, int H, int T_len,
-               void* stream) {
-  const int err = set_smem_once(attn_fwd_kernel<ROPE>, (int)SMEM_BYTES, f32_smem_set[ROPE]);
+bool f32_smem_set[MAX_DEVICES];
+
+int launch_f32(const float* q, const float* k, const float* v, const int* lens, float* out,
+               float* lse, int B, int H, int T_len, float scale, void* stream) {
+  const int bytes = tf32::fwd_smem_bytes(true);
+  const int err = set_smem_once(tf32::attn_fwd_tf32<true, false>, bytes, f32_smem_set);
   if (err) return err;
-  dim3 grid((T_len + BQ - 1) / BQ, B * H);
-  attn_fwd_kernel<ROPE><<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, cosb, sinb, lens, (float*)out, H, T_len,
-      0.125f /* 1/sqrt(64) */);
+  dim3 grid((T_len + tf32::BT - 1) / tf32::BT, B * H);
+  tf32::attn_fwd_tf32<true, false><<<grid, tf32::THREADS, bytes, (cudaStream_t)stream>>>(
+      q, k, v, lens, out, lse, H, T_len, scale);
   return (int)cudaGetLastError();
 }
 
@@ -757,10 +660,22 @@ extern "C" int dit_attention_fused_bf16(const void* q, const void* k, const void
   return launch_core(qr, kr, v, lens, out, B, H, T_len, 1.f, stream);
 }
 
+// K1 in f32: scratch holds 2*B*H*T*64 floats for the roped q (times 2^-3)
+// and k; lse, if not null, receives the (B*H, T) row log-sum-exp.
 extern "C" int dit_attention_fused_f32(const void* q, const void* k, const void* v,
                                        const float* cosb, const float* sinb, const int* lens,
-                                       void* out, int B, int H, int T_len, void* stream) {
-  return launch_f32<true>(q, k, v, cosb, sinb, lens, out, B, H, T_len, stream);
+                                       void* out, void* lse, void* scratch, int B, int H,
+                                       int T_len, void* stream) {
+  float* qr = (float*)scratch;
+  float* kr = qr + (size_t)B * H * T_len * D;
+  const long long n_chunks = (long long)B * H * T_len * (D / 4);
+  const int blocks = (int)((n_chunks + 255) / 256 < 8192 ? (n_chunks + 255) / 256 : 8192);
+  rope_prepass_f32_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, cosb, sinb, qr, kr, T_len, n_chunks);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  return launch_f32(qr, kr, (const float*)v, lens, (float*)out, (float*)lse, B, H, T_len, 1.f,
+                    stream);
 }
 
 // K3: q/k already roped; no cos/sin.
@@ -770,6 +685,7 @@ extern "C" int dit_attention_bf16(const void* q, const void* k, const void* v, c
 }
 
 extern "C" int dit_attention_f32(const void* q, const void* k, const void* v, const int* lens,
-                                 void* out, int B, int H, int T_len, void* stream) {
-  return launch_f32<false>(q, k, v, nullptr, nullptr, lens, out, B, H, T_len, stream);
+                                 void* out, void* lse, int B, int H, int T_len, void* stream) {
+  return launch_f32((const float*)q, (const float*)k, (const float*)v, lens, (float*)out,
+                    (float*)lse, B, H, T_len, 0.125f /* 1/sqrt(64) */, stream);
 }

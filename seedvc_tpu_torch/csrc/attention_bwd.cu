@@ -8,57 +8,66 @@
 // from the (T, d) cos / signed-sin caches and rounded to the input type) and
 // dit_attention_reference (K3: q and k arrive roped): softmax(q.k^T / 8) v over
 // the keys < lens[b], with a masked logit set to -1e30 (a where, so a masked
-// key passes no gradient to q or k). A batch row with lens <= 0 has every key
-// masked: its probabilities are uniform over all T keys, so dV gets the mean
-// of dO there while dQ and dK get nothing. No gradient goes to cos, sin or lens.
+// key passes no gradient to q or k). No gradient goes to cos, sin or lens.
 //
 // What bounds it on an H100: operations. The least work is five T x T x d
 // products a (batch, head) (S, dP, dQ, dK, dV: 10*B*H*T^2*d operations)
-// against about 11*B*H*T*d elements moved (q, k, v, o, dO in; dq, dk, dv out).
+// against about 11*B*H*T*d elements moved. In f32 each product is three TF32
+// products on the tensor cores (3xTF32, attention_tf32.cuh), so the bound is
+// 3 * 10*B*H*T^2*d operations at the 495 TFLOP/s TF32 peak: 0.0498 ms at the
+// fine-tuning path's (2, 8, 896, 64), 0.407 ms at T = 2560.
 //
-// Design: simple and correct, the flash pattern with fp32 scalar FMAs (as the
-// forward's f32 kernel); wgmma and TMA are later work. Nothing of size (T, T)
-// touches device memory. Four kernels run in order on the caller's stream:
+// Design: the flash backward, five products, on 3xTF32 mma.sync; nothing of
+// size (T, T) touches device memory. Kernels, in order, on the caller's stream:
 // 1. bwd_prep_kernel: one warp a row, a lane a RoPE pair. q and k are roped
 //    (K1) with each product and the sum rounded on their own, as the twin's
-//    tensor ops round, then rounded to the input type; q is scaled by 2^-3
-//    (the bf16 forward's pre-pass scale; a power of two, so scaling q or the
-//    logits gives the same bits). q, k, v and dO go to fp32 scratch, and
-//    D = rowsum(dO * o) to a row vector, summed as one FMA chain in the order
-//    the other kernels sum dP = dO.v (so D = dP exactly where o is one v).
-// 2. bwd_dq_kernel: one block a (batch*head, 64-query tile), 256 threads each
-//    owning a 4x4 patch. Pass 1 over the key tiles that hold a valid key
-//    recomputes the row statistics (running max m, sum l); pass 2 recomputes
-//    P = exp(S - m) / l, dP = dO.V^T, dS = P (dP - D) in shared memory, and
-//    accumulates dQ = dS.K * 2^-3. m and l go to scratch for kernel 3.
-// 3. bwd_dkdv_kernel: one block a (batch*head, 64-key tile); walks every
-//    query tile, recomputes P^T and dS^T for its keys and accumulates
-//    dV = P^T.dO and dK = dS^T.(q * 2^-3). A key tile past the valid keys
-//    writes zeros without reading anything.
-// 4. bwd_finish_kernel: the gradients leave fp32: dq and dk are rounded to the
-//    input type (where the twin's autograd rounds them), then K1 applies
-//    RoPE's transpose, dx = g*cos + pair_swap(g*sin), and rounds again; dv is
-//    rounded.
+//    tensor ops round, then rounded to the input type; q is scaled by 2^-3.
+//    f32 copies of q and k (and of v and dO for bf16 inputs) go to scratch,
+//    D = rowsum(dO * o) to a row vector, and the dQ accumulator is zeroed.
+// 2. Only when the caller has no row statistics (the forward's log-sum-exp):
+//    tf32::attn_fwd_tf32 in its statistics mode computes them from the same
+//    f32 copies.
+// 3. bwd_dkdv_kernel: one block a (64-key tile, batch*head), 4 warps of 16
+//    keys; K and V stay in shared memory while the query tiles stream through
+//    a cp.async stage (the next tile loads while this one's dQ product runs).
+//    Per query tile: S^T = K.Q^T and dP^T = V.dO^T; P^T = exp(S^T - lse) and
+//    dS^T = P^T (dP^T - D) in registers; dV += P^T.dO and dK += dS^T.Q with P
+//    and dS fed from the accumulators; dS goes to shared memory once, and
+//    dQ = dS.K for the tile's rows is added to an f32 accumulator in device
+//    memory (float2 atomics: the five-product design; dQ's bits vary with
+//    the order of the adds from run to run, about 1e-7 of its size). Key
+//    tiles past the valid keys write zeros and read nothing. A batch row
+//    with at most one valid key is a case of its own, exact as the twin's
+//    autograd gives it: dQ = dK = 0; dV is, with no valid key (uniform P over
+//    all T keys), the mean of dO at every key, with one, the sum of dO at
+//    key 0 (P = (1, 0, ...): P (dP - D) is 0 in the twin, but a tensor-core
+//    dP would leave rounding noise there).
+// 4. bwd_finish_kernel: the gradients leave fp32: dq (times 2^-3) and dk are
+//    rounded to the input type (where the twin's autograd rounds them), then
+//    K1 applies RoPE's transpose, dx = g*cos + pair_swap(g*sin), and rounds
+//    again; dv is rounded.
+// For bf16 inputs q, k, v and dO are TF32 values already, so the products
+// skip the terms of their (zero) lo parts.
 // Host side: one C entry point for K1 and K3, f32 and bf16. The wrapper
-// allocates the fp32 scratch (7 B*H*T*64 + 3 B*H*T floats).
+// allocates the fp32 scratch (5 B*H*T*64 + 2 B*H*T floats in f32, 7 B*H*T*64
+// + 2 B*H*T for bf16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "attention_tf32.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace tf32;
 
-constexpr int D = 64;
-constexpr int BT = 64;     // rows of a query or key tile
-constexpr int NT = 256;    // threads of kernels 2 and 3: a 16 x 16 grid of 4x4 patches
-constexpr int LD = D + 1;  // padded row stride of the shared tiles
-constexpr float NEG = -1e30f;
 constexpr float SCALE = 0.125f;  // 1/sqrt(64)
-constexpr int TILE = BT * LD;
-constexpr size_t DQ_SMEM = sizeof(float) * 5 * TILE;
-constexpr size_t DKDV_SMEM = sizeof(float) * 6 * TILE;
+constexpr int LD_DS = 72;        // row stride of the dS tile: conflict-free 8-byte A loads
+constexpr int DKDV_SMEM = (int)sizeof(float) * (4 * TILE + BT * LD_DS + 2 * BT);
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -89,7 +98,8 @@ bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 const T* __restrict__ o, const T* __restrict__ dout,
                 const float* __restrict__ cosb, const float* __restrict__ sinb,
                 float* __restrict__ qs, float* __restrict__ ks, float* __restrict__ vs,
-                float* __restrict__ dos, float* __restrict__ dsum, int T_len, long long rows) {
+                float* __restrict__ dos, float* __restrict__ dsum, float* __restrict__ dqf,
+                int T_len, long long rows) {
   const int lane = threadIdx.x & 31;
   const long long first = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
   const long long stride = ((long long)gridDim.x * blockDim.x) >> 5;
@@ -107,54 +117,18 @@ bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       k0 = round_to<T>(k0);
       k1 = round_to<T>(k1);
     }
-    qs[e] = q0 * SCALE;
-    qs[e + 1] = q1 * SCALE;
-    ks[e] = k0;
-    ks[e + 1] = k1;
-    vs[e] = to_f(v[e]);
-    vs[e + 1] = to_f(v[e + 1]);
-    dos[e] = to_f(dout[e]);
-    dos[e + 1] = to_f(dout[e + 1]);
-    if (lane == 0) {
-      // D as one FMA chain over the features in order, the order in which the
-      // dQ and dK/dV kernels sum dP = dO.v: where o equals one v (a row with
-      // one valid key), D equals that dP bit for bit and dS is exactly 0
-      const size_t row = (size_t)r * D;
-      float d = 0.f;
-      for (int f = 0; f < D; ++f) d = fmaf(to_f(dout[row + f]), to_f(o[row + f]), d);
-      dsum[r] = d;
+    *reinterpret_cast<float2*>(qs + e) = make_float2(q0 * SCALE, q1 * SCALE);
+    *reinterpret_cast<float2*>(ks + e) = make_float2(k0, k1);
+    const float g0 = to_f(dout[e]), g1 = to_f(dout[e + 1]);
+    if constexpr (!std::is_same<T, float>::value) {
+      *reinterpret_cast<float2*>(vs + e) = make_float2(to_f(v[e]), to_f(v[e + 1]));
+      *reinterpret_cast<float2*>(dos + e) = make_float2(g0, g1);
     }
-  }
-}
-
-// Rows [r0, r0 + BT) of a (T, 64) fp32 slab into a padded shared tile; rows
-// >= T read as zeros.
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int r0,
-                                          int T_len, int tid) {
-  for (int idx = tid; idx < BT * D; idx += NT) {
-    const int r = idx / D, dd = idx % D, t = r0 + r;
-    dst[r * LD + dd] = t < T_len ? src[(size_t)t * D + dd] : 0.f;
-  }
-}
-
-// s[i][j] = A[ra + 16 i] . B[rb + 16 j] over the 64 features of two shared tiles.
-__device__ __forceinline__ void tile_dot(const float* A, const float* B, int ra, int rb,
-                                         float (&s)[4][4]) {
+    *reinterpret_cast<float2*>(dqf + e) = make_float2(0.f, 0.f);
+    float d = fmaf(g1, to_f(o[e + 1]), g0 * to_f(o[e]));
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int dd = 0; dd < D; ++dd) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ra + 16 * i) * LD + dd];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(rb + 16 * j) * LD + dd];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+    for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+    if (lane == 0) dsum[r] = d;
   }
 }
 
@@ -163,217 +137,229 @@ __device__ __forceinline__ int valid_keys(const int* lens, int b, int T_len) {
   return n > T_len ? T_len : n;
 }
 
-__global__ void __launch_bounds__(NT)
-bwd_dq_kernel(const float* __restrict__ qs, const float* __restrict__ ks,
-              const float* __restrict__ vs, const float* __restrict__ dos,
-              const float* __restrict__ dsum, const int* __restrict__ lens,
-              float* __restrict__ dq, float* __restrict__ stat_m, float* __restrict__ stat_l,
-              int H, int T_len) {
-  extern __shared__ float smem[];
-  float* Qs = smem;         // q * 2^-3 of this query tile
-  float* dOs = Qs + TILE;   // dO of this query tile
-  float* Ks = dOs + TILE;   // the key tile
-  float* Vs = Ks + TILE;    // the value tile
-  float* Ss = Vs + TILE;    // dS of this (query, key) tile pair
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BT;
-  const size_t slab = (size_t)bh * T_len * D;
-  const size_t row0 = (size_t)bh * T_len;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int n_valid = valid_keys(lens, bh / H, T_len);
-
-  float m[4], l[4], dd_[4], acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    m[i] = NEG;
-    l[i] = 0.f;
-    dd_[i] = t < T_len ? dsum[row0 + t] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+// Rows [k0, k0 + 64) (< T) of dK and dV for a batch row with n_valid <= 1:
+// dK = 0; dV is the mean of dO over the T queries at every key (n_valid <= 0)
+// or the sum of dO at key 0 (n_valid = 1), 0 elsewhere. sh: 128 floats.
+__device__ void few_keys(const float* __restrict__ dO, float* __restrict__ dk,
+                         float* __restrict__ dv, int k0, int n_valid, int T_len, float* sh) {
+  const bool need = n_valid <= 0 || k0 == 0;
+  if (need) {
+    // column sums of dO: thread t sums column t % 64 over every other row
+    const int col = threadIdx.x & 63;
+    float acc = 0.f;
+    for (int t = threadIdx.x >> 6; t < T_len; t += 2) acc += dO[(size_t)t * D + col];
+    sh[threadIdx.x] = acc;
   }
-
-  // n_valid <= 0: every key masked, no gradient reaches q (acc stays 0)
-  const int n_tiles = n_valid > 0 ? (n_valid + BT - 1) / BT : 0;
-  if (n_tiles > 0) {
-    load_tile(Qs, qs + slab, q0, T_len, tid);
-    load_tile(dOs, dos + slab, q0, T_len, tid);
-  }
-  // pass 1: row max and sum over the valid keys
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();
-    load_tile(Ks, ks + slab, k0, T_len, tid);
-    __syncthreads();
-    float s[4][4];
-    tile_dot(Qs, Ks, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tmax = NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (k0 + tx + 16 * j < n_valid) tmax = fmaxf(tmax, s[i][j]);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_new = fmaxf(m[i], tmax);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (k0 + tx + 16 * j < n_valid) psum += expf(s[i][j] - m_new);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l[i] = l[i] * expf(m[i] - m_new) + psum;
-      m[i] = m_new;
+  __syncthreads();
+  const int rows = min(BT, T_len - k0);
+  const float inv_t = 1.f / (float)T_len;
+  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
+    const int r = i / D, col = i % D, key = k0 + r;
+    float val = 0.f;
+    if (need) {
+      const float sum = sh[col] + sh[col + 64];
+      val = n_valid <= 0 ? sum * inv_t : (key == 0 ? sum : 0.f);
     }
-  }
-  // pass 2: dS = P (dP - D), dQ += dS . K
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();
-    load_tile(Ks, ks + slab, k0, T_len, tid);
-    load_tile(Vs, vs + slab, k0, T_len, tid);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot(Qs, Ks, ty, tx, s);
-    tile_dot(dOs, Vs, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = k0 + tx + 16 * j < n_valid ? expf(s[i][j] - m[i]) / l[i] : 0.f;
-        Ss[(ty + 16 * i) * LD + tx + 16 * j] = p * (dp[i][j] - dd_[i]);
-      }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < BT; ++c) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Ss[(ty + 16 * i) * LD + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ks[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= T_len) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dq[slab + (size_t)t * D + tx + 16 * j] = acc[i][j] * SCALE;
-    if (tx == 0) {
-      stat_m[row0 + t] = m[i];
-      stat_l[row0 + t] = l[i];
-    }
+    dv[(size_t)key * D + col] = val;
+    dk[(size_t)key * D + col] = 0.f;
   }
 }
 
-__global__ void __launch_bounds__(NT)
+template <bool EXACT>
+__global__ void __launch_bounds__(THREADS, 2)
 bwd_dkdv_kernel(const float* __restrict__ qs, const float* __restrict__ ks,
                 const float* __restrict__ vs, const float* __restrict__ dos,
-                const float* __restrict__ dsum, const float* __restrict__ stat_m,
-                const float* __restrict__ stat_l, const int* __restrict__ lens,
-                float* __restrict__ dk, float* __restrict__ dv, int H, int T_len) {
-  extern __shared__ float smem[];
-  float* Ks = smem;         // the key tile
-  float* Vs = Ks + TILE;    // the value tile
-  float* Qs = Vs + TILE;    // q * 2^-3 of the query tile
-  float* dOs = Qs + TILE;   // dO of the query tile
-  float* Ps = dOs + TILE;   // P^T: [key][query]
-  float* Ss = Ps + TILE;    // dS^T: [key][query]
+                const float* __restrict__ dsum, const float* __restrict__ lse,
+                const int* __restrict__ lens, float* __restrict__ dqf, float* __restrict__ dkf,
+                float* __restrict__ dvf, int H, int T_len) {
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                 // the key tile
+  float* Vs = Ks + TILE;            // the value tile
+  float* Qs = Vs + TILE;            // q * 2^-3 of the query tile
+  float* dOs = Qs + TILE;           // dO of the query tile
+  float* dSs = dOs + TILE;          // dS of the (query, key) tile pair: [query][key]
+  float* Ls = dSs + BT * LD_DS;     // lse of the query tile
+  float* Ds = Ls + BT;              // D of the query tile
 
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const int bh = blockIdx.y, k0 = blockIdx.x * BT;
   const size_t slab = (size_t)bh * T_len * D;
   const size_t row0 = (size_t)bh * T_len;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int n_valid = valid_keys(lens, bh / H, T_len);
-  const bool none = n_valid <= 0;  // every key masked: P uniform over all T keys
-  const float uniform = 1.f / (float)T_len;
-
-  float acc_k[4][4], acc_v[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  if (none || k0 < n_valid) {
-    if (!none) {
-      load_tile(Ks, ks + slab, k0, T_len, tid);
-      load_tile(Vs, vs + slab, k0, T_len, tid);
+  if (n_valid <= 1) {
+    few_keys(dos + slab, dkf + slab, dvf + slab, k0, n_valid, T_len, smem);
+    return;
+  }
+  if (k0 >= n_valid) {  // only masked keys: no gradient
+    for (int i = threadIdx.x; i < min(BT, T_len - k0) * D; i += THREADS) {
+      dkf[slab + (size_t)k0 * D + i] = 0.f;
+      dvf[slab + (size_t)k0 * D + i] = 0.f;
     }
-    const int q_tiles = (T_len + BT - 1) / BT;
-    for (int qt = 0; qt < q_tiles; ++qt) {
-      const int r0 = qt * BT;
-      __syncthreads();
-      load_tile(Qs, qs + slab, r0, T_len, tid);
-      load_tile(dOs, dos + slab, r0, T_len, tid);
-      __syncthreads();
-      if (none) {
+    return;
+  }
+
+  load_tile(Ks, ks + slab, k0, T_len);
+  load_tile(Vs, vs + slab, k0, T_len);
+  load_tile(Qs, qs + slab, 0, T_len);
+  load_tile(dOs, dos + slab, 0, T_len);
+  load_vec(Ls, lse + row0, 0, T_len);
+  load_vec(Ds, dsum + row0, 0, T_len);
+  cp_async_commit();
+
+  const int kr = 16 * warp;  // this warp's keys in the tile: rows kr + g and kr + g + 8
+  const bool kv0 = k0 + kr + g < n_valid, kv1 = k0 + kr + g + 8 < n_valid;
+  float dk[8][4], dv[8][4];
+  zero(dk);
+  zero(dv);
+  const int n_qt = (T_len + BT - 1) / BT;
+  for (int it = 0; it < n_qt; ++it) {
+    const int qt0 = it * BT;
+    cp_async_wait<0>();
+    __syncthreads();
+    // Per stage, for this warp's 16 keys and the 64 queries, each product in a
+    // hi.hi and a small-terms accumulator (see "Accumulation" in
+    // attention_tf32.cuh); the order S, P, dV, dP, dS, dK keeps at most four
+    // accumulator sets besides dK and dV alive. Unrolled by 2: the k loops
+    // whose A fragments come from shared memory (S, dP, dQ) are unrolled by
+    // 2, not 8; in full they held every fragment's loads at once (255
+    // registers and spills), and by 2 K1b took 0.2326 ms instead of 0.2707
+    // at (2, 8, 896, 64) and 1.5505 instead of 1.6792 at T = 2560
+    // (chip_smoke.py, H100 80GB HBM3 at 700 W).
+    float sp[8][4], t[8][4], small[8][4];  // S^T then P^T; dV, dP^T, dK partials
+    // S^T = K.Q^T
+    zero(sp);
+    zero(small);
+#pragma unroll 2  // see "Unrolled by 2" above
+    for (int kk = 0; kk < 8; ++kk) {
+      FragA ka;
+      load_a<EXACT>(ka, Ks, LDT, kr, 8 * kk, g, c);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const bool in = k0 + ty + 16 * i < T_len && r0 + tx + 16 * j < T_len;
-            Ps[(ty + 16 * i) * LD + tx + 16 * j] = in ? uniform : 0.f;
-            Ss[(ty + 16 * i) * LD + tx + 16 * j] = 0.f;
-          }
-      } else {
-        float st[4][4], dpt[4][4];
-        tile_dot(Ks, Qs, ty, tx, st);
-        tile_dot(Vs, dOs, ty, tx, dpt);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = r0 + tx + 16 * j;
-          const bool row_in = r < T_len;
-          const float mr = row_in ? stat_m[row0 + r] : 0.f;
-          const float lr = row_in ? stat_l[row0 + r] : 1.f;
-          const float dr = row_in ? dsum[row0 + r] : 0.f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p =
-                row_in && k0 + ty + 16 * i < n_valid ? expf(st[i][j] - mr) / lr : 0.f;
-            Ps[(ty + 16 * i) * LD + tx + 16 * j] = p;
-            Ss[(ty + 16 * i) * LD + tx + 16 * j] = p * (dpt[i][j] - dr);
-          }
-        }
+      for (int nt = 0; nt < 8; ++nt) {
+        FragB b;
+        load_b_rows_n<EXACT>(b, Qs, LDT, 8 * nt, 8 * kk, g, c);
+        mma3<EXACT, EXACT>(sp[nt], small[nt], ka, b);
       }
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < BT; ++c) {
-        float pa[4], sa[4], gb[4], qb[4];
+    }
+    if constexpr (!EXACT) join(sp, small);
+    // P^T = exp(S^T - lse) over valid keys and queries < T
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pa[i] = Ps[(ty + 16 * i) * LD + c];
-          sa[i] = Ss[(ty + 16 * i) * LD + c];
-        }
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          gb[j] = dOs[c * LD + tx + 16 * j];
-          qb[j] = Qs[c * LD + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc_v[i][j] = fmaf(pa[i], gb[j], acc_v[i][j]);
-            acc_k[i][j] = fmaf(sa[i], qb[j], acc_k[i][j]);
-          }
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * nt + 2 * c + (e & 1);
+        const bool in = (e < 2 ? kv0 : kv1) && qt0 + qc < T_len;
+        sp[nt][e] = in ? expf(sp[nt][e] - Ls[qc]) : 0.f;
       }
+    // dV += P^T.dO: this tile's product in fresh accumulators (P from the
+    // registers), added to the running sum
+    zero(t);
+    zero(small);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      FragA pa;
+      acc_as_a(pa, sp[j]);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        FragB b;
+        load_b_rows_k<EXACT>(b, dOs, LDT, 8 * j, 8 * nt, g, c);
+        mma3<false, EXACT>(t[nt], small[nt], pa, b);
+      }
+    }
+    join(t, small);
+    join(dv, t);
+    // dP^T = V.dO^T, then dS^T = P^T (dP^T - D) in sp
+    zero(t);
+    zero(small);
+#pragma unroll 2
+    for (int kk = 0; kk < 8; ++kk) {
+      FragA va;
+      load_a<EXACT>(va, Vs, LDT, kr, 8 * kk, g, c);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        FragB b;
+        load_b_rows_n<EXACT>(b, dOs, LDT, 8 * nt, 8 * kk, g, c);
+        mma3<EXACT, EXACT>(t[nt], small[nt], va, b);
+      }
+    }
+    if constexpr (!EXACT) join(t, small);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sp[nt][e] *= t[nt][e] - Ds[8 * nt + 2 * c + (e & 1)];
+    // dK += dS^T.(q 2^-3), as dV
+    zero(t);
+    zero(small);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      FragA sa;
+      acc_as_a(sa, sp[j]);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        FragB b;
+        load_b_rows_k<EXACT>(b, Qs, LDT, 8 * j, 8 * nt, g, c);
+        mma3<false, EXACT>(t[nt], small[nt], sa, b);
+      }
+    }
+    join(t, small);
+    join(dk, t);
+    // dS^T to shared memory as dS[query][key]
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dSs[(8 * nt + 2 * c + (e & 1)) * LD_DS + kr + g + 8 * (e >> 1)] = sp[nt][e];
+    __syncthreads();  // this query tile's Q, dO, lse and D are read; dS is whole
+    if (it + 1 < n_qt) {
+      const int next = qt0 + BT;
+      load_tile(Qs, qs + slab, next, T_len);
+      load_tile(dOs, dos + slab, next, T_len);
+      load_vec(Ls, lse + row0, next, T_len);
+      load_vec(Ds, dsum + row0, next, T_len);
+      cp_async_commit();
+    }
+    // dQ of the tile's rows 16 warp .. 16 warp + 15 += dS.K, into device memory
+    float (&dq)[8][4] = t;
+    zero(dq);
+    zero(small);
+#pragma unroll 2
+    for (int j = 0; j < 8; ++j) {
+      FragA da;
+      load_a_pairs(da, dSs, LD_DS, 16 * warp, 8 * j, g, c);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        FragB b;
+        load_b_rows_k<EXACT>(b, Ks, LDT, 8 * j, 8 * nt, g, c);
+        mma3<false, EXACT>(dq[nt], small[nt], da, b);
+      }
+    }
+    join(dq, small);
+    const int q_r0 = qt0 + 16 * warp + g, q_r1 = q_r0 + 8;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = 8 * nt + 2 * c;
+      if (q_r0 < T_len)
+        atomicAdd(reinterpret_cast<float2*>(dqf + slab + (size_t)q_r0 * D + col),
+                  make_float2(dq[nt][0], dq[nt][1]));
+      if (q_r1 < T_len)
+        atomicAdd(reinterpret_cast<float2*>(dqf + slab + (size_t)q_r1 * D + col),
+                  make_float2(dq[nt][2], dq[nt][3]));
     }
   }
+  const int key0 = k0 + kr + g, key1 = key0 + 8;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty + 16 * i;
-    if (t >= T_len) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      dk[slab + (size_t)t * D + tx + 16 * j] = acc_k[i][j];
-      dv[slab + (size_t)t * D + tx + 16 * j] = acc_v[i][j];
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = 8 * nt + 2 * c;
+    if (key0 < T_len) {
+      *reinterpret_cast<float2*>(dkf + slab + (size_t)key0 * D + col) =
+          make_float2(dk[nt][0], dk[nt][1]);
+      *reinterpret_cast<float2*>(dvf + slab + (size_t)key0 * D + col) =
+          make_float2(dv[nt][0], dv[nt][1]);
+    }
+    if (key1 < T_len) {
+      *reinterpret_cast<float2*>(dkf + slab + (size_t)key1 * D + col) =
+          make_float2(dk[nt][2], dk[nt][3]);
+      *reinterpret_cast<float2*>(dvf + slab + (size_t)key1 * D + col) =
+          make_float2(dv[nt][2], dv[nt][3]);
     }
   }
 }
@@ -387,7 +373,7 @@ bwd_finish_kernel(const float* __restrict__ dqf, const float* __restrict__ dkf,
   for (long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x; p < pairs;
        p += (long long)gridDim.x * blockDim.x) {
     const size_t e = (size_t)p * 2;
-    float q0 = round_to<T>(dqf[e]), q1 = round_to<T>(dqf[e + 1]);
+    float q0 = round_to<T>(dqf[e] * SCALE), q1 = round_to<T>(dqf[e + 1] * SCALE);
     float k0 = round_to<T>(dkf[e]), k1 = round_to<T>(dkf[e + 1]);
     if constexpr (ROPE) {
       // y_a = x_a cos_a + x_(a^1) sin_a, so dx_a = g_a cos_a + g_(a^1) sin_(a^1)
@@ -408,8 +394,7 @@ bwd_finish_kernel(const float* __restrict__ dqf, const float* __restrict__ dkf,
 // Sets a kernel's dynamic shared-memory limit once per device (the attribute
 // belongs to the current device).
 constexpr int MAX_DEVICES = 64;
-bool dq_smem_set[MAX_DEVICES];
-bool dkdv_smem_set[MAX_DEVICES];
+bool dkdv_smem_set[2][MAX_DEVICES];
 
 template <typename Kernel>
 int set_smem_once(Kernel kernel, int bytes, bool (&done)[MAX_DEVICES]) {
@@ -430,36 +415,44 @@ int grid_for(long long threads) {
 
 template <typename T, bool ROPE>
 int launch(const void* q, const void* k, const void* v, const float* cosb, const float* sinb,
-           const int* lens, const void* o, const void* dout, void* dq, void* dk, void* dv,
-           float* scratch, int B, int H, int T_len, cudaStream_t stream) {
-  int err = set_smem_once(bwd_dq_kernel, (int)DQ_SMEM, dq_smem_set);
-  if (!err) err = set_smem_once(bwd_dkdv_kernel, (int)DKDV_SMEM, dkdv_smem_set);
+           const int* lens, const void* o, const void* dout, const float* lse_in, void* dq,
+           void* dk, void* dv, float* scratch, int B, int H, int T_len, cudaStream_t stream) {
+  constexpr bool EXACT = !std::is_same<T, float>::value;  // bf16 inputs are TF32 values
+  int err = set_smem_once(bwd_dkdv_kernel<EXACT>, DKDV_SMEM, dkdv_smem_set[EXACT]);
   if (err) return err;
   const long long rows = (long long)B * H * T_len;
   const size_t n = (size_t)rows * D;
   float* qs = scratch;
   float* ks = qs + n;
-  float* vs = ks + n;
-  float* dos = vs + n;
-  float* dqf = dos + n;
+  float* rest = ks + n;
+  float *vcopy = nullptr, *docopy = nullptr;
+  if (EXACT) {  // f32 copies of v and dO; f32 inputs are read as they are
+    vcopy = rest;
+    docopy = rest + n;
+    rest += 2 * n;
+  }
+  const float* vs = EXACT ? vcopy : (const float*)v;
+  const float* dos = EXACT ? docopy : (const float*)dout;
+  float* dqf = rest;
   float* dkf = dqf + n;
   float* dvf = dkf + n;
   float* dsum = dvf + n;
-  float* stat_m = dsum + rows;
-  float* stat_l = stat_m + rows;
+  float* lse = lse_in ? const_cast<float*>(lse_in) : dsum + rows;
 
   bwd_prep_kernel<T, ROPE><<<grid_for(rows * 32), 256, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, cosb, sinb, qs, ks,
-      vs, dos, dsum, T_len, rows);
+      vcopy, docopy, dsum, dqf, T_len, rows);
   err = (int)cudaGetLastError();
   if (err) return err;
   const dim3 grid((T_len + BT - 1) / BT, B * H);
-  bwd_dq_kernel<<<grid, NT, DQ_SMEM, stream>>>(qs, ks, vs, dos, dsum, lens, dqf, stat_m, stat_l,
-                                               H, T_len);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  bwd_dkdv_kernel<<<grid, NT, DKDV_SMEM, stream>>>(qs, ks, vs, dos, dsum, stat_m, stat_l, lens,
-                                                   dkf, dvf, H, T_len);
+  if (lse_in == nullptr) {
+    attn_fwd_tf32<false, EXACT><<<grid, THREADS, fwd_smem_bytes(false), stream>>>(
+        qs, ks, nullptr, lens, nullptr, lse, H, T_len, 1.f);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  bwd_dkdv_kernel<EXACT><<<grid, THREADS, DKDV_SMEM, stream>>>(qs, ks, vs, dos, dsum, lse, lens,
+                                                               dqf, dkf, dvf, H, T_len);
   err = (int)cudaGetLastError();
   if (err) return err;
   const long long pairs = rows * (D / 2);
@@ -473,21 +466,24 @@ int launch(const void* q, const void* k, const void* v, const float* cosb, const
 // dq, dk, dv (B, H, T, 64) of K1 (rope = 1: q/k before RoPE, cos/sin (T, 64)
 // f32) or K3 (rope = 0: q/k roped, cos/sin unused), in the inputs' type
 // (is_bf16 = 1: bfloat16, else float32). o is the forward's output and dout its
-// upstream gradient, both in the inputs' type; lens is (B,) int32 or null.
-// scratch holds 7*B*H*T*64 + 3*B*H*T floats.
+// upstream gradient, both in the inputs' type; lens is (B,) int32 or null; lse
+// is the forward's (B*H, T) f32 row log-sum-exp or null (then computed here).
+// scratch holds 5*B*H*T*64 + 2*B*H*T floats (f32) or 7*B*H*T*64 + 2*B*H*T
+// (bf16).
 extern "C" int dit_attention_bwd(const void* q, const void* k, const void* v, const float* cosb,
                                  const float* sinb, const int* lens, const void* o,
-                                 const void* dout, void* dq, void* dk, void* dv, float* scratch,
-                                 int B, int H, int T_len, int is_bf16, int rope, void* stream) {
+                                 const void* dout, const float* lse, void* dq, void* dk, void* dv,
+                                 float* scratch, int B, int H, int T_len, int is_bf16, int rope,
+                                 void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
-    return rope ? launch<__nv_bfloat16, true>(q, k, v, cosb, sinb, lens, o, dout, dq, dk, dv,
-                                              scratch, B, H, T_len, s)
-                : launch<__nv_bfloat16, false>(q, k, v, cosb, sinb, lens, o, dout, dq, dk, dv,
-                                               scratch, B, H, T_len, s);
+    return rope ? launch<bf16, true>(q, k, v, cosb, sinb, lens, o, dout, lse, dq, dk, dv, scratch,
+                                     B, H, T_len, s)
+                : launch<bf16, false>(q, k, v, cosb, sinb, lens, o, dout, lse, dq, dk, dv,
+                                      scratch, B, H, T_len, s);
   }
-  return rope ? launch<float, true>(q, k, v, cosb, sinb, lens, o, dout, dq, dk, dv, scratch, B,
-                                    H, T_len, s)
-              : launch<float, false>(q, k, v, cosb, sinb, lens, o, dout, dq, dk, dv, scratch, B,
-                                     H, T_len, s);
+  return rope ? launch<float, true>(q, k, v, cosb, sinb, lens, o, dout, lse, dq, dk, dv, scratch,
+                                    B, H, T_len, s)
+              : launch<float, false>(q, k, v, cosb, sinb, lens, o, dout, lse, dq, dk, dv, scratch,
+                                     B, H, T_len, s);
 }

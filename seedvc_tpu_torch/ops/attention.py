@@ -24,7 +24,14 @@ compile-time RoPE flag, replaces two TPU kernels:
   core: in each block of 64 query rows a producer warp keeps K/V tiles
   flowing by TMA through a ring of shared-memory slots and a consumer
   warpgroup runs both products on ``wgmma``, skipping key tiles that hold
-  only masked keys. The f32 path uses scalar FMAs.
+  only masked keys. In f32 (the fine-tuning path) each product is three
+  TF32 tensor-core products (3xTF32: f32-grade, bounded by 3× the
+  operations at the 495 TFLOP/s TF32 peak): K1 ropes q (times 2⁻³) and k
+  once per call in f32, then one core (``csrc/attention_tf32.cuh``) streams
+  64-key tiles through a ``cp.async`` ring into ``mma.sync`` products. It
+  can also write the row log-sum-exp (``return_lse``, plain version
+  :func:`dit_attention_lse_reference`), which the autograd Functions keep
+  for K1ᵇ.
 
 K1ᵇ, the backward of both (``seedvc_tpu_torch/csrc/attention_bwd.cu``),
 is the counterpart of the ``bwd`` of ``_fused_diff`` / ``_plain_diff``
@@ -40,12 +47,15 @@ upstream gradient; their plain versions are
 names, run K1 or K3 forward and K1ᵇ backward.
 
 - what bounds K1ᵇ: operations, 10·B·H·T²·d (S, dP, dQ, dK, dV) against
-  about 11·B·H·T·d elements moved.
-- what its design does about it: the flash pattern in four launches (fp32
-  copies of the roped, 2⁻³-scaled q and of k, v, dO with D = rowsum(dO∘o);
-  dQ with the row statistics recomputed; dK/dV; RoPE's transpose and the
-  cast back), fp32 scalar FMAs, nothing (T, T)-sized in device memory.
-  ``wgmma`` and TMA are later work.
+  about 11·B·H·T·d elements moved; in f32 3× that at the TF32 peak.
+- what its design does about it: the flash backward's five products on
+  3xTF32 tensor cores (``mma.sync``), nothing (T, T)-sized in device
+  memory: f32 copies of the roped, 2⁻³-scaled q and of k with
+  D = rowsum(dO∘o); the row statistics from the forward's log-sum-exp
+  (``lse=``), or computed by the forward core when it is not given; one
+  kernel for dK/dV that adds dQ to an f32 accumulator by atomics (dQ's
+  last bits vary from run to run); RoPE's transpose and the cast back. A
+  batch row with at most one valid key is exact as its own case.
 
 A CPU tensor goes to the plain twin; a CUDA tensor launches the kernel or
 raises. ``LAUNCHES`` counts K1's calls, ``DIT_ATTENTION_LAUNCHES`` K3's,
@@ -71,11 +81,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "dit_attention_fused_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "dit_attention_fused_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "dit_attention_fused_f32": [_P] * 9 + [_I] * 3 + [_P],
     "dit_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "dit_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "dit_attention_f32": [_P] * 6 + [_I] * 3 + [_P],
     "rope_prepass_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "dit_attention_bwd": [_P] * 12 + [_I] * 5 + [_P],
+    "dit_attention_bwd": [_P] * 13 + [_I] * 5 + [_P],
 }
 
 
@@ -93,15 +103,26 @@ def _pair_swap(x: torch.Tensor) -> torch.Tensor:
     return torch.stack((x2[..., 1], x2[..., 0]), dim=-1).reshape(x.shape)
 
 
-def dit_attention_reference(q, k, v, lens=None):
-    """Materialised-logits attention, fp32 softmax (post-RoPE inputs)."""
+def _masked_logits(q, k, lens):
     T, d = q.shape[2], q.shape[3]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
     if lens is not None:
         mask = torch.arange(T, device=q.device)[None, :] < lens[:, None]
         s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    return s
+
+
+def dit_attention_reference(q, k, v, lens=None):
+    """Materialised-logits attention, fp32 softmax (post-RoPE inputs)."""
+    p = torch.softmax(_masked_logits(q, k, lens), dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def dit_attention_lse_reference(q, k, lens=None):
+    """Row log-sum-exp (B, H, T) f32 of :func:`dit_attention_reference`'s
+    masked logits (post-RoPE q, k): the statistics the f32 kernel writes for
+    K1ᵇ (-1e30 where a batch row has no valid key)."""
+    return torch.logsumexp(_masked_logits(q, k, lens), dim=-1)
 
 
 def rope_scaled_reference(x, cos, sin, scale: float = 1.0):
@@ -142,56 +163,77 @@ def _check(op: str, q, k, v, lens, extra=()):
             raise ValueError(f"{op}: {name} must be contiguous and 16-byte aligned")
 
 
-def _launch(op: str, fn, q, pointers, lens, scratch=()) -> torch.Tensor:
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(op: str, fn, q, pointers, lens, after_out=()) -> torch.Tensor:
+    """Calls a C entry point (pointers..., lens, out, after_out..., B, H, T,
+    stream) and returns out."""
     B, H, T, _ = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):  # the C side sets attributes of the current device
-        err = fn(*pointers, None if lens is None else lens.data_ptr(), out.data_ptr(),
-                 *(t.data_ptr() for t in scratch), B, H, T,
+        err = fn(*pointers, _ptr(lens), out.data_ptr(), *(_ptr(t) for t in after_out), B, H, T,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{op}: CUDA launch failed (error {err})")
     return out
 
 
+def _lse_buffer(q, want: bool):
+    """The (B, H, T) f32 buffer the f32 kernel writes the row log-sum-exp to."""
+    return torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if want else None
+
+
 def dit_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         cos: torch.Tensor, sin: torch.Tensor,
-                        lens: torch.Tensor | None = None) -> torch.Tensor:
+                        lens: torch.Tensor | None = None, return_lse: bool = False):
     """K1. q/k/v: (B, H, T, 64) bf16 or f32, before RoPE; cos/sin: (T, 64)
     f32 from ``rope_full_cache``; lens: (B,) valid key counts or None.
-    Returns (B, H, T, 64) in q's dtype."""
+    Returns (B, H, T, 64) in q's dtype; with ``return_lse``, (out, lse):
+    lse (B, H, T) f32 is the row log-sum-exp of the masked logits (K1ᵇ's
+    statistics), None from the bf16 core, which does not write it."""
     if q.device.type == "cpu":
-        return dit_attention_fused_reference(q, k, v, cos, sin, lens)
+        out = dit_attention_fused_reference(q, k, v, cos, sin, lens)
+        if not return_lse:
+            return out
+        return out, dit_attention_lse_reference(rope_scaled_reference(q, cos, sin),
+                                                rope_scaled_reference(k, cos, sin), lens)
     if q.device.type != "cuda":
         raise ValueError(f"dit_attention_fused: unsupported device {q.device}")
     _check("dit_attention_fused", q, k, v, lens, (("cos", cos), ("sin", sin)))
     bf16 = q.dtype == torch.bfloat16
     fn = _kernel("dit_attention_fused_bf16" if bf16 else "dit_attention_fused_f32")
-    # bf16: the pre-pass writes roped q and k here before the core reads them
-    scratch = (torch.empty((2, *q.shape), dtype=q.dtype, device=q.device),) if bf16 else ()
+    # the pre-pass writes roped q and k here before the core reads them
+    scratch = torch.empty((2, *q.shape), dtype=q.dtype, device=q.device)
+    lse = None if bf16 else _lse_buffer(q, return_lse)
     out = _launch("dit_attention_fused", fn, q,
                   (q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr()),
-                  lens, scratch)
+                  lens, (scratch,) if bf16 else (lse, scratch))
     global LAUNCHES
     LAUNCHES += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def dit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  lens: torch.Tensor | None = None) -> torch.Tensor:
+                  lens: torch.Tensor | None = None, return_lse: bool = False):
     """K3. q/k/v: (B, H, T, 64) bf16 or f32, q/k already roped; lens: (B,)
     valid key counts or None (every key valid). Returns (B, H, T, 64) in
-    q's dtype."""
+    q's dtype; ``return_lse`` as in :func:`dit_attention_fused`."""
     if q.device.type == "cpu":
-        return dit_attention_reference(q, k, v, lens)
+        out = dit_attention_reference(q, k, v, lens)
+        return (out, dit_attention_lse_reference(q, k, lens)) if return_lse else out
     if q.device.type != "cuda":
         raise ValueError(f"dit_attention: unsupported device {q.device}")
     _check("dit_attention", q, k, v, lens)
-    fn = _kernel("dit_attention_bf16" if q.dtype == torch.bfloat16 else "dit_attention_f32")
-    out = _launch("dit_attention", fn, q, (q.data_ptr(), k.data_ptr(), v.data_ptr()), lens)
+    bf16 = q.dtype == torch.bfloat16
+    fn = _kernel("dit_attention_bf16" if bf16 else "dit_attention_f32")
+    lse = None if bf16 else _lse_buffer(q, return_lse)
+    out = _launch("dit_attention", fn, q, (q.data_ptr(), k.data_ptr(), v.data_ptr()), lens,
+                  () if bf16 else (lse,))
     global DIT_ATTENTION_LAUNCHES
     DIT_ATTENTION_LAUNCHES += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def rope_prepass(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
@@ -242,13 +284,15 @@ def dit_attention_bwd_reference(q, k, v, lens, g):
     return _twin_grads(dit_attention_reference, q, k, v, (lens,), g)
 
 
-def _bwd_scratch_floats(B: int, H: int, T: int) -> int:
-    """fp32 scratch of one K1ᵇ call: q, k, v, dO, dq, dk, dv in fp32 and
-    three row vectors (D, max, sum)."""
-    return 7 * B * H * T * HEAD_DIM + 3 * B * H * T
+def _bwd_scratch_floats(B: int, H: int, T: int, bf16: bool) -> int:
+    """fp32 scratch of one K1ᵇ call: the roped, scaled q and k, the dq
+    accumulator, dk and dv in fp32 (and f32 copies of v and dO for bf16
+    inputs), and two row vectors (D, and the log-sum-exp when none is
+    given)."""
+    return (7 if bf16 else 5) * B * H * T * HEAD_DIM + 2 * B * H * T
 
 
-def _bwd(op: str, q, k, v, cos, sin, lens, o, g):
+def _bwd(op: str, q, k, v, cos, sin, lens, o, g, lse):
     extra = () if cos is None else (("cos", cos), ("sin", sin))
     _check(op, q, k, v, lens, extra)
     g = g.to(q.dtype).contiguous()
@@ -258,15 +302,18 @@ def _bwd(op: str, q, k, v, cos, sin, lens, o, g):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{op}: {name} must be contiguous and 16-byte aligned")
     B, H, T, _ = q.shape
+    if lse is not None and (lse.shape != (B, H, T) or lse.dtype != torch.float32
+                            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"{op}: lse must be ({B}, {H}, {T}) f32, contiguous, on {q.device}")
+    bf16 = q.dtype == torch.bfloat16
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    scratch = torch.empty(_bwd_scratch_floats(B, H, T), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(_bwd_scratch_floats(B, H, T, bf16), dtype=torch.float32,
+                          device=q.device)
     with torch.cuda.device(q.device):  # the C side sets attributes of the current device
         err = _kernel("dit_attention_bwd", "attention_bwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
-            None if lens is None else lens.data_ptr(), o.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), B, H, T,
-            int(q.dtype == torch.bfloat16), int(cos is not None),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(cos), _ptr(sin), _ptr(lens),
+            o.data_ptr(), g.data_ptr(), _ptr(lse), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            scratch.data_ptr(), B, H, T, int(bf16), int(cos is not None),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{op}: CUDA launch failed (error {err})")
@@ -275,39 +322,42 @@ def _bwd(op: str, q, k, v, cos, sin, lens, o, g):
     return dq, dk, dv
 
 
-def dit_attention_fused_bwd(q, k, v, cos, sin, lens, o, g):
+def dit_attention_fused_bwd(q, k, v, cos, sin, lens, o, g, lse=None):
     """K1ᵇ for K1: (dq, dk, dv) in q's dtype. q/k/v (B, H, T, 64) before
     RoPE, cos/sin (T, 64) f32, lens (B,) int32 or None, o the forward's
-    output, g its upstream gradient."""
+    output, g its upstream gradient, lse the forward's (B, H, T) f32 row
+    log-sum-exp or None (then K1ᵇ computes the statistics itself; the CPU's
+    plain version needs none)."""
     if q.device.type == "cpu":
         return dit_attention_fused_bwd_reference(q, k, v, cos, sin, lens, g)
     if q.device.type != "cuda":
         raise ValueError(f"dit_attention_fused_bwd: unsupported device {q.device}")
-    return _bwd("dit_attention_fused_bwd", q, k, v, cos, sin, lens, o, g)
+    return _bwd("dit_attention_fused_bwd", q, k, v, cos, sin, lens, o, g, lse)
 
 
-def dit_attention_bwd(q, k, v, lens, o, g):
+def dit_attention_bwd(q, k, v, lens, o, g, lse=None):
     """K1ᵇ for K3: (dq, dk, dv) in q's dtype; q/k already roped."""
     if q.device.type == "cpu":
         return dit_attention_bwd_reference(q, k, v, lens, g)
     if q.device.type != "cuda":
         raise ValueError(f"dit_attention_bwd: unsupported device {q.device}")
-    return _bwd("dit_attention_bwd", q, k, v, None, None, lens, o, g)
+    return _bwd("dit_attention_bwd", q, k, v, None, None, lens, o, g, lse)
 
 
 class DitAttentionFusedFn(torch.autograd.Function):
-    """K1 forward, K1ᵇ backward; no gradient to cos, sin or lens."""
+    """K1 forward, K1ᵇ backward; no gradient to cos, sin or lens. The
+    forward's row log-sum-exp is kept for the backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, cos, sin, lens):
-        o = dit_attention_fused(q, k, v, cos, sin, lens)
-        ctx.save_for_backward(q, k, v, cos, sin, lens, o)
+        o, lse = dit_attention_fused(q, k, v, cos, sin, lens, return_lse=True)
+        ctx.save_for_backward(q, k, v, cos, sin, lens, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, cos, sin, lens, o = ctx.saved_tensors
-        dq, dk, dv = dit_attention_fused_bwd(q, k, v, cos, sin, lens, o, g)
+        q, k, v, cos, sin, lens, o, lse = ctx.saved_tensors
+        dq, dk, dv = dit_attention_fused_bwd(q, k, v, cos, sin, lens, o, g, lse)
         return dq, dk, dv, None, None, None
 
 
@@ -316,14 +366,14 @@ class DitAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, lens):
-        o = dit_attention(q, k, v, lens)
-        ctx.save_for_backward(q, k, v, lens, o)
+        o, lse = dit_attention(q, k, v, lens, return_lse=True)
+        ctx.save_for_backward(q, k, v, lens, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, lens, o = ctx.saved_tensors
-        dq, dk, dv = dit_attention_bwd(q, k, v, lens, o, g)
+        q, k, v, lens, o, lse = ctx.saved_tensors
+        dq, dk, dv = dit_attention_bwd(q, k, v, lens, o, g, lse)
         return dq, dk, dv, None
 
 

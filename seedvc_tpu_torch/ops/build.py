@@ -2,8 +2,9 @@
 
 Each source under ``seedvc_tpu_torch/csrc/`` is compiled by ``nvcc`` into its
 own shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds). Libraries go to ``build/kernels/`` at the repo root, named by
-a hash of the source and the flags, and are built at first use. ``build()``
+takes seconds); the ``*.cuh`` headers there are shared between sources.
+Libraries go to ``build/kernels/`` at the repo root, named by a hash of the
+source, the headers and the flags, and are built at first use. ``build()``
 starts one ``nvcc`` per missing library, all at once.
 """
 
@@ -36,7 +37,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    # the shared headers count too: a source may include any of them
+    src = b"".join(p.read_bytes() for p in [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -15,7 +15,11 @@ The JAX package trains through ``dit_attention_fused_diff`` /
   ``dit_attention_diff``) on the CPU: the same gradients as the twins'
   autograd;
 - ``Attention`` in grad mode against the JAX module's ``jax.grad``, on the
-  K1 branch and on the K3 branch (grouped KV heads).
+  K1 branch and on the K3 branch (grouped KV heads);
+- the row log-sum-exp the autograd Functions keep for K1ᵇ against jnp's;
+  the exact gradients of a batch row with one valid key, which K1ᵇ writes
+  as a case of its own; and a numpy emulation of K1ᵇ's 3xTF32 products
+  against an f64 reference, within the card's f32 limit.
 
 The CUDA kernel is held to these plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 3).
@@ -35,6 +39,8 @@ from seedvc_tpu.nn.layers import rope_cache as j_rope_cache
 from seedvc_tpu.ops.pallas.attention import dit_attention_diff as j_plain_diff
 from seedvc_tpu.ops.pallas.attention import dit_attention_fused_diff as j_fused_diff
 from seedvc_tpu.ops.pallas.attention import dit_attention_fused_reference as j_fused_ref
+from seedvc_tpu.ops.pallas.attention import NEG_INF as j_neg_inf
+from seedvc_tpu.ops.pallas.attention import _pair_swap as j_pair_swap
 from seedvc_tpu.ops.pallas.attention import dit_attention_reference as j_plain_ref
 from seedvc_tpu_torch.nn.layers import Attention, rope_cache, rope_full_cache
 from seedvc_tpu_torch.ops import attention as port
@@ -186,3 +192,108 @@ def test_attention_grad_matches_jax(n_kv):
     scale = max(float(np.abs(np.asarray(r)).max()) for r in ref)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=F32_TOL * scale)
+
+
+LSE_CASES = [None, (60, 77), (0, 50), (1, 77)]
+
+
+@pytest.mark.parametrize("rope", [True, False], ids=["k1", "k3"])
+@pytest.mark.parametrize("lens", LSE_CASES, ids=["none", "partial", "zero", "one"])
+def test_function_saves_the_plain_lse(rope, lens):
+    """The autograd Function keeps the forward's row log-sum-exp for K1ᵇ; on
+    the CPU it is the plain one, held here to jnp's logsumexp of the JAX
+    twin's masked logits (RoPE through the same caches, -1e30 past lens;
+    a row with no valid key gives -1e30): 1e-5 relative."""
+    T = 77
+    q, k, v, _ = _inputs(21, 2, 2, T)
+    cos, sin = rope_full_cache(T, 64)
+    lt = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    if rope:
+        out = port.dit_attention_fused_diff(*leaves, torch.from_numpy(cos),
+                                            torch.from_numpy(sin), lt)
+    else:
+        out = port.dit_attention_diff(*leaves, lt)
+    lse = out.grad_fn.saved_tensors[-1]
+    assert lse.shape == (2, 2, T) and lse.dtype == torch.float32
+
+    qj, kj = jnp.asarray(q), jnp.asarray(k)
+    if rope:
+        cj, sj = jnp.asarray(cos), jnp.asarray(sin)
+        qj, kj = (x * cj + j_pair_swap(x) * sj for x in (qj, kj))
+    s = jnp.einsum("bhqd,bhkd->bhqk", qj, kj) / 8.0
+    if lens is not None:
+        mask = jnp.arange(T)[None, :] < jnp.asarray(lens)[:, None]
+        s = jnp.where(mask[:, None, None, :], s, j_neg_inf)
+    ref = np.asarray(jax.nn.logsumexp(s, axis=-1))
+    np.testing.assert_allclose(lse.numpy(), ref, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("rope", [True, False], ids=["k1", "k3"])
+def test_one_valid_key_gradients_are_exact_in_jax(rope):
+    """K1ᵇ's one-valid-key case rests on this: with P = (1, 0, ...) JAX's vjp
+    of the twin gives dq = dk = 0 exactly (P (g - Σ g P) is 0 where P is 1
+    and 0 elsewhere; masked keys take no gradient through the where) and
+    dv = Σ_q dO at key 0, 0 at the others (1e-6)."""
+    q, k, v, g = _inputs(31, 2, 2, 96)
+    cos, sin = rope_full_cache(96, 64)
+    dq, dk, dv = _jax_vjp(rope, q, k, v, cos, sin, (1, 70), g)
+    assert not dq[0].any() and not dk[0].any()
+    np.testing.assert_allclose(dv[0, :, 0], g[0].sum(axis=1), rtol=0, atol=1e-6)
+    assert not dv[0, :, 1:].any()
+    assert dq[1].any() and dk[1].any()
+
+
+def _tf32(x):
+    """Round f32 to the nearest TF32 value (10-bit mantissa), ties away from
+    zero: what cvt.rna.tf32.f32 gives."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as K1ᵇ's tensor cores do it: each operand split into TF32 hi and
+    lo = tf32(x - hi), lo.hi + hi.lo + hi.hi summed in f32 (products of TF32
+    values are exact in f32)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+@pytest.mark.parametrize("n_valid", [256, 200])
+def test_3xtf32_backward_is_within_the_f32_limit(n_valid):
+    """CPU evidence that K1ᵇ's f32 limit has room: the backward's five
+    products in emulated 3xTF32, P from an f32 log-sum-exp and D from the f32
+    output, at (1, 2, 256, 64), against an f64 reference: relative L2 and
+    max abs (over the largest gradient) within the card's 2e-6 and 5e-6."""
+    T = 256
+    q, k, v, g = _inputs(41, 1, 2, T)
+    q, k, v, g = (x[0] for x in (q, k, v, g))
+    keep = np.arange(T) < n_valid
+    got, ref = [], []
+    for h in range(2):
+        # f64 reference
+        s = q[h].astype(np.float64) @ k[h].T.astype(np.float64) / 8.0
+        s[:, ~keep] = -np.inf
+        p = np.exp(s - s.max(axis=1, keepdims=True))
+        p /= p.sum(axis=1, keepdims=True)
+        o = p @ v[h]
+        dp = g[h].astype(np.float64) @ v[h].T.astype(np.float64)
+        ds = p * (dp - (dp * p).sum(axis=1, keepdims=True))
+        ref.append((ds @ k[h] / 8.0, ds.T @ q[h] / 8.0, p.T @ g[h]))
+        # the kernel's arithmetic: qs = q / 8 (exact), 3xTF32 products in f32
+        qs = (q[h] / np.float32(8.0)).astype(np.float32)
+        s32 = _mm_3xtf32(qs, k[h].T)
+        lse = np.float32(np.log(np.exp(s32[:, keep].astype(np.float64)).sum(axis=1)))
+        p32 = np.where(keep, np.exp(s32 - lse[:, None]), np.float32(0)).astype(np.float32)
+        dsum = (g[h] * o.astype(np.float32)).sum(axis=1, dtype=np.float32)
+        dp32 = _mm_3xtf32(g[h], v[h].T)
+        ds32 = (p32 * (dp32 - dsum[:, None])).astype(np.float32)
+        got.append((_mm_3xtf32(ds32, k[h]) * np.float32(0.125), _mm_3xtf32(ds32.T, qs),
+                    _mm_3xtf32(p32.T, g[h])))
+    for i, name in enumerate(("dq", "dk", "dv")):
+        a = np.stack([x[i] for x in got]).astype(np.float64)
+        b = np.stack([x[i] for x in ref])
+        assert np.linalg.norm(a - b) <= 2e-6 * np.linalg.norm(b), name
+        assert np.abs(a - b).max() <= 5e-6 * np.abs(b).max(), name

@@ -214,10 +214,10 @@ def _rel_l2(out, ref):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_bwd_kernel_matches_twin(T, lens, dtype, rope):
     """K1ᵇ (dq, dk, dv of K1 or K3) against autograd through the twin, on the
-    same CUDA inputs and the forward kernel's output. f32: relative L2 norm
-    2e-6 and max abs 5e-6 times the largest gradient (summation order only;
-    measured up to 3.4e-7 / 5.4e-7 on an H100); bf16: relative L2 5e-3
-    (measured 1.4e-3). Cases: the training path's T = 896, a ragged T
+    same CUDA inputs and the forward kernel's output, K1ᵇ computing the row
+    statistics itself (no lse). f32: relative L2 norm 2e-6 and max abs 5e-6
+    times the largest gradient (3xTF32 products and summation order); bf16:
+    relative L2 5e-3. Cases: the training path's T = 896, a ragged T
     with a row whose keys are all masked (dv the mean of dO), K1's v2 shape
     with one valid key, T of one tile, lens past T."""
     q, k, v, g = (_randn(10 + s, 2, 8, T, 64).to(dtype) for s in range(4))
@@ -277,6 +277,103 @@ def test_attention_module_grad_on_card(n_kv):
         grads.append([xx.grad] + [p.grad for p in m.parameters()])
     for a, b in zip(*grads):
         assert _rel_l2(a.cpu(), b) <= 1e-4
+
+
+def _bwd_call(rope, T, lens, dtype, seed, with_lse):
+    """K1ᵇ on the forward kernel's output (and, with_lse, its row
+    log-sum-exp, as the autograd Functions pass it); returns (got, twin's)."""
+    q, k, v, g = (_randn(seed + s, 2, 8, T, 64).to(dtype) for s in range(4))
+    lens_t = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if rope:
+        cos, sin = (torch.from_numpy(a).cuda() for a in rope_full_cache(T, 64))
+        o, lse = attention.dit_attention_fused(q, k, v, cos, sin, lens_t, return_lse=True)
+        got = attention.dit_attention_fused_bwd(q, k, v, cos, sin, lens_t, o, g,
+                                                lse if with_lse else None)
+        ref = attention.dit_attention_fused_bwd_reference(q, k, v, cos, sin, lens_t, g)
+    else:
+        o, lse = attention.dit_attention(q, k, v, lens_t, return_lse=True)
+        got = attention.dit_attention_bwd(q, k, v, lens_t, o, g, lse if with_lse else None)
+        ref = attention.dit_attention_bwd_reference(q, k, v, lens_t, g)
+    torch.cuda.synchronize()
+    return got, ref, g
+
+
+@pytest.mark.parametrize("rope", [True, False], ids=["k1", "k3"])
+@pytest.mark.parametrize("T,lens", [(896, (896, 1)), (777, (1, 0)), (64, (1, 64))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_one_valid_key_is_exact(T, lens, dtype, rope):
+    """A batch row with exactly one valid key: the twin's autograd gives
+    dq = dk = 0 exactly (P = (1, 0, ...)) and dv = the sum of dO at key 0,
+    0 elsewhere; K1ᵇ writes that case on its own, so its zeros are exact
+    too (a tensor-core dP would leave rounding noise). Sum: 1e-6 relative in
+    f32, one bf16 rounding (2^-8) in bf16."""
+    for with_lse in (True, False):
+        (dq, dk, dv), ref, g = _bwd_call(rope, T, lens, dtype, 90, with_lse)
+        b = lens.index(1)
+        assert not dq[b].any() and not dk[b].any()
+        assert not dv[b, :, 1:].any()
+        total = g[b].float().sum(dim=1)
+        tol = 1e-6 if dtype == torch.float32 else 2 ** -8
+        assert ((dv[b, :, 0].float() - total).abs() <= tol * total.abs().max()).all()
+        assert ((ref[0][b] == 0).all() and (ref[1][b] == 0).all())
+
+
+@pytest.mark.parametrize("rope", [True, False], ids=["k1", "k3"])
+@pytest.mark.parametrize("T,lens", [(896, None), (777, (700, 0)), (2560, (2558, 1)),
+                                    (130, (300, 65))])
+def test_attention_kernel_lse_matches_twin(T, lens, rope):
+    """The f32 forward kernel's row log-sum-exp (kept for K1ᵇ) against the
+    plain one of the twin's masked logits: 1e-5 of max(1, |lse|) (f32
+    logits from 3xTF32 products, exp2 and log in f32; with one valid key
+    lse is that key's logit, which can lie near 0); -1e30 where no key is
+    valid. chip_smoke.py's phase 3 uses the same limit."""
+    q, k, v = (_randn(s + 30, 2, 8, T, 64) for s in range(3))
+    lens_t = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if rope:
+        cos, sin = (torch.from_numpy(a).cuda() for a in rope_full_cache(T, 64))
+        _, lse = attention.dit_attention_fused(q, k, v, cos, sin, lens_t, return_lse=True)
+        ref = attention.dit_attention_lse_reference(attention.rope_scaled_reference(q, cos, sin),
+                                                    attention.rope_scaled_reference(k, cos, sin),
+                                                    lens_t)
+    else:
+        _, lse = attention.dit_attention(q, k, v, lens_t, return_lse=True)
+        ref = attention.dit_attention_lse_reference(q, k, lens_t)
+    assert lse.shape == (2, 8, T) and lse.dtype == torch.float32
+    assert ((lse - ref).abs() <= 1e-5 * ref.abs().clamp(min=1.0)).all()
+
+
+@pytest.mark.parametrize("rope", [True, False], ids=["k1", "k3"])
+@pytest.mark.parametrize("T,lens", [(896, None), (777, (700, 300)), (2560, (2476, 2558))])
+def test_attention_bwd_lse_path_matches_path_without(T, lens, rope):
+    """K1ᵇ given the forward's log-sum-exp (the training path) against K1ᵇ
+    computing the statistics itself: the same arithmetic, so dk and dv agree
+    bit for bit; dq is summed by atomics, whose order varies (1e-6 relative
+    L2), and both stay within the f32 limits against the twin."""
+    got, ref, _ = _bwd_call(rope, T, lens, torch.float32, 50, True)
+    got2, _, _ = _bwd_call(rope, T, lens, torch.float32, 50, False)
+    assert torch.equal(got[1], got2[1]) and torch.equal(got[2], got2[2])
+    assert _rel_l2(got[0], got2[0]) <= 1e-6
+    for a, b in zip(got, ref):
+        assert _rel_l2(a, b) <= 2e-6
+        assert (a - b).abs().max().item() <= 5e-6 * b.abs().max().item()
+
+
+def test_attention_bwd_atomics_repeat():
+    """dq is added up by atomics from the key tiles: two runs on the same
+    inputs give dk and dv bit for bit and dq within 1e-6 relative L2 (the
+    order of the f32 adds varies)."""
+    runs = [_bwd_call(True, 2560, None, torch.float32, 60, True)[0] for _ in range(2)]
+    assert torch.equal(runs[0][1], runs[1][1]) and torch.equal(runs[0][2], runs[1][2])
+    assert _rel_l2(runs[0][0], runs[1][0]) <= 1e-6
+
+
+def test_attention_bwd_checks_lse():
+    x = torch.zeros((2, 1, 64, 64), device="cuda")
+    with pytest.raises(ValueError, match="lse must be"):
+        attention.dit_attention_bwd(x, x, x, None, x, x, torch.zeros((2, 64), device="cuda"))
+    with pytest.raises(ValueError, match="lse must be"):
+        attention.dit_attention_bwd(x, x, x, None, x, x,
+                                    torch.zeros((2, 1, 64), device="cuda", dtype=torch.float64))
 
 
 def test_attention_bwd_raises_when_build_fails(monkeypatch):
