@@ -33,7 +33,10 @@ failure exits non-zero:
    (2, 8, T, 64), T = 896, 2560 and 777, lens None, a 0 entry, one valid key
    and partial, each with a planted fault (the last valid key tile dropped
    from dk and dv), given the forward's log-sum-exp and (f32) computing the
-   statistics itself; a row with one valid key must get dq = dk = 0 exactly;
+   statistics itself, and in f32 at the v2 trainer's shapes (2, 8, 386, 64)
+   and (2, 8, 1154, 64) (T = 128-frame mel bucket + 2) with the lens of its
+   clips, a 0 entry and one valid key (K1 f32 at those too, with its
+   log-sum-exp); a row with one valid key must get dq = dk = 0 exactly;
    the f32 forward's log-sum-exp against the twin's; SDPA's own f32 error
    against the twins printed beside the kernels' as a yardstick; and one
    K1ᵇ call repeated (dq is summed by atomics);
@@ -63,7 +66,7 @@ failure exits non-zero:
    full width, its JSON rows printed, and each component's launch counts
    checked (``attention`` K3 only, ``dit`` 13 K1 a call, ``vocoder`` 109 K2
    a call, ``serving*`` 25 x 13 K1 a sample, ``train*`` 13 K1 and 13 K1ᵇ a
-   step, the rest none);
+   step, ``train_onfly_v2`` among them, the rest none);
 8. real-time, ``xlsr_tiny`` (XLS-R, a DiT with time and style tokens, HiFT):
    (a) a reduced converter, offline, cuda (K1) against cpu (plain twins) in
    f32 with the same weights, CFM noise and HiFT draws; then streaming in
@@ -107,6 +110,19 @@ failure exits non-zero:
    the T of each step), 10 steps on one fixed batch and draws that must
    lower the loss, and the exported ``vc.pkl`` converted by ``VoiceConverter``
    (5 s, finite, the right length);
+10b. v2 training (joint AR + CFM fine-tuning): (a) a reduced v2 trainer
+   (tests/test_trainer_v2.py's tiny sizes, the DiT at 8 heads of 64) on the
+   same weights, batch and ``TrainDrawsV2``, cuda (K1 f32, K1ᵇ) against cpu
+   (twins): the first step's ``loss_cfm``, ``loss_ar`` and every gradient,
+   the parameters after 3 steps with warmup and the global clip active;
+   ``train_ar=False`` on the card (the AR branch bit for bit, no moments);
+   one distillation step against a perturbed teacher; (b) at full width,
+   ``python -m seedvc_tpu_torch.apps.train_v2`` in process on eight
+   synthetic clips of 4-12 s, B = 2: 6 steps saving at 3 and 6, a run that
+   resumes at 6 and trains to 9 (each step 13 K1, 13 K1ᵇ, 0 K3, a finite
+   loss and grad norm; steps/s, prep and step seconds, peak device memory,
+   each step's T), 3 steps with ``--train-cfm false`` (0 K1, 0 K1ᵇ), and 10
+   steps on one fixed batch and draws that must lower the loss;
 11. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
    library call at the shapes of every path (each timed window queued behind a
    spin kernel, so the host's dispatch rate does not enter), with each
@@ -117,15 +133,16 @@ failure exits non-zero:
    and the training rows: K1 f32 and K1ᵇ f32 / bf16 at the training run's
    largest T and its commonest other T, against SDPA's forward and SDPA's
    backward alone, the f32 bounds at 3xTF32 (3x the operations at the TF32
-   peak), with the share of the bound.
+   peak), with the share of the bound; and the same f32 rows at the v2
+   training run's largest and commonest other T, with the launches a step.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
 profiled warm conversion to phases 5, 6, 8 and 9 (a ``convert_timbre`` in
 9), one profiled block replay to phase 8 and one AR decode replay to phase 9
 (device time by kernel, idle share), one profiled train step to phase 10
 and the step's account at the training rows' two T (wall, device time, the
-share of K1 and K1ᵇ), and times two layout choices of the real-time path
-(:func:`rt_layout_ab`).
+share of K1 and K1ᵇ), the same account of one v2 train step to phase 10b,
+and times two layout choices of the real-time path (:func:`rt_layout_ab`).
 """
 
 from __future__ import annotations
@@ -188,6 +205,29 @@ K1_RT_CASES = [(RT_BLOCK_T, None), (RT_OFFLINE_T, (1968, 1968)), (RT_OFFLINE_T, 
 # stage shapes.
 V2_T, V2_LENS, V2_W = 2560, 2154, 2046
 K1_V2_CASES = [(V2_T, (V2_LENS,) * 3), (2048, (1966, 1497, 0)), (2048, (1497, 1497, 1497))]
+# v2 fine-tuning (apps.train_v2 in the v2-training phase): eight synthetic
+# clips of 4-12 s, B = 2. The DiT's trunk sees T = the 128-frame mel bucket
+# + 2 prefix tokens (T % 64 == 2: a last tile of two rows and keys) with
+# mel_len + 2 valid keys. Phase 3 holds K1 f32 (with the log-sum-exp) and
+# K1ᵇ f32 at the T of a (4.0 s, 4.4 s) batch and of a (12 s, 11 s) batch,
+# with those lens, a 0 entry and one valid key.
+V2T_CLIPS = (4.0, 4.4, 6.0, 7.0, 8.0, 10.0, 11.0, 12.0)
+V2T_SR, V2T_HOP, V2T_BUCKET = 22050, 256, 128
+
+
+def v2t_lens(*secs) -> tuple:
+    """The K1 lens (mel frames + 2) of clips of ``secs`` seconds."""
+    return tuple(int(x * V2T_SR) // V2T_HOP + 2 for x in secs)
+
+
+def v2t_T(*secs) -> int:
+    return -(-(max(v2t_lens(*secs)) - 2) // V2T_BUCKET) * V2T_BUCKET + 2
+
+
+_V2T_A, _V2T_B = v2t_lens(4.0, 4.4), v2t_lens(12.0, 11.0)
+K1_V2T_CASES = [(v2t_T(4.0, 4.4), _V2T_A), (v2t_T(4.0, 4.4), (0, _V2T_A[0])),
+                (v2t_T(4.0, 4.4), (_V2T_A[1], 1)), (v2t_T(12.0, 11.0), _V2T_B),
+                (v2t_T(12.0, 11.0), (0, _V2T_B[0])), (v2t_T(12.0, 11.0), (_V2T_B[0], 1))]
 # K2: fp32 FIR sums in another order than cuDNN's, and sin^2 by a polynomial
 # (|err| <= 2e-7) where the twin calls sin. The planted fault is the twin with
 # one tap of the 12-tap filter nudged by 1e-4 (of 0.443), which must fail it.
@@ -422,10 +462,13 @@ def phase_kernels() -> dict:
             cases += [(T, lens, K1_SVC_HEADS) for T, lens in K1_SVC_CASES]
             cases += [(T, lens, RT_HEADS) for T, lens in K1_RT_CASES]
             cases += [(T, lens, "v2") for T, lens in K1_V2_CASES]
+            cases += [(T, lens, "v2t") for T, lens in K1_V2T_CASES]
         for dtype in (torch.bfloat16, torch.float32):
             atol, rtol = K1_TOL[str(dtype).split(".")[1]]
             for T, lens, slot_heads in cases:
-                heads = 8 if slot_heads == "v2" else slot_heads
+                if slot_heads == "v2t" and dtype != torch.float32:
+                    continue  # the v2 trainer's shapes: f32 only, as it runs them
+                heads = 8 if slot_heads in ("v2", "v2t") else slot_heads
                 q, k, v, cos, sin, lens_t = _k1_inputs(T, dtype, lens, heads=heads)
                 args = (q, k, v, cos, sin) if rope else (q, k, v)
                 f32 = dtype == torch.float32
@@ -555,8 +598,10 @@ def phase_kernels_bwd() -> dict:
         name = str(dtype).split(".")[1]
         rel_tol, max_tol = K1B_TOL[name]
         worst = [0.0, 0.0, 0.0]  # rel L2, max abs over max|ref|, max abs
+        # the v2 trainer's shapes in f32, as it runs them
+        cases = K1B_CASES + (K1_V2T_CASES if dtype == torch.float32 else [])
         for rope in (True, False):
-            for T, lens in K1B_CASES:
+            for T, lens in cases:
                 q, k, v, cos, sin, lens_t = _k1_inputs(T, dtype, lens, seed=T + 5)
                 g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(T),
                                 device="cuda").to(dtype)
@@ -1112,7 +1157,8 @@ MB_LAUNCHES = {"attention": {"k3": 1}, "dit": {"k1": MB_DEPTH}, "vocoder": {"k2"
                "serving": {"k1": MB_STEPS * MB_DEPTH}, "serving_b1": {"k1": MB_STEPS * MB_DEPTH},
                "serving_b2": {"k1": MB_STEPS * MB_DEPTH},
                **{t: {"k1": MB_DEPTH, "k1b": MB_DEPTH}
-                  for t in ("train_step", "train_step_bf16", "train_onfly", "train_onfly_sync")}}
+                  for t in ("train_step", "train_step_bf16", "train_onfly", "train_onfly_sync",
+                            "train_onfly_v2")}}
 
 
 def phase_microbench() -> dict:
@@ -2074,7 +2120,7 @@ def phase_train(card: str, profile: bool = False) -> dict:
                 profile_conversion(lambda: step(state, feats, 0), fixed_wall)
                 # the step at the training rows' two T: wall, device time and
                 # the share of K1 and K1ᵇ
-                shapes = train_shapes(result)
+                shapes = train_shapes(result["train f32"]["T"])
                 ds = FTDataset(data, sr, 2)
                 # the run's own batches (an epoch drops the odd clip out)
                 for batch in (b for e in range(4) for b in ds.batches(epoch=e)):
@@ -2107,12 +2153,13 @@ def phase_train(card: str, profile: bool = False) -> dict:
     return result
 
 
-def train_shapes(train: dict) -> list:
-    """The training run's largest T and its commonest other T (the smaller
-    on a tie): the shapes of the training rows and of the step account."""
+def train_shapes(ts: list) -> list:
+    """A training run's largest T and its commonest other T (the smaller on
+    a tie), from the T of its steps: the shapes of the training rows and of
+    the step account."""
     import collections
 
-    t_counts = collections.Counter(train["train f32"]["T"])
+    t_counts = collections.Counter(ts)
     rest = sorted(t for t in t_counts if t != max(t_counts))
     return sorted({max(t_counts)} | ({max(rest, key=lambda t: (t_counts[t], -t))}
                                      if rest else set()))
@@ -2121,8 +2168,8 @@ def train_shapes(train: dict) -> list:
 def train_step_account(step, state, feats, B: int, T: int, card: str) -> dict:
     """One f32 train step on a fixed batch at mel length T: its synchronised
     wall (median of 5 after 2 warm-ups) and, from one profiled step, the
-    device time and the share of it that K1 (RoPE pre-pass and core) and
-    K1ᵇ (its four kernels) take."""
+    device time by kernel (the top rows), and the share of it that K1 (RoPE
+    pre-pass and core) and K1ᵇ (its four kernels) take."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -2145,6 +2192,7 @@ def train_step_account(step, state, feats, B: int, T: int, card: str) -> dict:
         return sum(e.self_device_time_total for e in kernels
                    if any(n in e.key for n in names)) / 1e3
 
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=12))
     k1 = ms(("attn_fwd_tf32", "rope_prepass_f32"))
     k1b = ms(("bwd_prep_kernel", "bwd_dkdv_kernel", "bwd_finish_kernel"))
     log(f"train step account (B={B}, T={T}, f32): wall {wall:.4f} s (median of 5), device "
@@ -2154,16 +2202,19 @@ def train_step_account(step, state, feats, B: int, T: int, card: str) -> dict:
     return {"wall_s": wall, "device_ms": busy, "k1_ms": k1, "k1b_ms": k1b}
 
 
-def train_rows(train: dict, card: str) -> list:
+TRAIN_KINDS = (("float32", "fwd"), ("float32", "bwd"), ("bfloat16", "bwd"))
+
+
+def train_rows(ts: list, card: str, path: str, kinds=TRAIN_KINDS) -> list:
     """The kernels line's training rows: K1 f32 and K1ᵇ f32 / bf16 at the T
-    the f32 run used most and at its largest T, q/k/v (2, 8, T, 64) with
-    every key valid; launches at that T in the f32 run (K1ᵇ bf16 is on no
-    training path: bf16 compute runs attention in f32, as the JAX step's
-    type promotion does). K1 is timed writing the log-sum-exp and K1ᵇ given
-    it, as the autograd Functions call them (K1ᵇ computing the statistics
-    itself is timed and printed too). The f32 bounds are at 3xTF32, bf16 at
-    the bf16 peak. Library: SDPA forward, and SDPA's backward alone
-    (autograd.grad through a retained graph)."""
+    a run used most and at its largest T (``ts``: the T of its steps), q/k/v
+    (2, 8, T, 64) with every key valid; launches at that T in the run, 13 a
+    step (K1ᵇ bf16 is on no training path: bf16 compute runs attention in
+    f32, as the JAX step's type promotion does). K1 is timed writing the
+    log-sum-exp and K1ᵇ given it, as the autograd Functions call them (K1ᵇ
+    computing the statistics itself is timed and printed too). The f32
+    bounds are at 3xTF32, bf16 at the bf16 peak. Library: SDPA forward, and
+    SDPA's backward alone (autograd.grad through a retained graph)."""
     import collections
 
     import torch
@@ -2172,12 +2223,11 @@ def train_rows(train: dict, card: str) -> list:
     from seedvc_tpu_torch.core.profiling import cuda_time_ms
     from seedvc_tpu_torch.ops import attention
 
-    t_counts = collections.Counter(train["train f32"]["T"])
+    t_counts = collections.Counter(ts)
     rows = []
-    for T in train_shapes(train):
+    for T in train_shapes(ts):
         launches = TRAIN_DEPTH * t_counts[T]
-        for dtype, kernel in ((torch.float32, "fwd"), (torch.float32, "bwd"),
-                              (torch.bfloat16, "bwd")):
+        for dtype, kernel in ((getattr(torch, dt), kind) for dt, kind in kinds):
             q, k, v, cos, sin, _ = _k1_inputs(T, dtype, None, seed=T)
             B, H, _, d = q.shape
             g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1),
@@ -2232,16 +2282,280 @@ def train_rows(train: dict, card: str) -> list:
                 f"{' (3xTF32)' if f32 and b_by == 'operations' else ''}), share "
                 f"{b_ms / ms:.3f}, max_abs_err {err:.3e}; {card}")
             row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                   "path": ("v1 fine-tuning (apps.train, f32)" if n
-                            else "none on the training path (phase 3 only)"),
+                   "path": path if n else "none on the training path (phase 3 only)",
                    "shape": f"q/k/v {tuple(q.shape)} {dt}, lens None",
-                   "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                   "launches": n, "launches_per_step": TRAIN_DEPTH if n else 0,
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain,
                    "bound_ms": b_ms, "bound_by": b_by, "bound_rate": rate,
                    "share": b_ms / ms, "library_ms": lib, "card": card}
             if own is not None:
                 row["ms_own_statistics"] = own
             rows.append(row)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# v2 fine-tuning: the joint AR + CFM loss, K1 f32 forward and K1ᵇ backward in
+# the DiT's trunk; reduced cuda against cpu, then apps.train_v2 at full width.
+# Limits as the v1 training phase's (TRAIN_*_RTOL); the distillation term,
+# a squared difference of two close losses, to 1e-5 of the loss.
+V2T_CLIP = 0.5
+
+
+def small_v2_cfg():
+    """tests/test_trainer_v2.py's tiny v2 sizes, with the DiT at 8 heads of
+    64 (512 wide, depth 2): K1's head width."""
+    from seedvc_tpu_torch.models.ar import ARConfig
+    from seedvc_tpu_torch.models.astral import AstralConfig
+    from seedvc_tpu_torch.models.dit_v2 import DiTV2Config
+    from seedvc_tpu_torch.models.ssl import SSLConfig
+    from seedvc_tpu_torch.pipelines.convert_v2 import V2Config
+
+    return V2Config(
+        dit=DiTV2Config(hidden_dim=512, depth=2, num_heads=8, content_dim=32,
+                        style_encoder_dim=24),
+        ar=ARConfig(dim=32, n_layer=2, n_head=4, n_local_heads=2, head_dim=8,
+                    intermediate_size=64, vocab_size=33, max_seq_len=1024),
+        ssl=SSLConfig(conv_dim=16, d_model=32, n_layers=1, n_heads=4, ffn_dim=64),
+        narrow=AstralConfig(dim=24, intermediate_dim=48, num_blocks=1, input_dim=32,
+                            codebook_size=8),
+        wide=AstralConfig(dim=24, intermediate_dim=48, num_blocks=1, input_dim=32,
+                          codebook_size=32))
+
+
+def v2_batch(secs, seed: int):
+    """A dataset batch of synthetic clips of ``secs`` seconds (their own 16 kHz
+    renderings as the 16 kHz waves)."""
+    from seedvc_tpu_torch.train.dataset import Batch
+
+    waves = [synthetic_audio(x, V2T_SR, 120.0 + 31 * i, seed + i) for i, x in enumerate(secs)]
+    w16 = [synthetic_audio(x, 16000, 120.0 + 31 * i, seed + i) for i, x in enumerate(secs)]
+
+    def pad(ws):
+        out = np.zeros((len(ws), max(len(w) for w in ws)), np.float32)
+        for i, w in enumerate(ws):
+            out[i, :len(w)] = w
+        return out
+
+    return Batch(pad(waves), pad(w16), np.array([len(w) for w in waves], np.int32),
+                 np.array([len(w) for w in w16], np.int32))
+
+
+def phase_train_v2_small():
+    """(a) The reduced v2 trainer on cuda (K1 f32, K1ᵇ) and on cpu (twins),
+    the same weights (both built from one seed), batch and draws: the first
+    step's losses and every gradient, the parameters after 3 steps with
+    warmup and the global clip active; with ``train_ar=False`` the AR and
+    its regulator stay bit for bit and hold no moments; one distillation
+    step."""
+    import torch
+
+    from seedvc_tpu_torch.ops import attention
+    from seedvc_tpu_torch.train.trainer_v2 import TrainerV2, TrainerV2Config, draw_train_v2
+    from seedvc_tpu_torch.weights import to_jax_params
+
+    cfg = small_v2_cfg()
+    depth, p = cfg.dit.depth, cfg.dit.class_dropout_prob
+
+    def draws_fn(key, shape, device):
+        return draw_train_v2(torch.Generator().manual_seed(100 + key[-1]), *shape, p)
+
+    def make(device, teacher=None, **over):
+        tc = TrainerV2Config(batch_size=2, warmup_steps=2, max_steps=10, base_lr=1e-3,
+                             grad_clip=V2T_CLIP, **over)
+        return TrainerV2(cfg, tc, device=device, draws_fn=draws_fn, teacher_params=teacher)
+
+    host = make("cpu")
+    feats_h, dims = host.prepare_batch(v2_batch((4.0, 3.2), seed=80))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tr = host if dev == "cpu" else make("cuda")
+        feats = {k: v.to(dev) for k, v in feats_h.items()}
+        p0 = {n: q.detach().clone() for n, q in tr.model.named_parameters()}
+        reset_counts()
+        m1 = {k: float(v) for k, v in tr._device_step(feats, dims, (0, 0)).items()}
+        launched = (attention.LAUNCHES, attention.BWD_LAUNCHES, attention.DIT_ATTENTION_LAUNCHES)
+        if launched != ((depth, depth, 0) if dev == "cuda" else (0, 0, 0)):
+            fail(f"train_v2 small {dev}: launches (K1, K1b, K3) {launched} in one step")
+        grads = {n: q.grad.detach().clone() for n, q in tr.model.named_parameters()
+                 if q.grad is not None}
+        norms = [m1["grad_norm"]] + [float(tr._device_step(feats, dims, (0, i))["grad_norm"])
+                                     for i in (1, 2)]
+        out[dev] = (m1, grads, {n: q.detach() - p0[n] for n, q in tr.model.named_parameters()},
+                    norms)
+    (m_c, g_c, d_c, n_c), (m_p, g_p, d_p, n_p) = out["cuda"], out["cpu"]
+    loss_rel = max(abs(m_c[k] - m_p[k]) / abs(m_p[k]) for k in ("loss_cfm", "loss_ar"))
+    grad_rel = max(rel_l2(g_c[n], g_p[n]) for n in g_p)
+    step_rel = max(rel_l2(d_c[n], d_p[n]) for n in d_p)
+    log(f"train_v2 small (T={dims['mel_T'] + 2}): loss_cfm cuda {m_c['loss_cfm']:.6f} cpu "
+        f"{m_p['loss_cfm']:.6f}, loss_ar cuda {m_c['loss_ar']:.6f} cpu {m_p['loss_ar']:.6f} "
+        f"(worst rel {loss_rel:.2e} tol {TRAIN_LOSS_RTOL:g}); worst gradient rel_l2 "
+        f"{grad_rel:.2e} tol {TRAIN_GRAD_RTOL:g} over {len(g_p)} parameters; grad norms cuda "
+        f"{n_c} cpu {n_p} (global clip {V2T_CLIP}); after 3 steps worst parameter-change "
+        f"rel_l2 {step_rel:.2e} tol {TRAIN_STEP_RTOL:g}")
+    n_params = sum(1 for _ in host.model.parameters())
+    if set(g_c) != set(g_p) or len(g_p) != n_params:
+        fail("train_v2 small: a parameter got no gradient")
+    if loss_rel > TRAIN_LOSS_RTOL or grad_rel > TRAIN_GRAD_RTOL or step_rel > TRAIN_STEP_RTOL:
+        fail("train_v2 small: cuda and cpu disagree")
+    if min(n_p + n_c) <= V2T_CLIP:
+        fail("train_v2 small: the global clip was not active")
+
+    # train_ar=False on the card: the AR branch stays bit for bit, no moments
+    tr = make("cuda", train_ar=False)
+    feats = {k: v.cuda() for k, v in feats_h.items()}
+    before = {n: q.detach().clone() for n, q in tr.model.named_parameters()}
+    reset_counts()
+    for i in range(2):
+        m = tr._device_step(feats, dims, (0, i))
+    moved = {n for n, q in tr.model.named_parameters() if not torch.equal(q, before[n])}
+    frozen_ok = all(n.startswith(("dit.", "cfm_reg.")) for n in moved) and any(
+        n.startswith("dit.") for n in moved)
+    ar_state = tr.state.opt_state.groups["ar"]
+    log(f"train_v2 small train_ar=False: {len(moved)} of {len(before)} parameters moved, all "
+        f"in dit/cfm_reg: {frozen_ok}; ar moments {len(ar_state.mu)}, count {ar_state.count}; "
+        f"metrics {sorted(m)}; launches (K1, K1b) {attention.LAUNCHES, attention.BWD_LAUNCHES}")
+    if not frozen_ok or ar_state.mu or ar_state.count or "loss_ar" in m:
+        fail("train_v2 small: train_ar=False changed the AR branch")
+    if (attention.LAUNCHES, attention.BWD_LAUNCHES) != (2 * depth, 2 * depth):
+        fail("train_v2 small: train_ar=False launched the wrong K1/K1b count")
+
+    # one distillation step, cuda against cpu: the teacher is the trained
+    # host's weights perturbed, both terms on
+    rng = np.random.default_rng(3)
+
+    def perturbed(tree):
+        return {k: perturbed(v) if isinstance(v, dict)
+                else (v + 0.05 * rng.standard_normal(v.shape)).astype(np.float32)
+                for k, v in tree.items()}
+
+    teacher = perturbed(to_jax_params(host.model))
+    dist = {}
+    for dev in ("cuda", "cpu"):
+        tr = make(dev, teacher=teacher, distill_cfm=True, distill_ar=True)
+        feats = {k: v.to(dev) for k, v in feats_h.items()}
+        dist[dev] = {k: float(v) for k, v in tr._device_step(feats, dims, (0, 0)).items()}
+    worst = max(abs(dist["cuda"][k] - dist["cpu"][k]) for k in dist["cpu"] if k != "grad_norm")
+    log(f"train_v2 small distillation: cuda {dist['cuda']} cpu {dist['cpu']}; worst loss "
+        f"difference {worst:.2e} tol {TRAIN_LOSS_RTOL:g} x loss")
+    if set(dist["cuda"]) != set(dist["cpu"]) or not dist["cpu"]["loss_distill"] > 0:
+        fail("train_v2 small: the distillation step gave no distillation term")
+    if worst > TRAIN_LOSS_RTOL * dist["cpu"]["loss"]:
+        fail("train_v2 small: the distillation step disagrees between cuda and cpu")
+
+
+def phase_train_v2(card: str, profile: bool = False) -> dict:
+    """(a) reduced, cuda against cpu; (b) ``apps.train_v2`` at full width
+    (``V2Config()``, random weights) on eight synthetic clips of 4-12 s,
+    B = 2: 6 steps saving at 3 and 6, a run that resumes at 6 and trains to
+    9 (each step 13 K1, 13 K1ᵇ, 0 K3, a finite loss and grad norm), 3 steps
+    with ``--train-cfm false`` (no K1, no K1ᵇ), then 10 steps on one fixed
+    batch and draws with a fresh optimizer, which must lower the loss; with
+    ``profile``, one profiled step of that batch (the step's account)."""
+    import tempfile
+
+    import torch
+
+    from seedvc_tpu_torch.apps import train_v2 as train_v2_app
+    from seedvc_tpu_torch.apps.audio_io import save_wav
+    from seedvc_tpu_torch.ops import attention
+    from seedvc_tpu_torch.train.dataset import FTDataset
+    from seedvc_tpu_torch.train.optim import make_v2_optimizer
+    from seedvc_tpu_torch.train.trainer_v2 import V2TrainState, draw_train_v2
+
+    phase_train_v2_small()
+    result = {"T": []}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="train_v2_smoke_") as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        for i, secs in enumerate(V2T_CLIPS):
+            save_wav(os.path.join(data, f"clip{i}.wav"),
+                     synthetic_audio(secs, V2T_SR, 105.0 + 19 * i, seed=90 + i), V2T_SR)
+        os.chdir(tmp)  # apps.train_v2 writes ./runs/<run-name>
+        try:
+            base = ["--dataset-dir", data, "--batch-size", "2", "--log-interval", "1"]
+            for what, extra, first, n, per_step in (
+                    ("train_v2", ["--max-steps", "6", "--save-interval", "3"], 1, 6, TRAIN_DEPTH),
+                    ("train_v2 resume", ["--max-steps", "9", "--save-interval", "3"], 7, 3,
+                     TRAIN_DEPTH),
+                    ("train_v2 cfm off", ["--max-steps", "3", "--run-name", "ar_only",
+                                          "--train-cfm", "false", "--save-interval", "100"],
+                     1, 3, 0)):
+                trainer = None
+                torch.cuda.empty_cache()
+                reset_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                trainer = train_v2_app.main(base + extra)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                rate, rows = train_step_log(trainer.history)
+                for r in rows:
+                    log(f"  {what} step {r}")
+                if [r["step"] for r in rows] != list(range(first, first + n)):
+                    fail(f"{what}: steps {[r['step'] for r in rows]}")
+                for r in rows:
+                    if (r["k1"], r["k1b"], r["k3"]) != (per_step, per_step, 0):
+                        fail(f"{what}: step {r['step']} launched K1/K1b/K3 "
+                             f"{r['k1']}/{r['k1b']}/{r['k3']}, expected {per_step}/{per_step}/0")
+                    if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+                        fail(f"{what}: step {r['step']} loss {r['loss']} grad norm "
+                             f"{r['grad_norm']}")
+                totals = (attention.LAUNCHES, attention.BWD_LAUNCHES,
+                          attention.DIT_ATTENTION_LAUNCHES)
+                if totals != (per_step * n, per_step * n, 0):
+                    fail(f"{what}: launches (K1, K1b, K3) {totals} for {n} steps")
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                prep = float(np.mean([r["prep_s"] for r in rows]))
+                step_s = [r["step_s"] for r in rows if r["step_s"] is not None]
+                log(f"{what}: {n} steps in {wall:.1f} s wall (models built, data read and "
+                    f"saved included); {rate:.3f} steps/s after the first; prep {prep:.3f} s "
+                    f"a step on the worker; step seconds (end to end, saves included) "
+                    f"{step_s}, median "
+                    f"{float(np.median(step_s)) if step_s else float('nan'):.4f}; T by step "
+                    f"{[r['T'] + 2 for r in rows]} (mel bucket + 2); peak device memory "
+                    f"{peak:.2f} GiB; launches (K1, K1b, K3) {totals}; {card}")
+                result[what] = {"steps_per_s": rate, "prep_s": prep, "step_s": step_s,
+                                "T": [r["T"] + 2 for r in rows], "peak_gib": peak,
+                                "launches": totals, "wall_s": wall}
+                if per_step:
+                    result["T"] += [r["T"] + 2 for r in rows]
+                    cfm_trainer = trainer
+
+            # 10 steps on one fixed batch (the longest clips: the run's
+            # largest T) with fixed draws and a fresh optimizer (constant LR
+            # 1e-4) lower the loss
+            trainer = cfm_trainer
+            batch = max(FTDataset(data, V2T_SR, 2).batches(shuffle=False),
+                        key=lambda b: int(b.wave_lengths.max()))
+            feats, dims = trainer.prepare_batch(batch)
+            B, T = feats["mels"].shape[:2]
+            fixed = draw_train_v2(torch.Generator(device="cuda").manual_seed(5), B, T, 80,
+                                  trainer.vcfg.dit.class_dropout_prob, device="cuda")
+            trainer.draws_fn = lambda *_a: fixed
+            trainer.optimizer = make_v2_optimizer(1e-4)
+            params = trainer.state.params
+            trainer.state = V2TrainState(params, trainer.optimizer.init(params), 0)
+            losses, walls = [], []
+            for i in range(10):
+                t0 = time.perf_counter()
+                losses.append(float(trainer._device_step(feats, dims, (0, i))["loss"]))
+                walls.append(time.perf_counter() - t0)  # float() read the device
+            fixed_wall = float(np.median(walls[1:]))
+            log(f"train_v2 fixed batch (B={B}, T={T + 2}, ar_C={dims['ar_C']}, "
+                f"ar_X={dims['ar_X']}): losses over 10 steps {[round(x, 5) for x in losses]}; "
+                f"step wall median {fixed_wall:.4f} s; {card}")
+            if not losses[-1] < losses[0]:
+                fail("train_v2: 10 steps on one fixed batch did not lower the loss")
+            result["fixed"] = {"T": T + 2, "step_wall_s": fixed_wall}
+            if profile:
+                result["account"] = train_step_account(
+                    lambda _st, _f, i: (None, trainer._device_step(feats, dims, (0, i))),
+                    None, feats, B, T + 2, card)
+        finally:
+            os.chdir(cwd)
+    return result
 
 
 @contextlib.contextmanager
@@ -2448,8 +2762,11 @@ def main(argv=None) -> int:
     phase_v2_small()
     v2 = phase_v2_full(card, args.profile)
     train = phase_train(card, args.profile)
+    v2t = phase_train_v2(card, args.profile)
     line = phase_kernel_line(errs, full, svc, mb_counts, rt, v2)
-    line["kernels"] += train_rows(train, card)
+    line["kernels"] += train_rows(train["train f32"]["T"], card, "v1 fine-tuning (apps.train, f32)")
+    line["kernels"] += train_rows(v2t["T"], card, "v2 fine-tuning (apps.train_v2, f32)",
+                                  kinds=TRAIN_KINDS[:2])
     log(f"K1b worst errors against the twin in phase 3 (rel_l2, max/max|ref|, max abs): "
         f"{errs_bwd}")
     log(card)

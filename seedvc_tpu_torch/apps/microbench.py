@@ -3,11 +3,12 @@
 
 Times the hot components of the 98M ``whisper_small_wavenet`` sampler at its
 production shape (B = 2 CFG stack, T = 2560, bf16 activations), the BigVGAN
-vocoder, the batched 25-step sampler and the v2 AR decode, and prints one JSON row per
-component: ``name``, ``ms`` and, where the JAX package gives them,
-``tflops_per_s`` / ``gb_per_s`` / ``audio_s_per_s`` from the same FLOP
-formulas; plus ``device`` (the card's name) and ``calls`` (how many times the
-component ran, warm-up included, so a caller can check kernel launch counts).
+vocoder, the batched 25-step sampler, the v2 AR decode and the v1 and v2
+fine-tuning steps, and prints one JSON row per component: ``name``, ``ms``
+and, where the JAX package gives them, ``tflops_per_s`` / ``gb_per_s`` /
+``audio_s_per_s`` from the same FLOP formulas; plus ``device`` (the card's
+name) and ``calls`` (how many times the component ran, warm-up included, so
+a caller can check kernel launch counts).
 
     python -m seedvc_tpu_torch.apps.microbench              # every ported component
     python -m seedvc_tpu_torch.apps.microbench --only dit,attention
@@ -408,15 +409,57 @@ def bench_train_onfly(B=4, steps=12, prefetch=2, device="cuda", cfg=None, whispe
                   final, 3 * 2 * n_params * B * T, steps_per_s=1.0 / dt)
 
 
+def bench_train_onfly_v2(B=2, steps=8, device="cuda", cfg=None):
+    """On-the-fly v2 fine-tuning through ``TrainerV2.train`` (HuBERT-large,
+    both ASTRAL quantizers and CAMPPlus every step, then the DiTV2 + AR
+    step), from one trainer: 3 warm steps, then ``steps`` with the prefetch
+    worker (depth 2) and ``steps`` synchronously (depth 0), each timed by the
+    host clock. 2B clips of 4.2-4.34 s: one 5 s SSL bucket and one 128-frame
+    mel bucket (T = 384); token buckets of 256 hold every count. Two rows;
+    ``calls`` is the steps up to the end of each window (warm-up included in
+    the first), so the rows' calls sum to the steps run."""
+    import os
+    import tempfile
+
+    from seedvc_tpu_torch.apps.audio_io import save_wav
+    from seedvc_tpu_torch.pipelines.convert_v2 import V2Config
+    from seedvc_tpu_torch.train.dataset import FTDataset
+    from seedvc_tpu_torch.train.trainer_v2 import TrainerV2, TrainerV2Config
+
+    dev = _device(device)
+    cfg = cfg or V2Config()
+    rng = np.random.default_rng(0)
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="onfly_v2_") as tmp:
+        for i in range(2 * B):
+            t = np.arange(int((4.2 + 0.02 * i) * cfg.sr)) / cfg.sr
+            w = 0.3 * np.sin(2 * np.pi * (150 + 7 * i) * t) + 0.01 * rng.standard_normal(len(t))
+            save_wav(os.path.join(tmp, f"c{i}.wav"), w.astype(np.float32), cfg.sr)
+        warm = 3
+        tcfg = TrainerV2Config(batch_size=B, epochs=10 ** 6, max_steps=warm,
+                               log_interval=10 ** 9, save_interval=10 ** 9, prefetch=2,
+                               token_bucket=256)
+        trainer = TrainerV2(cfg, tcfg, device=dev)
+        ds = FTDataset(tmp, cfg.sr, batch_size=B)
+        trainer.train(ds)
+        done = warm
+        for tag, depth in (("prefetch", 2), ("sync", 0)):
+            trainer.tcfg = dataclasses.replace(tcfg, prefetch=depth, max_steps=done + steps)
+            _sync(dev)
+            t0 = time.perf_counter()
+            final = trainer.train(ds)
+            _sync(dev)
+            dt = (time.perf_counter() - t0) / (final - done)
+            rows.append(report(f"train_onfly_v2_{tag} B{B} ({steps} steps)", dt, dev,
+                               final if tag == "prefetch" else final - done,
+                               steps_per_s=1.0 / dt))
+            done = final
+    return rows
+
+
 def _sync(dev: torch.device):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def _waiting(item: str):
-    def run(*args, **kwargs):
-        raise NotImplementedError(f"not ported: waits for ROADMAP queue 1 item {item}")
-    return run
 
 
 ALL = {
@@ -436,26 +479,19 @@ ALL = {
     "train_step_bf16": lambda **kw: bench_train_step(compute_dtype=torch.bfloat16, **kw),
     "train_onfly": bench_train_onfly,
     "train_onfly_sync": lambda **kw: bench_train_onfly(prefetch=0, **kw),
-}
-# The JAX package's components whose modules the port does not have yet:
-# named with --only they raise; the default run leaves them out.
-WAITING = {
-    "train_onfly_v2": _waiting("3b (the v2 trainer)"),
+    "train_onfly_v2": bench_train_onfly_v2,
 }
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=None,
-                    help="comma-separated subset of: " + ",".join([*ALL, *WAITING]))
+                    help="comma-separated subset of: " + ",".join(ALL))
     args = ap.parse_args(argv)
     names = args.only.split(",") if args.only else list(ALL)
-    unknown = [n for n in names if n not in ALL and n not in WAITING]
+    unknown = [n for n in names if n not in ALL]
     if unknown:
         ap.error(f"unknown components {unknown}")
-    for name in names:
-        if name in WAITING:
-            WAITING[name]()
     dev = _device("cuda")
     print(f"device: {_device_name(dev)}", flush=True)
     return {name: ALL[name]() for name in names}

@@ -159,7 +159,10 @@ class ARTransformer(nn.Module):
             self.add_module(f"layers_{i}", ARBlock(cfg))
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps)
         self.output = nn.Linear(cfg.dim, cfg.vocab_size, bias=False)
-        self.sep_token_emb = nn.Parameter(torch.zeros(cfg.dim))
+        # N(0, 1), as the JAX module initialises it: a zero sep token stays 0
+        # through every layer (no biases), where each RMSNorm's gradient is
+        # rsqrt(eps), so training from it overflows the gradient
+        self.sep_token_emb = nn.Parameter(torch.randn(cfg.dim))
         self._rope: dict = {}
 
     def rope(self, input_pos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,5 +1,5 @@
-"""v2 CFM: the cosine t-schedule and the multi-condition CFG Euler sampler
-(port of the inference half of ``seedvc_tpu/models/cfm_v2.py``).
+"""v2 CFM: the cosine t-schedule, the multi-condition CFG Euler sampler and
+the training loss (port of ``seedvc_tpu/models/cfm_v2.py``).
 
 ``t <- t - (cos(pi t / 2) - 1 + t)``; the CFG batch stacks up to three
 branches [full / text-only / unconditional] and combines them with weights
@@ -8,6 +8,10 @@ with either rate 0 the stack has two branches, with both none, and
 ``random_voice`` (anonymisation) stacks [text-only / unconditional]. The
 Euler update runs in f32 and is cast back; the prompt region is re-zeroed
 every step. The initial noise is an argument.
+
+:func:`cfm_v2_loss` is the OT-CFM loss with the prompt region given as the
+condition, zeroed in the noisy input and left out of the loss; ``t`` and the
+noise are arguments (the trainer draws them).
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import math
 from typing import Callable, Optional, Sequence
 
 import torch
+
+SIGMA_MIN = 1e-6
 
 
 def cosine_t_span(n_timesteps: int) -> torch.Tensor:
@@ -87,3 +93,30 @@ def euler_solve_multicfg(estimate_fn: Callable, noise: torch.Tensor, mu: torch.T
         x = (x.float() + dt * v.float()).to(x.dtype)
         x = torch.where(in_prompt, torch.zeros_like(x), x)
     return x
+
+
+def cfm_v2_loss(estimate_fn: Callable, x1: torch.Tensor, x_lens: torch.Tensor,
+                prompt_lens: torch.Tensor, mu: torch.Tensor, style: torch.Tensor, *,
+                t: torch.Tensor, noise: torch.Tensor, loss_type: str = "l1") -> torch.Tensor:
+    """x1: (B, T, C) target mels; x_lens, prompt_lens: (B,); t: (B,) f32;
+    noise: (B, T, C) in x1's dtype. ``y = (1 - (1 - sigma) t) z + t x1`` with
+    the prompt frames zeroed, the target ``u = x1 - (1 - sigma) z``; the l1
+    (or l2) error is averaged over each sample's ``valid x C`` elements
+    (valid: past the prompt and below ``x_lens``), then over the batch."""
+    if loss_type not in ("l1", "l2"):
+        raise ValueError(f"unknown loss_type {loss_type!r}")
+    B, T, C = x1.shape
+    tb = t[:, None, None].to(x1.dtype)
+    y = (1 - (1 - SIGMA_MIN) * tb) * noise + tb * x1
+    u = x1 - (1 - SIGMA_MIN) * noise
+    pos = torch.arange(T, device=x1.device)[None, :, None]
+    in_prompt = pos < prompt_lens[:, None, None]
+    zero = torch.zeros((), dtype=x1.dtype, device=x1.device)
+    prompt = torch.where(in_prompt, x1, zero)
+    y = torch.where(in_prompt, zero, y)
+    out = estimate_fn(y, prompt, x_lens, t, style, mu)
+    valid = ((~in_prompt) & (pos < x_lens[:, None, None])).float()
+    diff = (out - u).float()
+    per = (diff * diff if loss_type == "l2" else diff.abs()) * valid
+    denom = torch.clamp(valid.sum(dim=(1, 2)) * C, min=1.0)
+    return (per.sum(dim=(1, 2)) / denom).mean()

@@ -16,6 +16,12 @@ clip norm is taken per module. What the update does, as optax does it:
 - times ``-lr(count)``, where the schedule reads the count as it was before
   this update (0 on the first step), then times the runtime ``lr_scale``.
 
+``make_v2_optimizer`` is the v2 trainer's ``optax.chain(
+clip_by_global_norm(grad_clip), multi_transform({cfm: adamw, ar: adamw or
+set_to_zero}))``: one clip norm over every module (``global_clip``), and a
+frozen group (``frozen``) that takes no update, no weight decay and holds no
+moments, as ``optax.set_to_zero`` does.
+
 A parameter without a gradient (an unused branch) is updated as if its
 gradient were zero, as optax updates every leaf of the tree. The state holds
 fp32 moments on the parameters' device and the count and scale as Python
@@ -86,11 +92,17 @@ class Optimizer:
     (updates, new state), the updates to be added to the parameters."""
 
     def __init__(self, lr: dict, group_of: Callable[[str], str], *, grad_clip: float,
-                 weight_decay: float, b1: float, b2: float, eps: float):
+                 weight_decay: float, b1: float, b2: float, eps: float,
+                 global_clip: bool = False, frozen: tuple = ()):
         self.lr = {k: (v if callable(v) else (lambda _c, _v=v: _v)) for k, v in lr.items()}
         self.group_of = group_of
         self.grad_clip, self.weight_decay = grad_clip, weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.global_clip = global_clip  # one clip norm over every group
+        self.frozen = frozenset(frozen)  # groups updated by optax.set_to_zero
+        unknown = self.frozen - set(self.lr)
+        if unknown:
+            raise KeyError(f"frozen groups {sorted(unknown)} are not groups ({list(self.lr)})")
 
     def _groups(self, names) -> dict:
         groups: dict = {k: [] for k in self.lr}
@@ -103,27 +115,35 @@ class Optimizer:
 
     def init(self, params: dict) -> OptState:
         names = self._groups(params)
-        groups = {g: GroupState(0, [torch.zeros_like(params[n], dtype=torch.float32) for n in ns],
+        groups = {g: GroupState(0, [] if g in self.frozen else
+                                [torch.zeros_like(params[n], dtype=torch.float32) for n in ns],
+                                [] if g in self.frozen else
                                 [torch.zeros_like(params[n], dtype=torch.float32) for n in ns])
                   for g, ns in names.items()}
         return OptState(groups, 1.0, names)
 
+    def _clip_factor(self, gs: list) -> torch.Tensor:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+        return torch.where(norm < self.grad_clip, torch.ones_like(norm), self.grad_clip / norm)
+
     @torch.no_grad()
     def update(self, grads: dict, state: OptState, params: dict) -> tuple[dict, OptState]:
         updates, new_groups = {}, {}
+        group_grads = {
+            g: [(grads.get(n) if grads.get(n) is not None else torch.zeros_like(params[n])).float()
+                for n in names] for g, names in state.names.items()}
+        # clip by the global norm (of the group, or of every group), taken
+        # before anything else; a frozen group's gradients count in the latter
+        every = [t for gs in group_grads.values() for t in gs]
+        factor = self._clip_factor(every) if self.global_clip and every else None
         for g, names in state.names.items():
             st = state.groups[g]
-            if not names:
+            if not names or g in self.frozen:
                 new_groups[g] = st
                 continue
             ps = [params[n] for n in names]
-            gs = [(grads.get(n) if grads.get(n) is not None else torch.zeros_like(p)).float()
-                  for n, p in zip(names, ps)]
-            # clip by the group's global norm, taken before anything else
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
-            factor = torch.where(norm < self.grad_clip, torch.ones_like(norm),
-                                 self.grad_clip / norm)
-            gs = torch._foreach_mul(gs, factor)
+            gs = group_grads[g]
+            gs = torch._foreach_mul(gs, factor if factor is not None else self._clip_factor(gs))
             mu = torch._foreach_mul(st.mu, self.b1)
             torch._foreach_add_(mu, gs, alpha=1 - self.b1)
             nu = torch._foreach_mul(st.nu, self.b2)
@@ -167,6 +187,22 @@ def make_multi_optimizer(lr, *, module_keys=("cfm", "length_regulator"),
         lr = {k: lr for k in module_keys}
     return Optimizer(dict(lr), lambda n: n.split(".", 1)[0], grad_clip=grad_clip,
                      weight_decay=weight_decay, b1=b1, b2=b2, eps=eps)
+
+
+V2_GROUPS = {"dit": "cfm", "cfm_reg": "cfm", "ar": "ar", "ar_reg": "ar"}
+
+
+def make_v2_optimizer(lr: LR = 1e-4, *, train_cfm: bool = True, train_ar: bool = True,
+                      grad_clip: float = 1000.0, weight_decay: float = 0.01, b1: float = 0.9,
+                      b2: float = 0.98, eps: float = 1e-6) -> Optimizer:
+    """The v2 trainer's chain: one clip by the global norm over every module,
+    then an AdamW chain for the ``cfm`` modules (``dit``, ``cfm_reg``) and one
+    for the ``ar`` modules (``ar``, ``ar_reg``); a branch left out of training
+    (``train_cfm`` / ``train_ar`` False) is frozen, then ``lr_scale``."""
+    frozen = tuple(g for g, on in (("cfm", train_cfm), ("ar", train_ar)) if not on)
+    return Optimizer({"cfm": lr, "ar": lr}, lambda n: V2_GROUPS[n.split(".", 1)[0]],
+                     grad_clip=grad_clip, weight_decay=weight_decay, b1=b1, b2=b2, eps=eps,
+                     global_clip=True, frozen=frozen)
 
 
 def get_lr_scale(state: OptState) -> float:

@@ -50,8 +50,8 @@ from seedvc_tpu_torch.models.vc import VCModel
 from seedvc_tpu_torch.models.whisper import WHISPER_SMALL, WhisperEncoder, WhisperEncoderConfig
 from seedvc_tpu_torch.ops import attention
 from seedvc_tpu_torch.train.dataset import Batch, FTDataset
-from seedvc_tpu_torch.train.optim import (get_lr_scale, make_multi_optimizer, make_optimizer,
-                                          set_lr_scale, warmup_cosine)
+from seedvc_tpu_torch.train.optim import (OptState, get_lr_scale, make_multi_optimizer,
+                                          make_optimizer, set_lr_scale, warmup_cosine)
 from seedvc_tpu_torch.train.prefetch import prefetched
 from seedvc_tpu_torch.train.step import (MULTI_GPU, TrainState, init_state, make_eval_step,
                                          make_train_step)
@@ -91,6 +91,79 @@ class TrainerConfig:
     perturb_max: float = 1.15
     prefetch: int = 2             # batches prepared ahead on a worker thread; 0 = off
     seed: int = 1234
+
+
+def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device`` (through pinned memory, without
+    waiting, on cuda)."""
+    t = torch.from_numpy(np.array(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def padded_mel(mel_fn: MelFrontend, waves: torch.Tensor,
+               mel_lens: torch.Tensor) -> torch.Tensor:
+    """The batch's mels with -10 past each clip's ``mel_lens`` frames."""
+    mels = mel_fn(waves)
+    pos = torch.arange(mels.shape[1], device=mels.device)[None, :]
+    return torch.where((pos < mel_lens[:, None])[..., None], mels, torch.full_like(mels, -10.0))
+
+
+def batch_style(campplus: CAMPPlus, w16: torch.Tensor, frame_lens: torch.Tensor) -> torch.Tensor:
+    """CAMPPlus style from the true frame lengths: fbank over the padded 16 kHz
+    batch, per-sample mean subtraction over the valid frames, masked."""
+    fb = kaldi_fbank(w16)
+    fmask = (torch.arange(fb.shape[1], device=fb.device)[None, :]
+             < frame_lens[:, None]).to(fb.dtype)[..., None]
+    mean = (fb * fmask).sum(dim=1, keepdim=True) / torch.clamp(
+        frame_lens[:, None, None].to(fb.dtype), min=1.0)
+    return campplus((fb - mean) * fmask, frame_lens)
+
+
+def checkpoint_paths(run_dir: str) -> dict:
+    """step -> path of the ``ckpt_<step>.pt`` files in ``run_dir``."""
+    out = {}
+    for p in glob.glob(os.path.join(run_dir, "ckpt_*.pt")):
+        m = re.fullmatch(r"ckpt_(\d+)\.pt", os.path.basename(p))
+        if m:
+            out[int(m.group(1))] = p
+    return out
+
+
+def latest_checkpoint(run_dir: str) -> Optional[int]:
+    paths = checkpoint_paths(run_dir) if run_dir else {}
+    return max(paths) if paths else None
+
+
+def write_checkpoint(run_dir: str, step: int, tree: dict):
+    """``torch.save`` ``tree`` as ``run_dir/ckpt_<step>.pt`` (through a
+    temporary file) and keep the newest ``CKPT_KEEP``."""
+    path = os.path.join(run_dir, f"ckpt_{step:08d}.pt")
+    torch.save(tree, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    paths = checkpoint_paths(run_dir)
+    for old in sorted(paths)[:-CKPT_KEEP]:
+        os.remove(paths[old])
+
+
+def opt_state_tree(opt: OptState) -> dict:
+    return {"lr_scale": opt.lr_scale, "names": opt.names,
+            "groups": {g: {"count": gs.count, "mu": [t.cpu() for t in gs.mu],
+                           "nu": [t.cpu() for t in gs.nu]} for g, gs in opt.groups.items()}}
+
+
+def load_opt_state(opt: OptState, saved: dict) -> OptState:
+    """Copy a saved optimizer state into ``opt``'s tensors in place; returns it
+    with the saved ``lr_scale``."""
+    if saved["names"] != opt.names:
+        raise ValueError("checkpoint optimizer groups do not match this trainer's")
+    for g, gs in opt.groups.items():
+        src = saved["groups"][g]
+        gs.count = int(src["count"])
+        for dst, t in zip(gs.mu + gs.nu, src["mu"] + src["nu"]):
+            dst.copy_(t)
+    return set_lr_scale(opt, float(saved["lr_scale"]))
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -185,32 +258,13 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _put(self, x: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.array(x))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return to_device(x, self.device)
 
     def _whisper(self, w16: torch.Tensor) -> torch.Tensor:
         """Content features (f32) of a (B, T<=30 s) 16 kHz batch, the encoder
         on the wave zero-padded to its 30 s window."""
         mel = whisper_log_mel(w16).to(self.enc_dtype)
         return self.whisper(mel).float()
-
-    def _style(self, w16: torch.Tensor, frame_lens: torch.Tensor) -> torch.Tensor:
-        """CAMPPlus style from the true frame lengths: fbank over the padded
-        batch, per-sample mean subtraction over the valid frames, masked."""
-        fb = kaldi_fbank(w16)
-        fmask = (torch.arange(fb.shape[1], device=fb.device)[None, :]
-                 < frame_lens[:, None]).to(fb.dtype)[..., None]
-        mean = (fb * fmask).sum(dim=1, keepdim=True) / torch.clamp(
-            frame_lens[:, None, None].to(fb.dtype), min=1.0)
-        return self.campplus((fb - mean) * fmask, frame_lens)
-
-    def _mel(self, waves: torch.Tensor, mel_lens: torch.Tensor) -> torch.Tensor:
-        mels = self.mel_fn(waves)
-        pos = torch.arange(mels.shape[1], device=mels.device)[None, :]
-        return torch.where((pos < mel_lens[:, None])[..., None], mels,
-                           torch.full_like(mels, -10.0))
 
     @torch.no_grad()
     def prepare_batch(self, batch: Batch, rng: np.random.Generator,
@@ -227,7 +281,7 @@ class Trainer:
         n = min(waves.shape[1], batch.waves.shape[1])
         waves[:, :n] = batch.waves[:, :n]
         mel_lens_d = self._put(mel_lens)
-        mels = self._mel(self._put(waves), mel_lens_d)
+        mels = padded_mel(self.mel_fn, self._put(waves), mel_lens_d)
 
         # one 1 s-bucketed 16 kHz batch for every consumer
         w16_T = min(-(-batch.waves_16k.shape[1] // 16000) * 16000, 30 * 16000)
@@ -250,7 +304,7 @@ class Trainer:
         else:
             s = self._whisper(torch.cat([w16, warp_rate(w16, inv_rate)], dim=0))
             s_ori, s_alt = s[:B], s[B:]
-            style = self._style(w16, self._put(frame_lens))
+            style = batch_style(self.campplus, w16, self._put(frame_lens))
             if ids is not None:
                 for b, i in enumerate(ids):
                     i = int(i)
@@ -290,18 +344,10 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _ckpt_paths(self) -> dict:
-        out = {}
-        for p in glob.glob(os.path.join(self.tcfg.run_dir, "ckpt_*.pt")):
-            m = re.fullmatch(r"ckpt_(\d+)\.pt", os.path.basename(p))
-            if m:
-                out[int(m.group(1))] = p
-        return out
+        return checkpoint_paths(self.tcfg.run_dir)
 
     def latest_step(self) -> Optional[int]:
-        if not self.tcfg.run_dir:
-            return None
-        paths = self._ckpt_paths()
-        return max(paths) if paths else None
+        return latest_checkpoint(self.tcfg.run_dir)
 
     def save(self, step: int):
         """Checkpoint the params, optimizer state, step and EMA at ``step``
@@ -309,22 +355,11 @@ class Trainer:
         if not self.tcfg.run_dir or self.latest_step() == step:
             return
         st = self.state
-        opt = st.opt_state
-        tree = {
-            "params": {n: p.detach().cpu() for n, p in st.params.items()},
-            "opt_state": {"lr_scale": opt.lr_scale, "names": opt.names,
-                          "groups": {g: {"count": gs.count, "mu": [t.cpu() for t in gs.mu],
-                                         "nu": [t.cpu() for t in gs.nu]}
-                                     for g, gs in opt.groups.items()}},
-            "step": st.step,
-        }
+        tree = {"params": {n: p.detach().cpu() for n, p in st.params.items()},
+                "opt_state": opt_state_tree(st.opt_state), "step": st.step}
         if st.ema_params is not None:
             tree["ema_params"] = {n: t.cpu() for n, t in st.ema_params.items()}
-        path = os.path.join(self.tcfg.run_dir, f"ckpt_{step:08d}.pt")
-        torch.save(tree, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        for old in sorted(self._ckpt_paths())[:-CKPT_KEEP]:
-            os.remove(self._ckpt_paths()[old])
+        write_checkpoint(self.tcfg.run_dir, step, tree)
 
     def restore_latest(self) -> bool:
         """Load the newest checkpoint of ``run_dir`` into the trainer; False if
@@ -333,22 +368,13 @@ class Trainer:
         latest = self.latest_step()
         if latest is None:
             return False
-        tree = torch.load(self._ckpt_paths()[latest], map_location=self.device,
+        tree = torch.load(checkpoint_paths(self.tcfg.run_dir)[latest], map_location=self.device,
                           weights_only=True)
         st = self.state
         with torch.no_grad():
             for n, p in st.params.items():
                 p.copy_(tree["params"][n])
-        o = tree["opt_state"]
-        opt = st.opt_state
-        if o["names"] != opt.names:
-            raise ValueError("checkpoint optimizer groups do not match this trainer's")
-        for g, gs in opt.groups.items():
-            saved = o["groups"][g]
-            gs.count = int(saved["count"])
-            for dst, src in zip(gs.mu + gs.nu, saved["mu"] + saved["nu"]):
-                dst.copy_(src)
-        opt = set_lr_scale(opt, float(o["lr_scale"]))
+        opt = load_opt_state(st.opt_state, tree["opt_state"])
         ema = st.ema_params
         if ema is not None:
             src = tree.get("ema_params") or tree["params"]

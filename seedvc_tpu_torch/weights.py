@@ -100,6 +100,8 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
 
 
 _NORMS = (nn.GroupNorm, nn.LayerNorm, nn.modules.batchnorm._NormBase)
+# the port's own norm modules whose ``weight`` is a flax ``scale``
+_NAMED_NORMS = ("MaskedGroupNorm", "EvalBatchNorm")
 _INVERSE_RENAME = {"running_mean": "mean", "running_var": "var"}
 
 
@@ -119,7 +121,7 @@ def _to_flax(mod: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.ndarra
         return "kernel", arr.transpose(np.argsort(perm))
     if isinstance(mod, nn.Embedding):
         return "embedding", arr
-    if isinstance(mod, _NORMS) or type(mod).__name__ == "MaskedGroupNorm":
+    if isinstance(mod, _NORMS) or type(mod).__name__ in _NAMED_NORMS:
         return "scale", arr
     if isinstance(mod, nn.Linear) or type(mod).__name__ == "SplitDense":
         return "kernel", arr.T

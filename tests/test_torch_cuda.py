@@ -243,6 +243,36 @@ def test_attention_bwd_kernel_matches_twin(T, lens, dtype, rope):
             assert _rel_l2(a, b) <= 5e-3, name
 
 
+# the v2 trainer's shapes: T = the 128-frame mel bucket + 2 prefix tokens
+# (a last tile of two rows and keys), lens = mel frames + 2 of its clips
+# (4.0 s with 4.4 s, 12 s with 11 s), a 0 entry and one valid key
+V2_TRAIN_CASES = [(386, (346, 380)), (386, (0, 346)), (386, (380, 1)),
+                  (1154, (1035, 949)), (1154, (0, 1035)), (1154, (1035, 1))]
+
+
+@pytest.mark.parametrize("T,lens", V2_TRAIN_CASES)
+def test_attention_kernels_at_v2_trainer_shapes(T, lens):
+    """K1 f32 writing its log-sum-exp, and K1ᵇ f32 given it (as the autograd
+    Function calls them in the v2 trainer), at (2, 8, T, 64): the output to
+    1e-4 and the lse to 1e-5 of max(1, |lse|) against the twin; dq, dk, dv
+    to 2e-6 relative L2 and 5e-6 of the largest gradient against autograd
+    through the twin."""
+    (got, ref, _) = _bwd_call(True, T, lens, torch.float32, 50, True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel_l2(a, b) <= 2e-6, name
+        assert (a - b).abs().max().item() <= 5e-6 * b.abs().max().item(), name
+    q, k, v = (_randn(50 + s, 2, 8, T, 64) for s in range(3))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    cos, sin = (torch.from_numpy(a).cuda() for a in rope_full_cache(T, 64))
+    out, lse = attention.dit_attention_fused(q, k, v, cos, sin, lens_t, return_lse=True)
+    torch.testing.assert_close(out, attention.dit_attention_fused_reference(
+        q, k, v, cos, sin, lens_t), atol=1e-4, rtol=0)
+    lse_ref = attention.dit_attention_lse_reference(attention.rope_scaled_reference(q, cos, sin),
+                                                    attention.rope_scaled_reference(k, cos, sin),
+                                                    lens_t)
+    assert ((lse - lse_ref).abs() <= 1e-5 * lse_ref.abs().clamp(min=1.0)).all()
+
+
 @pytest.mark.parametrize("n_kv", [None, 2], ids=["k1", "k3"])
 def test_attention_module_grad_on_card(n_kv):
     """``Attention(use_flash=True)`` in grad mode on the card: one forward

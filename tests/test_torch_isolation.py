@@ -4,8 +4,8 @@
   ``jax``, ``flax`` or ``seedvc_tpu`` (AST scan, so lazy imports count too);
 - ``VoiceConverter()``, ``SeedVCWrapper()``, ``StreamingConverter`` on a
   default converter, ``VoiceConverterV2()``, the AR's ``ARGenerator``, the
-  trainer, and the infer, infer_v2, realtime, stream_bench and train CLIs,
-  given no device,
+  trainers (v1 and v2), and the infer, infer_v2, realtime, stream_bench,
+  train and train_v2 CLIs, given no device,
   raise when CUDA is absent (``device="cpu"`` / ``--device cpu`` is
   the only way to the CPU);
 - the streaming path's SOLA loader never writes into ``native/`` (in
@@ -23,10 +23,11 @@ import torch
 
 from seedvc_tpu_torch.apps import infer, infer_v2, realtime, stream_bench
 from seedvc_tpu_torch.apps import train as train_app
+from seedvc_tpu_torch.apps import train_v2 as train_v2_app
 from seedvc_tpu_torch.models import ar
 from seedvc_tpu_torch.ops import anti_alias, attention, build
 from seedvc_tpu_torch.pipelines import convert, convert_v2, streaming, wrapper
-from seedvc_tpu_torch.train import trainer
+from seedvc_tpu_torch.train import trainer, trainer_v2
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "seedvc_tpu")
@@ -70,8 +71,11 @@ def test_voice_converter_needs_cuda_by_default(monkeypatch):
     lambda: trainer.Trainer(convert.get_preset("whisper_small_wavenet"),
                             trainer.TrainerConfig(run_dir="")),
     lambda: train_app.main(["--dataset-dir", "d"]),
+    lambda: trainer_v2.TrainerV2(convert_v2.V2Config(), trainer_v2.TrainerV2Config()),
+    lambda: train_v2_app.main(["--dataset-dir", "d"]),
 ], ids=["converter_cuda", "wrapper", "wrapper_cuda0", "infer_cli", "streaming", "realtime_cli",
-        "stream_bench", "converter_v2", "infer_v2_cli", "ar_generator", "trainer", "train_cli"])
+        "stream_bench", "converter_v2", "infer_v2_cli", "ar_generator", "trainer", "train_cli",
+        "trainer_v2", "train_v2_cli"])
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -13,10 +13,14 @@ import torch
 from seedvc_tpu_torch.apps import microbench as mb
 from seedvc_tpu_torch.core import config as c
 from seedvc_tpu_torch.models.ar import ARConfig
+from seedvc_tpu_torch.models.astral import AstralConfig
 from seedvc_tpu_torch.models.bigvgan import BigVGANConfig
+from seedvc_tpu_torch.models.dit_v2 import DiTV2Config
+from seedvc_tpu_torch.models.ssl import SSLConfig
 from seedvc_tpu_torch.models.whisper import WhisperEncoderConfig
 from seedvc_tpu_torch.nn import layers
 from seedvc_tpu_torch.ops import attention
+from seedvc_tpu_torch.pipelines.convert_v2 import V2Config
 
 torch.set_num_threads(1)
 
@@ -42,6 +46,15 @@ def _tiny_train_cfg():
 TINY_WHISPER = WhisperEncoderConfig(d_model=64, n_layers=1, n_heads=4, ffn_dim=128)
 TINY_AR = ARConfig(dim=32, n_layer=2, n_head=4, n_local_heads=2, head_dim=8,
                    intermediate_size=64, vocab_size=33)
+TINY_V2 = V2Config(
+    dit=DiTV2Config(hidden_dim=32, depth=2, num_heads=4, content_dim=32, style_encoder_dim=24),
+    ar=ARConfig(dim=32, n_layer=2, n_head=4, n_local_heads=2, head_dim=8, intermediate_size=64,
+                vocab_size=33, max_seq_len=1024),
+    ssl=SSLConfig(conv_dim=16, d_model=32, n_layers=1, n_heads=4, ffn_dim=64),
+    narrow=AstralConfig(dim=24, intermediate_dim=48, num_blocks=1, input_dim=32,
+                        codebook_size=8),
+    wide=AstralConfig(dim=24, intermediate_dim=48, num_blocks=1, input_dim=32,
+                      codebook_size=32))
 TINY_VOC = BigVGANConfig(upsample_initial_channel=128, resblock_kernel_sizes=(3,),
                          resblock_dilation_sizes=((1,),))
 
@@ -65,6 +78,7 @@ CASES = {
                     "steps_per_s"),
     "train_onfly_sync": (dict(B=1, steps=1, cfg=_tiny_train_cfg(), whisper_cfg=TINY_WHISPER),
                          "steps_per_s"),
+    "train_onfly_v2": (dict(B=1, steps=2, cfg=TINY_V2), "steps_per_s"),
 }
 
 
@@ -100,11 +114,20 @@ def test_component_takes_its_attention_branch(monkeypatch, name, expect):
 
 
 @pytest.mark.parametrize("name", ["train_onfly_v2"])
-def test_waiting_components_raise(name):
-    """The v2 trainer's component waits for ROADMAP queue 1 item 3b."""
-    assert name not in mb.ALL
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 3b"):
-        mb.main(["--only", name])
+def test_waiting_components_raise(name, capsys):
+    """The v2 trainer's component, which waited for ROADMAP queue 1 item 3b,
+    is ported: it is in ``ALL`` and runs tiny on the CPU from one trainer,
+    a row for the prefetch window and one for the synchronous one, whose
+    calls add up to the steps run (3 warm + 2 x steps)."""
+    assert name in mb.ALL
+    kwargs, rate = CASES[name]
+    rows = mb.ALL[name](device="cpu", **kwargs)
+    assert rows == [json.loads(line) for line in capsys.readouterr().out.splitlines()
+                    if line.startswith("{")]
+    assert [r["name"].split()[0] for r in rows] == ["train_onfly_v2_prefetch",
+                                                    "train_onfly_v2_sync"]
+    assert sum(r["calls"] for r in rows) == 3 + 2 * kwargs["steps"]
+    assert all(r[rate] > 0 for r in rows)
 
 
 @pytest.mark.parametrize("B", [1, 4])

@@ -105,8 +105,14 @@ def test_bsq_indices_and_output_match_jax():
     assert p_idx.max() < 32 and len(np.unique(p_idx.numpy())) > 8
     _close(p_out, j_out)
     assert float(aux) == 0.0
-    with pytest.raises(NotImplementedError, match="item 3"):
-        pm(torch.from_numpy(x), training=True)
+    # training=True: the same output and indices (straight-through) and
+    # JAX's aux loss (tests/test_torch_bsq_train.py holds its gradients)
+    j_out, j_idx, j_aux = jax_apply(jm, params, x, training=True)
+    with torch.no_grad():
+        p_out, p_idx, aux = pm(torch.from_numpy(x), training=True)
+    np.testing.assert_array_equal(p_idx.numpy(), np.asarray(j_idx))
+    _close(p_out, j_out)
+    _close(aux, j_aux)
 
 
 @pytest.mark.parametrize("tokens", [[], [4], [1, 1, 2, 2, 2, 3, 1, 1], [5, 6, 7]])

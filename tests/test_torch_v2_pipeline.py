@@ -218,5 +218,6 @@ def test_infer_v2_cli_writes_a_wav(converters, monkeypatch, tmp_path):
 
 
 def test_ar_decode_microbench_is_registered():
+    # every microbench component is ported since the v2 trainer (no WAITING list)
     assert {"ar_decode", "ar_decode_b4"} <= set(microbench.ALL)
-    assert not {"ar_decode", "ar_decode_b4"} & set(microbench.WAITING)
+    assert not hasattr(microbench, "WAITING")

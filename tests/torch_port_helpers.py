@@ -293,3 +293,114 @@ def trainer_pair(wav_dir):
                   device="cpu", draws_fn=jax_chain_draws(jcfg.model_params.DiT.class_dropout_prob),
                   **params)
     return jtr, ptr
+
+
+# ---------------------------------------------------------------------------
+# the v2 trainer's parity tests (tests/test_torch_trainer_v2*.py, test_torch_v2_losses.py)
+
+def v2_port_cfg(j):
+    """A JAX ``V2Config`` rebuilt in the port's config classes."""
+    import dataclasses
+
+    from seedvc_tpu_torch.models.ar import ARConfig
+    from seedvc_tpu_torch.models.astral import AstralConfig
+    from seedvc_tpu_torch.models.dit_v2 import DiTV2Config
+    from seedvc_tpu_torch.models.ssl import SSLConfig
+    from seedvc_tpu_torch.pipelines.convert_v2 import V2Config
+
+    def same(cls, obj):
+        return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)})
+
+    return V2Config(sr=j.sr, hop=j.hop, n_mels=j.n_mels, dit=same(DiTV2Config, j.dit),
+                    ar=same(ARConfig, j.ar), ssl=same(SSLConfig, j.ssl),
+                    narrow=same(AstralConfig, j.narrow), wide=same(AstralConfig, j.wide),
+                    prompt_cap_frames=j.prompt_cap_frames, context_frames=j.context_frames,
+                    max_ref_sec=j.max_ref_sec)
+
+
+def v2_trees(cfg, seed=1, frozen=True):
+    """Random flax trees (numpy) of the v2 trainer's modules for the JAX
+    ``V2Config`` ``cfg``: ``frozen`` (ssl, narrow, wide, campplus; None with
+    ``frozen=False``) and ``trainable`` (dit, cfm_reg, ar, ar_reg)."""
+    import jax.numpy as jnp
+
+    from seedvc_tpu.core.config import LengthRegulatorConfig as JRegCfg
+    from seedvc_tpu.models.ar import ARTransformer as JAR
+    from seedvc_tpu.models.astral import AstralQuantizer as JAstral
+    from seedvc_tpu.models.campplus import CAMPPlus as JCAMPPlus
+    from seedvc_tpu.models.dit_v2 import DiTV2 as JDiTV2
+    from seedvc_tpu.models.regulator import InterpolateRegulator as JReg
+    from seedvc_tpu.models.ssl import SSLEncoder as JSSL
+
+    z = jnp.zeros
+    reg = dict(is_discrete=True)
+    ar = JAR(cfg.ar)
+    frozen = None if not frozen else {
+        "ssl": jax_init(JSSL(cfg.ssl), z((1, 16000)), seed=seed),
+        "narrow": jax_init(JAstral(cfg.narrow), z((1, 50, cfg.ssl.d_model)), seed=seed + 1),
+        "wide": jax_init(JAstral(cfg.wide), z((1, 50, cfg.ssl.d_model)), seed=seed + 2),
+        "campplus": jax_init(JCAMPPlus(feat_dim=80, embedding_size=cfg.dit.style_encoder_dim),
+                             z((1, 300, 80)), seed=seed + 3)}
+    trainable = {
+        "dit": jax_init(JDiTV2(cfg.dit), z((1, 16, cfg.n_mels)), z((1, 16, cfg.n_mels)),
+                        jnp.array([16]), z((1,)), z((1, cfg.dit.style_encoder_dim)),
+                        z((1, 16, cfg.dit.content_dim)), seed=seed + 4),
+        "cfm_reg": jax_init(JReg(JRegCfg(channels=cfg.dit.content_dim,
+                                         content_codebook_size=cfg.wide.codebook_size,
+                                         sampling_ratios=(1, 1, 1, 1), **reg)),
+                            z((1, 8), jnp.int32), jnp.array([16]), 16, seed=seed + 5),
+        "ar": jax_init(ar, z((1, 4), jnp.int32), jnp.arange(4)[None],
+                       jnp.tril(jnp.ones((4, 4), bool))[None, None], seed=seed + 6,
+                       method=ar.init_all),
+        "ar_reg": jax_init(JReg(JRegCfg(channels=cfg.ar.dim,
+                                        content_codebook_size=cfg.narrow.codebook_size,
+                                        sampling_ratios=(), **reg)),
+                           z((1, 8), jnp.int32), jnp.array([8]), 8, seed=seed + 7)}
+    return frozen, trainable
+
+
+def jax_v2_draws(key, B, T, n_mels, p):
+    """The draws the JAX v2 step makes from its key (``TrainerV2._losses``):
+    ``split(key, 6)`` gives the prompt fractions, the prompt drop
+    (Bernoulli(p)), the content drop (Bernoulli(0.5) and the prompt drop), t
+    and the noise (``cfm_v2_loss``); as the port's ``TrainDrawsV2``."""
+    import jax.numpy as jnp
+
+    from seedvc_tpu_torch.train.trainer_v2 import TrainDrawsV2
+
+    keys = jax.random.split(key, 6)
+    pd = jax.random.bernoulli(keys[1], p)
+    cd = jax.random.bernoulli(keys[2], 0.5) & pd
+    t = jax.random.uniform(keys[3], (B,), dtype=jnp.float32)
+    noise = jax.random.normal(keys[4], (B, T, n_mels), dtype=jnp.float32)
+    return TrainDrawsV2(torch.from_numpy(np.array(jax.random.uniform(keys[0], (B,)))),
+                        torch.tensor(bool(pd)), torch.tensor(bool(cd)),
+                        torch.from_numpy(np.array(t)), torch.from_numpy(np.array(noise)))
+
+
+def jax_v2_chain_draws(p):
+    """The port's v2 ``draws_fn`` replaying JAX's keys: a step key
+    ``(seed, step)`` takes the loop's chain from ``PRNGKey(seed)`` (``key,
+    sub = split(key)`` once a step), a validation key ``(seed + i,)`` is
+    ``PRNGKey(seed + i)`` itself."""
+    def draws_fn(key, shape, device):
+        if len(key) == 1:
+            return jax_v2_draws(jax.random.PRNGKey(key[0]), *shape, p)
+        seed, step = key
+        k = jax.random.PRNGKey(seed)
+        for _ in range(step + 1):
+            k, sub = jax.random.split(k)
+        return jax_v2_draws(sub, *shape, p)
+
+    return draws_fn
+
+
+def v2_batch(seed=0, B=2, T=33000):
+    """A dataset batch of noise at 22.05 kHz, its first 24000 samples as the
+    16 kHz waves (the JAX trainer tests' batch)."""
+    from seedvc_tpu_torch.train.dataset import Batch
+
+    rng = np.random.default_rng(seed)
+    waves = (rng.standard_normal((B, T)) * 0.1).astype(np.float32)
+    return Batch(waves, waves[:, :24000], np.array([T, T - 4000], np.int32),
+                 np.array([24000, 21000], np.int32))
