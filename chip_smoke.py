@@ -19,12 +19,15 @@ failure exits non-zero:
    offline chunks' T = 2050 with lens (1968, 1968), (1495, 1495) and a 0
    entry, and K1 at the v2 path's 3-way CFG stack: (3, 8, 2560, 64) with
    lens (2154, 2154, 2154) and (3, 8, 2048, 64) with (1966, 1497, 0) and
-   (1497, 1497, 1497), each with a planted fault that must fail the limits;
+   (1497, 1497, 1497), and K1 at the eval path's one chunk at context 1536:
+   (2, 8, 1536, 64) with lens (1291, 946) and a 0 entry, (2, 12, 1536, 64)
+   with (1291, 1291), each with a planted fault that must fail the limits;
    ``Attention(use_flash=True)``
    at a T that is no multiple of 512, which must launch K1 (or K3 with
    grouped KV heads) and agree with its plain twins; and K2 at every stage
    shape of a 22 kHz and of a 44.1 kHz chunk, of the v2 path's 2046-frame
-   22 kHz chunk, and at its corners (T % 4 != 0,
+   22 kHz chunk, of the eval path's 1024-frame chunks at both rates, and at
+   its corners (T % 4 != 0,
    one tile and one tile +- 1, T = 1, B = 2, ``logscale=False``,
    |alpha * u| of a few hundred), each with a planted fault (one filter tap
    nudged) that must fail the limit, and one K2 call profiled: it must run
@@ -123,7 +126,27 @@ failure exits non-zero:
    loss and grad norm; steps/s, prep and step seconds, peak device memory,
    each step's T), 3 steps with ``--train-cfm false`` (0 K1, 0 K1ᵇ), and 10
    steps on one fixed batch and draws that must lower the loss;
-11. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
+11. OpenVoice in v1 fine-tuning: the ToneColorConverter (each coupling's
+   ``post`` drawn, since a zero one leaves g without effect) reduced and at
+   full width, cuda against cpu on 2 s with the same weights and noise
+   (``extract_se``, ``voice_conversion``, and a target embedding that must
+   move the wave), the full one's ms a call on 10 s; then ``apps.train`` at
+   full width on phase 10's clips with an ``openvoice.pkl`` (the batch's own
+   voices shuffled) and with a ``se_db.pkl`` (8 x 256) beside it, 3 steps
+   each (13 K1 f32, 13 K1ᵇ, 0 K3 and a finite loss a step; step and prep
+   seconds, peak memory), and every batch of an epoch prepared synchronised:
+   the perturbed content must differ from the clean, and the converter's
+   share of the prep is printed;
+12. the evaluation harness: WavLM-SV at full width cuda against cpu on 5 s,
+   and a padded 10 s bucket with ``lengths`` against each clip unpadded; then
+   ``python -m seedvc_tpu_torch.apps.eval`` in process at full width:
+   whisper_small_wavenet on a 10 s and a 6 s source against a 5 s reference,
+   25 steps, SECS by a random full-width WavLM-SV from a pkl (one chunk a
+   conversion at context 1536: 325 K1 and 109 K2 each); the same again,
+   which must convert nothing; ``--baseline openvoice`` from a pkl (no K1,
+   no K2); one source with ``whisper_base_f0_44k --f0-metrics`` (425 K1,
+   109 K2); seconds a conversion and of each embedding, the summary line;
+13. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
    library call at the shapes of every path (each timed window queued behind a
    spin kernel, so the host's dispatch rate does not enter), with each
    kernel's bound on an H100 SXM; before it, K3's time per head at
@@ -134,7 +157,10 @@ failure exits non-zero:
    largest T and its commonest other T, against SDPA's forward and SDPA's
    backward alone, the f32 bounds at 3xTF32 (3x the operations at the TF32
    peak), with the share of the bound; and the same f32 rows at the v2
-   training run's largest and commonest other T, with the launches a step.
+   training run's largest and commonest other T, with the launches a step;
+   and the eval rows: K1 at (2, 8, 1536, 64) and (2, 12, 1536, 64) and K2 at
+   a 1024-frame chunk's stage shapes at 22.05 and 44.1 kHz, launches from
+   phase 12.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
 profiled warm conversion to phases 5, 6, 8 and 9 (a ``convert_timbre`` in
@@ -205,6 +231,15 @@ K1_RT_CASES = [(RT_BLOCK_T, None), (RT_OFFLINE_T, (1968, 1968)), (RT_OFFLINE_T, 
 # stage shapes.
 V2_T, V2_LENS, V2_W = 2560, 2154, 2046
 K1_V2_CASES = [(V2_T, (V2_LENS,) * 3), (2048, (1966, 1497, 0)), (2048, (1497, 1497, 1497))]
+# K1 and K2 on the eval path (apps.eval in the eval phase): a 10 s and a 6 s
+# source with a 5 s reference are one chunk each at context 1536 (W = 1024):
+# keys 430 + 861 = 1291 and 430 + 516 = 946, and a 0 entry; at 8 heads for
+# whisper_small_wavenet and 12 for whisper_base_f0_44k (the 10 s source alone
+# at 44.1 kHz, hop 512: the same frames). K2 at the stage shapes of a
+# 1024-frame chunk at 22.05 and at 44.1 kHz.
+EVAL_T, EVAL_W, EVAL_LENS = 1536, 1024, (1291, 946)
+K1_EVAL_CASES = [(EVAL_T, EVAL_LENS), (EVAL_T, (0, EVAL_LENS[0]))]
+K1_EVAL_SVC_CASES = [(EVAL_T, (EVAL_LENS[0],) * 2)]
 # v2 fine-tuning (apps.train_v2 in the v2-training phase): eight synthetic
 # clips of 4-12 s, B = 2. The DiT's trunk sees T = the 128-frame mel bucket
 # + 2 prefix tokens (T % 64 == 2: a last tile of two rows and keys) with
@@ -264,7 +299,8 @@ def k2_cases() -> list:
                (1, 8, 2 * K2_TILE + 1), (1, 24, 3), (1, 48, 7), (1, 8, 1), (2, 96, 1000),
                (2, 24, 3001)]
     return ([(s, "default") for s in stage_shapes(UPSAMPLE_22K) + stage_shapes(UPSAMPLE_44K)
-             + stage_shapes(UPSAMPLE_22K, V2_W) + corners]
+             + stage_shapes(UPSAMPLE_22K, V2_W) + stage_shapes(UPSAMPLE_22K, EVAL_W)
+             + stage_shapes(UPSAMPLE_44K, EVAL_W) + corners]
             + [((1, 32, 1001), "linear"), ((2, 16, 4096), "linear"),
                ((1, 24, 4099), "large_alpha"), ((1, 96, 24576), "large_alpha")])
 
@@ -441,9 +477,12 @@ def phase_kernels() -> dict:
 
     from seedvc_tpu_torch.ops import anti_alias, attention
 
-    errs = {"k1": 0.0, "k1_svc": 0.0, "k1_rt": 0.0, "k1_v2": 0.0, "k2": 0.0, "k2_svc": 0.0,
-            "k2_v2": 0.0, "k3": 0.0}
-    slots = {8: "", K1_SVC_HEADS: "_svc", RT_HEADS: "_rt"}
+    errs = {"k1": 0.0, "k1_svc": 0.0, "k1_rt": 0.0, "k1_v2": 0.0, "k1_eval": 0.0,
+            "k1_eval_svc": 0.0, "k2": 0.0, "k2_svc": 0.0, "k2_v2": 0.0, "k2_eval": 0.0,
+            "k2_eval_svc": 0.0, "k3": 0.0}
+    slots = {8: "", K1_SVC_HEADS: "_svc", RT_HEADS: "_rt", "v2": "_v2", "eval": "_eval",
+             "eval_svc": "_eval_svc"}
+    heads_of = {"v2": 8, "v2t": 8, "eval": 8, "eval_svc": K1_SVC_HEADS}
     # K1's first stage: roped q times 2^-3 and roped k, bit for bit
     for T in (2048, 777):
         q, k, _, cos, sin, _ = _k1_inputs(T, torch.bfloat16, None, seed=3)
@@ -463,12 +502,14 @@ def phase_kernels() -> dict:
             cases += [(T, lens, RT_HEADS) for T, lens in K1_RT_CASES]
             cases += [(T, lens, "v2") for T, lens in K1_V2_CASES]
             cases += [(T, lens, "v2t") for T, lens in K1_V2T_CASES]
+            cases += [(T, lens, "eval") for T, lens in K1_EVAL_CASES]
+            cases += [(T, lens, "eval_svc") for T, lens in K1_EVAL_SVC_CASES]
         for dtype in (torch.bfloat16, torch.float32):
             atol, rtol = K1_TOL[str(dtype).split(".")[1]]
             for T, lens, slot_heads in cases:
                 if slot_heads == "v2t" and dtype != torch.float32:
                     continue  # the v2 trainer's shapes: f32 only, as it runs them
-                heads = 8 if slot_heads in ("v2", "v2t") else slot_heads
+                heads = heads_of.get(slot_heads, slot_heads)
                 q, k, v, cos, sin, lens_t = _k1_inputs(T, dtype, lens, heads=heads)
                 args = (q, k, v, cos, sin) if rope else (q, k, v)
                 f32 = dtype == torch.float32
@@ -491,7 +532,7 @@ def phase_kernels() -> dict:
                 if f32:
                     lse_check(what, q, k, v, cos, sin, lens_t, lse, ref, rope)
                 if dtype == torch.bfloat16:
-                    slot = key + ("_v2" if slot_heads == "v2" else slots[heads])
+                    slot = key + slots[slot_heads]
                     errs[slot] = max(errs[slot], err)
     attention_module_check()
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -511,7 +552,9 @@ def phase_kernels() -> dict:
         if f_err <= K2_TOL:
             fail(f"{what}: the limit passes a planted fault")
         slot = ("k2_svc" if shape in stage_shapes(UPSAMPLE_44K)
-                else "k2_v2" if shape in stage_shapes(UPSAMPLE_22K, V2_W) else "k2")
+                else "k2_v2" if shape in stage_shapes(UPSAMPLE_22K, V2_W)
+                else "k2_eval" if shape in stage_shapes(UPSAMPLE_22K, EVAL_W)
+                else "k2_eval_svc" if shape in stage_shapes(UPSAMPLE_44K, EVAL_W) else "k2")
         errs[slot] = max(errs[slot], err)
     n = device_kernels(lambda: anti_alias.anti_alias_snake(x, alpha, beta, logscale))
     log(f"K2: one call ran {n} device kernel(s)")
@@ -2558,6 +2601,371 @@ def phase_train_v2(card: str, profile: bool = False) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# The OpenVoice timbre perturbation of v1 fine-tuning (phase 11) and the
+# evaluation harness (phase 12). The converter and WavLM-SV run cuDNN
+# convolutions, cuDNN's GRU and plain products (TF32 off) and no kernel of the
+# port; the perturbed train step runs K1 f32 and K1ᵇ, each eval conversion K1
+# bf16 and K2. Limits as tests/test_torch_cuda.py: OpenVoice's speaker
+# embeddings and its wave 1e-5 absolute, cuda against cpu; WavLM-SV 1e-5
+# relative L2 cuda against cpu and padded against unpadded. Each cuda-against-
+# cpu check also runs with TF32 on (its planted fault), which it must see.
+OV_SE_TOL, OV_WAVE_TOL = 1e-5, 1e-5
+WAVLM_TOL, WAVLM_PAD_TOL = 1e-5, 1e-5
+OV_STEPS, OV_SE_DB_ROWS = 3, 8
+EVAL_SRC_SECS, EVAL_REF_SECS = (10.0, 6.0), 5.0
+EVAL_PATH = "apps.eval conversions (whisper_small_wavenet, 10 s and 6 s sources)"
+EVAL_F0_PATH = "apps.eval --f0-metrics conversion (whisper_base_f0_44k, 10 s source)"
+
+
+@contextlib.contextmanager
+def tf32():
+    """TF32 on for cuDNN and matmuls, the planted fault of the f32 checks."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def random_openvoice(cfg, seed: int):
+    import torch
+
+    from seedvc_tpu_torch.models.openvoice import ToneColorConverter, draw_post
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return draw_post(ToneColorConverter(cfg)).requires_grad_(False).eval()
+
+
+def openvoice_check(what: str, cfg, seconds: float, seed: int):
+    """``cfg``'s converter (random weights and post) on cpu and cuda, the same
+    noise, on ``seconds`` of a synthetic 22.05 kHz clip: ``extract_se`` and
+    ``voice_conversion`` compared, and compared again with TF32 on, which the
+    limits must catch; the target embedding must move the wave. Returns the
+    converter on cuda."""
+    import copy
+
+    import torch
+
+    from seedvc_tpu_torch.models.openvoice import linear_spectrogram
+
+    ov = random_openvoice(cfg, seed)
+    wave = torch.from_numpy(synthetic_audio(seconds, 22050, 150.0, seed=seed))[None]
+
+    def run(dev, m):
+        spec = linear_spectrogram(wave.to(dev))
+        T = spec.shape[1]
+        noise = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (1, T, cfg.inter_channels)).astype(np.float32)).to(dev)
+        g_tgt = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+            (1, cfg.gin_channels)).astype(np.float32)).to(dev)
+        se = m.extract_se(spec)
+        lens = torch.tensor([T], device=dev)
+        return [t.cpu() for t in (se, m.voice_conversion(spec, lens, se, g_tgt, noise, 0.3),
+                                  m.voice_conversion(spec, lens, se, se, noise, 0.3))]
+
+    with torch.no_grad():
+        se_p, w_p, _ = run("cpu", copy.deepcopy(ov))
+        se_c, w_c, same_c = run("cuda", ov.cuda())
+        with tf32():
+            se_t, w_t, _ = run("cuda", ov)
+    se_err, w_err = (se_c - se_p).abs().max().item(), (w_c - w_p).abs().max().item()
+    se_tf32, w_tf32 = (se_t - se_p).abs().max().item(), (w_t - w_p).abs().max().item()
+    moved = (w_c - same_c).abs().max().item()
+    log(f"{what}: extract_se {tuple(se_c.shape)} cuda vs cpu max_abs_err {se_err:.3e} tol "
+        f"{OV_SE_TOL:g}; voice_conversion {tuple(w_c.shape)} max_abs_err {w_err:.3e} tol "
+        f"{OV_WAVE_TOL:g} (wave max {w_p.abs().max().item():.3f}); with TF32 on (planted "
+        f"fault) {se_tf32:.3e} and {w_tf32:.3e}; a N(0, 1) target embedding in place of the "
+        f"source's moves the wave by {moved:.3e}")
+    if not (torch.isfinite(w_c).all() and se_err <= OV_SE_TOL and w_err <= OV_WAVE_TOL):
+        fail(f"{what}: cuda and cpu disagree")
+    if not (se_tf32 > OV_SE_TOL or w_tf32 > OV_WAVE_TOL):
+        fail(f"{what}: the limits do not see TF32")
+    if not moved > 0.01 * w_p.abs().max().item():
+        fail(f"{what}: the target speaker embedding does not act")
+    return ov
+
+
+def phase_openvoice_train(card: str):
+    """Phase 11: the converter reduced and at full width, cuda against cpu,
+    the full one's ms a call on 10 s; then ``apps.train`` at full width on
+    phase 10's clips with an ``openvoice.pkl`` (the batch's voices shuffled)
+    and with a ``se_db.pkl`` beside it, 3 steps each: 13 K1 f32, 13 K1ᵇ, 0 K3
+    and a finite loss a step, the perturbed content unlike the clean, and the
+    converter's share of a synchronised prep."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    from seedvc_tpu_torch.apps import train as train_app
+    from seedvc_tpu_torch.apps.audio_io import save_wav
+    from seedvc_tpu_torch.core.profiling import cuda_time_ms
+    from seedvc_tpu_torch.models.openvoice import OpenVoiceConfig, linear_spectrogram
+    from seedvc_tpu_torch.ops import attention
+    from seedvc_tpu_torch.train.dataset import FTDataset
+    from seedvc_tpu_torch.weights import to_jax_params
+
+    openvoice_check("openvoice reduced", OpenVoiceConfig(
+        inter_channels=64, hidden_channels=64, resblock_kernel_sizes=(3,),
+        resblock_dilation_sizes=((1, 3, 5),), upsample_initial_channel=128), 2.0, seed=30)
+    ov = openvoice_check("openvoice full", OpenVoiceConfig(), 2.0, seed=31)
+    with torch.no_grad():
+        spec = linear_spectrogram(torch.from_numpy(
+            synthetic_audio(10.0, 22050, 150.0, seed=32))[None].cuda())
+        T = spec.shape[1]
+        se = ov.extract_se(spec)
+        noise = torch.randn((1, T, ov.cfg.inter_channels), device="cuda")
+        lens = torch.tensor([T], device="cuda")
+        se_ms = cuda_time_ms(lambda: ov.extract_se(spec), iters=10)
+        vc_ms = cuda_time_ms(
+            lambda: ov.voice_conversion(spec, lens, se, se, noise, 0.3), iters=5)
+    log(f"openvoice full on 10 s ({T} frames): extract_se {se_ms:.3f} ms, "
+        f"voice_conversion {vc_ms:.3f} ms a call; {card}")
+
+    sr = 22050
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="ov_train_smoke_") as tmp:
+        data, ckpt = os.path.join(tmp, "data"), os.path.join(tmp, "ckpt")
+        os.makedirs(data)
+        os.makedirs(ckpt)
+        for i, secs in enumerate(TRAIN_CLIPS):
+            save_wav(os.path.join(data, f"clip{i}.wav"),
+                     synthetic_audio(secs, sr, 110.0 + 17 * i, seed=60 + i), sr)
+        with open(os.path.join(ckpt, "openvoice.pkl"), "wb") as f:
+            pickle.dump(to_jax_params(ov.cpu()), f)
+        del ov
+        os.chdir(tmp)  # apps.train writes ./runs/<run-name>
+        try:
+            for what, run in (("train openvoice", "ov"), ("train openvoice se_db", "ov_se_db")):
+                if run == "ov_se_db":
+                    with open(os.path.join(ckpt, "se_db.pkl"), "wb") as f:
+                        pickle.dump(np.random.default_rng(41).standard_normal(
+                            (OV_SE_DB_ROWS, 256)).astype(np.float32), f)
+                torch.cuda.empty_cache()
+                reset_counts()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                trainer = train_app.main([
+                    "--dataset-dir", data, "--batch-size", "2", "--log-interval", "1",
+                    "--checkpoint-dir", ckpt, "--run-name", run, "--max-steps", str(OV_STEPS),
+                    "--save-interval", "100"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                totals = (attention.LAUNCHES, attention.BWD_LAUNCHES,
+                          attention.DIT_ATTENTION_LAUNCHES)
+                if (trainer.openvoice is None
+                        or (trainer.se_db is None) != (run == "ov")):
+                    fail(f"{what}: the trainer did not take the OpenVoice checkpoints")
+                rate, rows = train_step_log(trainer.history)
+                for r in rows:
+                    log(f"  {what} step {r}")
+                check_train_history(what, rows, 1, OV_STEPS)
+                if totals != (TRAIN_DEPTH * OV_STEPS, TRAIN_DEPTH * OV_STEPS, 0):
+                    fail(f"{what}: launches (K1, K1b, K3) {totals} for {OV_STEPS} steps")
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                # synchronised prep of every batch of an epoch, the converter
+                # timed inside it; the perturbed content must differ
+                ov_s, prep_s, diffs = [], [], []
+                perturb = trainer._perturb_openvoice
+
+                def timed(*a, **kw):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = perturb(*a, **kw)
+                    torch.cuda.synchronize()
+                    ov_s.append(time.perf_counter() - t)
+                    return out
+
+                trainer._perturb_openvoice = timed
+                for i, batch in enumerate(FTDataset(data, sr, 2).batches(shuffle=False)):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    feats = trainer.prepare_batch(batch, np.random.default_rng((0, i)),
+                                                  cache=False, step=i)
+                    torch.cuda.synchronize()
+                    prep_s.append(time.perf_counter() - t)
+                    diffs.append((feats["s_alt"] - feats["s_ori"]).abs().max().item())
+                share = sum(ov_s) / sum(prep_s)
+                step_s = [r["step_s"] for r in rows if r["step_s"] is not None]
+                log(f"{what}: {OV_STEPS} steps in {wall:.1f} s wall (models built, data read "
+                    f"and exported included); step seconds {step_s}; prep on the worker "
+                    f"{[r['prep_s'] for r in rows]} s; T by step {[r['T'] for r in rows]}; "
+                    f"peak device memory {peak:.2f} GiB; launches (K1, K1b, K3) {totals}; "
+                    f"synchronised prep of {len(prep_s)} batches "
+                    f"{[round(x, 4) for x in prep_s]} s, OpenVoice "
+                    f"{[round(x, 4) for x in ov_s]} s, share {share:.3f}; max |s_alt - s_ori| "
+                    f"by batch {[round(x, 4) for x in diffs]}; {card}")
+                if min(diffs) <= 1e-3:
+                    fail(f"{what}: the perturbed content equals the clean content")
+                del trainer
+        finally:
+            os.chdir(cwd)
+
+
+def wavlm_check(card: str):
+    """WavLM-SV at full width (random weights): cuda against cpu on 5 s, and
+    a zero-padded 10 s bucket with ``lengths`` against each clip's unpadded
+    forward on the card. Returns the model on cuda."""
+    import copy
+
+    import torch
+
+    from seedvc_tpu_torch.models.wavlm_sv import WavLMSV
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(33)
+        wl = WavLMSV().requires_grad_(False).eval()
+    clips = [synthetic_audio(5.0, 16000, 170.0, seed=34),
+             synthetic_audio(3.3, 16000, 120.0, seed=35)]
+    with torch.no_grad():
+        ref = copy.deepcopy(wl)(torch.from_numpy(clips[0])[None])
+        wl.cuda()
+        rel = rel_l2(wl(torch.from_numpy(clips[0])[None].cuda()), ref)
+        with tf32():
+            rel_tf32 = rel_l2(wl(torch.from_numpy(clips[0])[None].cuda()), ref)
+        padded = np.zeros((2, 160000), np.float32)
+        for i, c in enumerate(clips):
+            padded[i, :len(c)] = c
+        emb = wl(torch.from_numpy(padded).cuda(),
+                 lengths=torch.tensor([len(c) for c in clips], device="cuda"))
+        pad_rel = max(rel_l2(emb[i], wl(torch.from_numpy(c)[None].cuda())[0])
+                      for i, c in enumerate(clips))
+    log(f"wavlm_sv full: cuda vs cpu on 5 s rel_l2 {rel:.3e} tol {WAVLM_TOL:g}, with TF32 on "
+        f"(planted fault) {rel_tf32:.3e}; a padded 10 s bucket with lengths vs unpadded, "
+        f"worst rel_l2 {pad_rel:.3e} tol {WAVLM_PAD_TOL:g}; {card}")
+    if not (rel <= WAVLM_TOL and pad_rel <= WAVLM_PAD_TOL):
+        fail("wavlm_sv: cuda against cpu, or padded against unpadded, disagree")
+    if not rel_tf32 > WAVLM_TOL:
+        fail("wavlm_sv: the limit does not see TF32")
+    return wl
+
+
+def phase_eval(card: str) -> dict:
+    """Phase 12: ``python -m seedvc_tpu_torch.apps.eval`` in process at full
+    width (random weights): whisper_small_wavenet, a 10 s and a 6 s source
+    against a 5 s reference, 25 steps, SECS by a random full-width WavLM-SV
+    from a pkl; the same again, which must convert nothing; the OpenVoice
+    baseline from a pkl; one source with whisper_base_f0_44k and
+    ``--f0-metrics``. Each conversion's K1 and K2 launches must be phase 5's
+    per chunk (25 x depth K1, 109 K2) times its chunks."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    from seedvc_tpu_torch.apps import eval as eval_app
+    from seedvc_tpu_torch.apps.audio_io import save_wav
+    from seedvc_tpu_torch.models import wavlm_sv
+    from seedvc_tpu_torch.models.openvoice import OpenVoiceConfig
+    from seedvc_tpu_torch.pipelines import convert
+    from seedvc_tpu_torch.weights import to_jax_params
+
+    wl = wavlm_check(card)
+    result = {}
+    convs, embeds = [], []
+    orig_convert, orig_forward = convert.VoiceConverter.convert, wavlm_sv.WavLMSV.forward
+
+    def counted(self, *a, **kw):
+        before = read_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_convert(self, *a, **kw)
+        torch.cuda.synchronize()
+        after = read_counts()
+        convs.append({"s": time.perf_counter() - t, "audio_s": len(out[1]) / out[0],
+                      "chunks": out[2]["chunks"], "depth": self.cfg.model_params.DiT.depth,
+                      **{k: after[k] - before[k] for k in after}})
+        return out
+
+    def timed(self, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_forward(self, *a, **kw)
+        torch.cuda.synchronize()
+        embeds.append(time.perf_counter() - t)
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="eval_smoke_") as tmp:
+        src, tgt = os.path.join(tmp, "src"), os.path.join(tmp, "tgt")
+        os.makedirs(src)
+        os.makedirs(tgt)
+        for i, secs in enumerate(EVAL_SRC_SECS):
+            save_wav(os.path.join(src, f"s{i}.wav"),
+                     synthetic_audio(secs, 22050, 130.0 + 30 * i, seed=85 + i), 22050)
+        save_wav(os.path.join(tgt, "ref.wav"),
+                 synthetic_audio(EVAL_REF_SECS, 22050, 210.0, seed=84), 22050)
+        xv, ov_pkl = os.path.join(tmp, "wavlm.pkl"), os.path.join(tmp, "ov.pkl")
+        with open(xv, "wb") as f:
+            pickle.dump(to_jax_params(wl), f)
+        del wl
+        with open(ov_pkl, "wb") as f:
+            pickle.dump(to_jax_params(random_openvoice(OpenVoiceConfig(), 36)), f)
+        base = ["--source-dir", src, "--target-dir", tgt]
+        convert.VoiceConverter.convert, wavlm_sv.WavLMSV.forward = counted, timed
+        try:
+            for what, argv in (
+                    ("eval", base + ["--output", os.path.join(tmp, "out"), "--xvector-extractor",
+                                     "wavlm", "--xvector-checkpoint", xv]),
+                    ("eval resume", base + ["--output", os.path.join(tmp, "out"),
+                                            "--xvector-extractor", "wavlm",
+                                            "--xvector-checkpoint", xv]),
+                    ("eval openvoice baseline", base + [
+                        "--output", os.path.join(tmp, "ov"), "--baseline", "openvoice",
+                        "--baseline-checkpoint", ov_pkl]),
+                    ("eval f0", base + ["--output", os.path.join(tmp, "f0"), "--preset",
+                                        "whisper_base_f0_44k", "--f0-metrics",
+                                        "--max-samples", "1"])):
+                first, n_emb = len(convs), len(embeds)
+                torch.cuda.empty_cache()
+                reset_counts()
+                t0 = time.perf_counter()
+                report = eval_app.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = read_counts()
+                mine = convs[first:]
+                for c in mine:
+                    log(f"  {what} conversion: {c}")
+                n_src = 1 if what == "eval f0" else len(EVAL_SRC_SECS)
+                expect_convs = 0 if what in ("eval resume", "eval openvoice baseline") else n_src
+                rows = report["results"]
+                log(f"{what}: {wall:.1f} s wall (models built included); {len(mine)} "
+                    f"conversions, seconds {[round(c['s'], 4) for c in mine]} for audio "
+                    f"{[round(c['audio_s'], 2) for c in mine]} s; WavLM-SV embeddings "
+                    f"{[round(x, 4) for x in embeds[n_emb:]]} s each; launches {counts}; "
+                    f"summary {json.dumps(report['summary'])}; {card}")
+                if len(mine) != expect_convs or report["summary"]["n"] != n_src:
+                    fail(f"{what}: {len(mine)} conversions and {report['summary']['n']} rows, "
+                         f"expected {expect_convs} and {n_src}")
+                for c in mine:
+                    if (c["k1"], c["k2"], c["k3"]) != (c["chunks"] * 25 * c["depth"],
+                                                       c["chunks"] * 109, 0):
+                        fail(f"{what}: a conversion of {c['chunks']} chunks launched K1/K2/K3 "
+                             f"{c['k1']}/{c['k2']}/{c['k3']}")
+                if not expect_convs and any(counts.values()):
+                    fail(f"{what}: kernels launched without a conversion: {counts}")
+                for r in rows:
+                    if not -1.0 <= r["secs"] <= 1.0:
+                        fail(f"{what}: SECS {r['secs']}")
+                if "wavlm" in argv and (
+                        len(embeds) - n_emb != n_src + 1
+                        or not all("secs_campplus" in r for r in rows)):
+                    fail(f"{what}: the WavLM extractor did not score every clip")
+                if what == "eval f0" and not all("f0_corr" in r and "voiced_frames" in r
+                                                 for r in rows):
+                    fail(f"{what}: no F0 metrics")
+                result[what] = {"wall_s": wall, "conversions": mine, "counts": counts,
+                                "embed_s": embeds[n_emb:], "summary": report["summary"]}
+        finally:
+            convert.VoiceConverter.convert, wavlm_sv.WavLMSV.forward = orig_convert, orig_forward
+    return result
+
+
 @contextlib.contextmanager
 def smi_sampler(period_ms: int = 100):
     """Samples of the card's SM clock, power draw, power limit and temperature
@@ -2653,7 +3061,7 @@ def k1_row(t: dict, launches: int, err: float, path: str) -> dict:
 
 
 def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: dict,
-                      v2: dict) -> dict:
+                      v2: dict, ev: dict) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -2669,6 +3077,9 @@ def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: di
     k1_block = k1_timing(RT_BLOCK_T, RT_HEADS, RT_BLOCK_T, seed=28)
     # the v2 path: the 3-way CFG stack at T = 2560, the timbre run's keys
     k1_v2 = k1_timing(V2_T, 8, v2["lens"][0], seed=29, B=3)
+    # the eval path: one chunk at context 1536, the 10 s source's keys
+    k1_eval = k1_timing(EVAL_T, 8, EVAL_LENS[0], seed=37)
+    k1_eval_svc = k1_timing(EVAL_T, K1_SVC_HEADS, EVAL_LENS[0], seed=38)
 
     # K3 at its entry point's shape: the microbench attention component,
     # q/k/v (2, 8, 2560, 64) bf16 after RoPE, every key valid
@@ -2699,6 +3110,8 @@ def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: di
         k2_main = k2_timing(UPSAMPLE_22K)
         k2_svc = k2_timing(UPSAMPLE_44K)
         k2_v2 = k2_timing(UPSAMPLE_22K, V2_W)
+        k2_eval = k2_timing(UPSAMPLE_22K, EVAL_W)
+        k2_eval_svc = k2_timing(UPSAMPLE_44K, EVAL_W)
     log("K2 windows, nvidia-smi clocks.sm, power.draw, power.limit, temperature.gpu: "
         + " | ".join(samples))
     main_path, svc_path = "whisper_small_wavenet conversion", f"{SVC_PRESET} SVC conversion"
@@ -2719,6 +3132,10 @@ def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: di
         stream_k1_row(k1_block, rt, errs["k1_rt"]),
         k1_row(k1_v2, v2["counts"]["k1"], errs["k1_v2"], "v2 convert_timbre (V2Config())"),
         k2_row(k2_v2, v2["counts"]["k2"], errs["k2_v2"], "v2 convert_timbre (V2Config())"),
+        k1_row(k1_eval, ev["eval"]["counts"]["k1"], errs["k1_eval"], EVAL_PATH),
+        k2_row(k2_eval, ev["eval"]["counts"]["k2"], errs["k2_eval"], EVAL_PATH),
+        k1_row(k1_eval_svc, ev["eval f0"]["counts"]["k1"], errs["k1_eval_svc"], EVAL_F0_PATH),
+        k2_row(k2_eval_svc, ev["eval f0"]["counts"]["k2"], errs["k2_eval_svc"], EVAL_F0_PATH),
     ]}
 
 
@@ -2763,7 +3180,9 @@ def main(argv=None) -> int:
     v2 = phase_v2_full(card, args.profile)
     train = phase_train(card, args.profile)
     v2t = phase_train_v2(card, args.profile)
-    line = phase_kernel_line(errs, full, svc, mb_counts, rt, v2)
+    phase_openvoice_train(card)
+    ev = phase_eval(card)
+    line = phase_kernel_line(errs, full, svc, mb_counts, rt, v2, ev)
     line["kernels"] += train_rows(train["train f32"]["T"], card, "v1 fine-tuning (apps.train, f32)")
     line["kernels"] += train_rows(v2t["T"], card, "v2 fine-tuning (apps.train_v2, f32)",
                                   kinds=TRAIN_KINDS[:2])

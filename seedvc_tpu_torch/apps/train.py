@@ -6,10 +6,13 @@
 Runs on ``cuda`` unless ``--device cpu`` is given (and raises without a card).
 Checkpoints go to ``./runs/<run-name>``; a run there resumes from its newest
 checkpoint. The final weights are written as ``vc.pkl`` (``--export-dir``),
-a flax-layout tree that ``apps.infer --checkpoint-dir`` loads. Multi-GPU
-(``--n-model`` other than 1, ``--fsdp``) is not ported: ROADMAP queue 1 item
-3c; an ``openvoice.pkl`` or ``se_db.pkl`` in ``--checkpoint-dir`` asks for
-the OpenVoice perturbation, which is not ported either (item 3b).
+a flax-layout tree that ``apps.infer --checkpoint-dir`` loads. An
+``openvoice.pkl`` in ``--checkpoint-dir`` (the converter's flax tree, as
+``seedvc_tpu/convert/openvoice.py`` writes it) turns on the OpenVoice timbre
+perturbation, and a ``se_db.pkl`` beside it (an (N, 256) array of speaker
+embeddings) gives its target voices; without the bank the batch's own voices
+are shuffled. Multi-GPU (``--n-model`` other than 1, ``--fsdp``) is not
+ported: ROADMAP queue 1 item 3c.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ def main(argv=None):
     ap.add_argument("--checkpoint-dir", default=None,
                     help="directory of converted .pkl trees (vc.pkl is the pretrained "
                          "DiT/CFM to fine-tune; whisper/campplus/rmvpe .pkl are picked "
-                         "up when present)")
+                         "up when present; openvoice.pkl and se_db.pkl turn on the "
+                         "OpenVoice timbre perturbation)")
     ap.add_argument("--val-dataset-dir", default=None,
                     help="held-out audio directory for validation")
     ap.add_argument("--validation-interval", type=int, default=0,

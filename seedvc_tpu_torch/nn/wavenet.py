@@ -1,6 +1,8 @@
 """Non-causal WaveNet stack, the DiT's post-net (port of ``seedvc_tpu/nn/wavenet.py``).
 
-Per layer: a dilated conv to 2C channels (reflect-padded), a slice of the
+Per layer: a dilated conv to 2C channels (reflect-padded, as the reference's
+SConv1d, or zero-padded with ``pad_mode="zero"``, as the plain VITS WN of the
+OpenVoice converter), a slice of the
 global conditioning, gated tanh*sigmoid, and res/skip 1x1 convs. The JAX
 package writes its convs as shifted matmuls (``DilatedConvAsMatmul``, a TPU
 rewrite); here they are plain ``Conv1d``s with the same weights.
@@ -29,9 +31,12 @@ class CastConv1d(nn.Conv1d):
 
 class WaveNet(nn.Module):
     def __init__(self, hidden_channels: int, kernel_size: int, dilation_rate: int,
-                 n_layers: int, gin_channels: int = 0):
+                 n_layers: int, gin_channels: int = 0, pad_mode: str = "reflect"):
         super().__init__()
+        if pad_mode not in ("reflect", "zero"):
+            raise ValueError(f"unknown pad_mode {pad_mode!r}")
         C = hidden_channels
+        self.pad_mode = "reflect" if pad_mode == "reflect" else "constant"
         self.C, self.kernel_size, self.n_layers = C, kernel_size, n_layers
         self.dilation_rate = dilation_rate
         if gin_channels:
@@ -54,7 +59,7 @@ class WaveNet(nn.Module):
             g_all = self.cond_layer(g).transpose(1, 2)  # (B, 2*C*n_layers, 1)
         for i in range(self.n_layers):
             pad = (self.kernel_size - 1) * self.dilation_rate ** i // 2
-            x_in = getattr(self, f"in_layers_{i}")(F.pad(x, (pad, pad), mode="reflect"))
+            x_in = getattr(self, f"in_layers_{i}")(F.pad(x, (pad, pad), mode=self.pad_mode))
             if g_all is not None:
                 x_in = x_in + g_all[:, i * 2 * C:(i + 1) * 2 * C]
             acts = torch.tanh(x_in[:, :C]) * torch.sigmoid(x_in[:, C:])

@@ -4,11 +4,15 @@
   for the style from a kaldi fbank over the true frame lengths, RMVPE for the
   F0 of F0-conditioned presets; the trainable unit is ``VCModel`` (regulator
   + CFM) in f32 master weights,
-- timbre perturbation: a random-rate time warp of the 16 kHz batch
-  (``dsp.resample.warp_rate``, rate drawn by the host numpy generator
-  ``default_rng((seed, step))``, so the rates equal the JAX trainer's bit for
-  bit); the OpenVoice converter of the JAX trainer is not ported (ROADMAP
-  queue 1 item 3b),
+- timbre perturbation of the content encoder's input: with
+  ``openvoice_params`` the OpenVoice converter (``models/openvoice.py``,
+  frozen, f32) re-voices the batch at tau 0.3 to a target speaker embedding,
+  the ``se_db`` bank's row ``(step * B + b) % len(se_db)`` or, without a
+  bank, the batch's own embeddings shuffled; otherwise a random-rate time
+  warp of the 16 kHz batch (``dsp.resample.warp_rate``). The host numpy
+  generator ``default_rng((seed, step))`` draws what the JAX trainer draws,
+  in its order (the warp rate; or the shuffle, then the converter's noise),
+  so both trainers perturb a batch alike,
 - a per-clip feature cache of the perturbation-invariant features (clean
   content and style) bounded by ``feat_cache_bytes``,
 - ``prepare_batch``: the mel and its -10 pad on the device in 128-frame
@@ -39,12 +43,15 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from seedvc_tpu_torch.core.config import SeedVCConfig
 from seedvc_tpu_torch.dsp.fbank import kaldi_fbank
 from seedvc_tpu_torch.dsp.mel import MelFrontend
-from seedvc_tpu_torch.dsp.resample import warp_rate
+from seedvc_tpu_torch.dsp.resample import resample, resample_kernel, warp_rate
+from seedvc_tpu_torch.dsp.whisper_mel import CHUNK as WHISPER_CHUNK
 from seedvc_tpu_torch.dsp.whisper_mel import whisper_log_mel
+from seedvc_tpu_torch.models import openvoice
 from seedvc_tpu_torch.models.campplus import CAMPPlus
 from seedvc_tpu_torch.models.vc import VCModel
 from seedvc_tpu_torch.models.whisper import WHISPER_SMALL, WhisperEncoder, WhisperEncoderConfig
@@ -57,7 +64,6 @@ from seedvc_tpu_torch.train.step import (MULTI_GPU, TrainState, init_state, make
                                          make_train_step)
 from seedvc_tpu_torch.weights import load_jax_params, to_jax_params
 
-OPENVOICE = ("the OpenVoice timbre perturbation is not ported: ROADMAP queue 1 item 3b")
 CKPT_KEEP = 2
 
 
@@ -179,8 +185,6 @@ class Trainer:
                  openvoice_params=None, se_db: Optional[np.ndarray] = None,
                  teacher_params=None, rmvpe_params=None, n_model: int = 1,
                  device=None, draws_fn=None):
-        if openvoice_params is not None or se_db is not None:
-            raise NotImplementedError(f"Trainer(openvoice_params, se_db): {OPENVOICE}")
         if n_model != 1 or tcfg.fsdp:
             raise NotImplementedError(f"Trainer(n_model={n_model}, fsdp={tcfg.fsdp}): "
                                       f"{MULTI_GPU}")
@@ -189,6 +193,9 @@ class Trainer:
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: no CUDA device; pass device='cpu' to train on the CPU")
+        if self.device.type == "cuda":  # f32 training and converter: no TF32
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg, self.tcfg = cfg, tcfg
         sp = cfg.preprocess_params.spect_params
         self.sr = cfg.preprocess_params.sr
@@ -228,6 +235,15 @@ class Trainer:
 
             self.rmvpe = RMVPE(rmvpe_model)
         self.model.to(self.device).train()
+        # the OpenVoice perturbation, when its weights are given (se_db alone
+        # picks nothing: the JAX trainer uses the bank only with the converter)
+        self.openvoice = None
+        self.se_db = None if se_db is None else np.asarray(se_db, np.float32)
+        if openvoice_params is not None:
+            ov = openvoice.ToneColorConverter(openvoice.OpenVoiceConfig())
+            self.openvoice = load_jax_params(ov, openvoice_params).requires_grad_(False).eval()
+            self.openvoice.to(self.device)
+            self._to16k = resample_kernel(self.sr, 16000, self.device)
 
         schedule = warmup_cosine(tcfg.base_lr, tcfg.warmup_steps, tcfg.max_steps)
         make = make_multi_optimizer if tcfg.optimizer_kind == "multi" else make_optimizer
@@ -266,22 +282,47 @@ class Trainer:
         mel = whisper_log_mel(w16).to(self.enc_dtype)
         return self.whisper(mel).float()
 
+    def _perturb_openvoice(self, waves: torch.Tensor, rng: np.random.Generator,
+                           step: int) -> torch.Tensor:
+        """The OpenVoice conversion of the sr-rate batch ``waves`` (B, Tw), cut
+        to whole 256-sample frames, to the target speaker embeddings, resampled
+        to 16 kHz. Draws from ``rng``: the batch shuffle when there is no
+        ``se_db``, then the (B, frames, inter) noise."""
+        ov = self.openvoice
+        B = waves.shape[0]
+        spec_len = waves.shape[1] // 256
+        if self.se_db is not None:
+            se_tgt = self._put(self.se_db[(step * B + np.arange(B)) % len(self.se_db)])
+        else:
+            perm = torch.from_numpy(rng.permutation(B)).to(self.device)
+            se_tgt = ov.extract_se(openvoice.linear_spectrogram(waves))[perm]
+        noise = self._put(rng.standard_normal((B, spec_len, ov.cfg.inter_channels))
+                          .astype(np.float32))
+        spec = openvoice.linear_spectrogram(waves[:, : spec_len * 256])
+        lens = torch.full((B,), spec_len, dtype=torch.int32, device=self.device)
+        converted = ov.voice_conversion(spec, lens, ov.extract_se(spec), se_tgt, noise, 0.3)
+        return resample(converted, self.sr, 16000, self._to16k)
+
     @torch.no_grad()
     def prepare_batch(self, batch: Batch, rng: np.random.Generator,
-                      cache: bool = True) -> dict:
+                      cache: bool = True, step: Optional[int] = None) -> dict:
         """The step's inputs on the device from one dataset batch. ``rng``
-        draws the perturbation rate (one ``uniform(perturb_min, perturb_max)``);
-        ``cache=False`` bypasses the per-clip feature cache (validation: its
-        clip ids index another dataset)."""
+        draws the perturbation (one ``uniform(perturb_min, perturb_max)`` warp
+        rate, or the OpenVoice converter's draws); ``step`` (default: the
+        state's) picks the ``se_db`` rows; ``cache=False`` bypasses the per-clip
+        feature cache (validation: its clip ids index another dataset)."""
         tb = self.tcfg
+        if step is None:
+            step = self.state.step
         B = batch.waves.shape[0]
         mel_lens = (batch.wave_lengths // self.hop).astype(np.int32)
         bucket = -(-int(mel_lens.max()) // tb.mel_bucket) * tb.mel_bucket
         waves = np.zeros((B, bucket * self.hop), np.float32)
         n = min(waves.shape[1], batch.waves.shape[1])
         waves[:, :n] = batch.waves[:, :n]
+        waves_d = self._put(waves)
         mel_lens_d = self._put(mel_lens)
-        mels = padded_mel(self.mel_fn, self._put(waves), mel_lens_d)
+        mels = padded_mel(self.mel_fn, waves_d, mel_lens_d)
 
         # one 1 s-bucketed 16 kHz batch for every consumer
         w16_T = min(-(-batch.waves_16k.shape[1] // 16000) * 16000, 30 * 16000)
@@ -291,18 +332,25 @@ class Trainer:
         eff_16k = np.minimum(batch.wave_16k_lengths, w16_T)
         frame_lens = np.maximum((eff_16k - 400) // 160 + 1, 1).astype(np.int32)
         w16 = self._put(w16b)
-        # the warp takes 1/rate: out[i] = wave[i * r] compresses by r
-        rate = rng.uniform(tb.perturb_min, tb.perturb_max)
-        inv_rate = np.float32(1.0 / rate)
+        if self.openvoice is None:
+            # the warp takes 1/rate: out[i] = wave[i * r] compresses by r
+            alt = warp_rate(w16, np.float32(1.0 / rng.uniform(tb.perturb_min, tb.perturb_max)))
+        else:
+            # the converted wave at its own length; Whisper zero-pads it to 30 s
+            alt = self._perturb_openvoice(waves_d, rng, step)[:, :WHISPER_CHUNK]
 
         ids = batch.ids if (cache and tb.feat_cache_bytes > 0) else None
         if ids is not None and all(int(i) in self._feat_cache for i in ids):
             rows = [self._feat_cache[int(i)] for i in ids]
             s_ori = torch.stack([r[0] for r in rows])
             style = torch.stack([r[1] for r in rows])
-            s_alt = self._whisper(warp_rate(w16, inv_rate))
+            s_alt = self._whisper(alt)
         else:
-            s = self._whisper(torch.cat([w16, warp_rate(w16, inv_rate)], dim=0))
+            # one encoder call for both; zero-padding them to one length leaves
+            # the features as they were, since Whisper pads every row to 30 s
+            T = max(w16.shape[1], alt.shape[1])
+            s = self._whisper(torch.cat([F.pad(w16, (0, T - w16.shape[1])),
+                                         F.pad(alt, (0, T - alt.shape[1]))]))
             s_ori, s_alt = s[:B], s[B:]
             style = batch_style(self.campplus, w16, self._put(frame_lens))
             if ids is not None:
@@ -400,14 +448,15 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def validate(self, val_dataset: FTDataset) -> float:
-        """Mean CFM loss over up to ``val_batches`` validation batches."""
+        """Mean CFM loss over up to ``val_batches`` validation batches, each
+        perturbed as a training batch at the current step."""
         tb = self.tcfg
         rng = np.random.default_rng(tb.seed + 1)
         losses = []
         for i, batch in enumerate(val_dataset.batches(shuffle=False, epoch=0)):
             if i >= tb.val_batches:
                 break
-            feats = self.prepare_batch(batch, rng, cache=False)
+            feats = self.prepare_batch(batch, rng, cache=False, step=self.state.step)
             losses.append(float(self.eval_fn(self.state.params, feats, (tb.seed + i,))))
         return float(np.mean(losses)) if losses else float("nan")
 
@@ -429,7 +478,7 @@ class Trainer:
             def _prep(batch, _steps=prep_step):
                 s = next(_steps)
                 t = time.perf_counter()
-                feats = self.prepare_batch(batch, np.random.default_rng((tb.seed, s)))
+                feats = self.prepare_batch(batch, np.random.default_rng((tb.seed, s)), step=s)
                 return feats, time.perf_counter() - t
 
             for feats, prep_s in prefetched(dataset.batches(shuffle=True, epoch=epoch), _prep,

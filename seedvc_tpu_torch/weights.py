@@ -30,9 +30,10 @@ weight, is the one exception.
 any tensors named like them, such as their gradients) as a flax tree of
 numpy arrays, which ``load_jax_params`` and the JAX package load. A
 ``weight`` becomes a Dense / Conv ``kernel``, an ``embedding``, a norm's
-``scale`` or stays ``weight`` (RMSNorm) by the module that holds it;
-transposed convolutions, whose flax name the port cannot tell
-(``ups_i_kernel`` or ``up_conv_i/kernel``), raise.
+``scale`` or stays ``weight`` (RMSNorm) by the module that holds it; a
+torch-style transposed convolution ``ups_i`` or ``dec_i_up`` becomes its
+parent's ``ups_i_kernel`` / ``ups_i_bias``, the flax ``ConvTranspose`` of
+the ConvNeXt stage (``FlaxConvTranspose1d``) its own ``kernel`` / ``bias``.
 """
 
 from __future__ import annotations
@@ -103,12 +104,15 @@ _NORMS = (nn.GroupNorm, nn.LayerNorm, nn.modules.batchnorm._NormBase)
 # the port's own norm modules whose ``weight`` is a flax ``scale``
 _NAMED_NORMS = ("MaskedGroupNorm", "EvalBatchNorm")
 _INVERSE_RENAME = {"running_mean": "mean", "running_var": "var"}
+_TRANSPOSED = (nn.ConvTranspose1d, nn.ConvTranspose2d)
 
 
 def _to_flax(mod: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
-    if isinstance(mod, (nn.ConvTranspose1d, nn.ConvTranspose2d)):
-        raise NotImplementedError("to_jax_params: transposed convolutions have no "
-                                  "single flax name")
+    if isinstance(mod, _TRANSPOSED):
+        if name != "weight":
+            return name, arr
+        perm = (arr.ndim - 2, arr.ndim - 1, *range(arr.ndim - 2))
+        return "kernel", arr.transpose(np.argsort(perm))
     if isinstance(mod, nn.GRU):
         inverse = {v: k for k, v in _GRU.items()}
         return inverse[name], arr.T
@@ -143,6 +147,8 @@ def to_jax_params(module: nn.Module, values: Mapping | None = None) -> dict:
         *path, leaf = full.split(".")
         mod = module.get_submodule(".".join(path))
         name, arr = _to_flax(mod, leaf, tensor.detach().float().cpu().numpy())
+        if isinstance(mod, _TRANSPOSED) and type(mod).__name__ != "FlaxConvTranspose1d":
+            name = f"{path.pop()}_{name}"  # a flat leaf of the parent
         node = tree
         for part in path:
             node = node.setdefault(part, {})

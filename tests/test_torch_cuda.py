@@ -542,3 +542,66 @@ def test_rmvpe_cuda_matches_cpu(full):
     assert clear.mean() > 0.5
     f0_cpu, f0_cuda = decode_f0(sal_cpu), decode_f0(sal_cuda)
     np.testing.assert_allclose(f0_cuda[clear], f0_cpu[clear], rtol=1e-4)
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["reduced", "full_width"])
+def test_openvoice_cuda_matches_cpu(full):
+    """The ToneColorConverter (cuDNN convolutions and GRU, TF32 off) against
+    the same weights and noise on the CPU, on 2 s at 22.05 kHz: the speaker
+    embeddings and the converted wave within 1e-5 absolute (f32
+    through 16 WaveNet layers, 8 couplings and the decoder in other orders)."""
+    import copy
+
+    from seedvc_tpu_torch.models.openvoice import (OpenVoiceConfig, ToneColorConverter,
+                                                   draw_post, linear_spectrogram)
+
+    cfg = OpenVoiceConfig() if full else OpenVoiceConfig(
+        inter_channels=32, hidden_channels=32, resblock_kernel_sizes=(3,),
+        resblock_dilation_sizes=((1, 3, 5),), upsample_initial_channel=64)
+    torch.manual_seed(0)
+    ov = draw_post(ToneColorConverter(cfg)).requires_grad_(False).eval()
+    wave = torch.from_numpy((0.3 * np.sin(2 * np.pi * 180 * np.arange(44100) / 22050)
+                             ).astype(np.float32))[None]
+    out = {}
+    for dev, m in (("cpu", copy.deepcopy(ov)), ("cuda", ov.cuda())):
+        spec = linear_spectrogram(wave.to(dev))
+        T = spec.shape[1]
+        noise = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (1, T, cfg.inter_channels)).astype(np.float32)).to(dev)
+        se = m.extract_se(spec)
+        g_tgt = torch.flip(se, dims=(-1,))
+        out[dev] = (se.cpu(), m.voice_conversion(spec, torch.tensor([T], device=dev), se,
+                                                 g_tgt, noise, 0.3).cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=1e-5, rtol=0)
+    assert out["cpu"][1].abs().max() > 1e-3
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["reduced", "full_width"])
+def test_wavlm_sv_cuda_matches_cpu(full):
+    """WavLM-SV (cuDNN convolutions, TF32 off) against the same weights on the
+    CPU on 3 s, within 1e-5 relative L2; on the card a padded 5 s bucket with
+    ``lengths`` equals each clip's unpadded forward within 1e-5 relative L2."""
+    import copy
+
+    from seedvc_tpu_torch.models.wavlm_sv import WavLMSV, WavLMSVConfig
+
+    cfg = WavLMSVConfig() if full else WavLMSVConfig(
+        conv_dim=64, d_model=96, n_layers=2, n_heads=4, ffn_dim=192, pos_conv_kernel=32,
+        pos_conv_groups=4, tdnn_dims=(64, 64, 64, 64, 128), xvector_dim=32)
+    torch.manual_seed(0)
+    m = WavLMSV(cfg).requires_grad_(False).eval()
+    rng = np.random.default_rng(2)
+    wave = torch.from_numpy((0.1 * rng.standard_normal((1, 48000))).astype(np.float32))
+    ref = copy.deepcopy(m)(wave)
+    m.cuda()
+    got = m(wave.cuda()).cpu()
+    assert ((got - ref).norm() / ref.norm()).item() < 1e-5
+    lens = [48000, 31234]
+    padded = torch.zeros(2, 80000)
+    padded[0, :48000] = wave[0]
+    padded[1, :31234] = torch.from_numpy((0.1 * rng.standard_normal(31234)).astype(np.float32))
+    emb = m(padded.cuda(), lengths=torch.tensor(lens, device="cuda")).cpu()
+    for i, n in enumerate(lens):
+        solo = m(padded[i:i + 1, :n].cuda()).cpu()
+        assert ((emb[i] - solo[0]).norm() / solo.norm()).item() < 1e-5

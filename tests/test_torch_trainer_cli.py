@@ -3,8 +3,8 @@
 LR halving, the validation early stop, ``export_serving`` into the port's
 ``VoiceConverter`` (the tree has the JAX init tree's structure and shapes),
 ``to_jax_params`` round trips, ``apps.train --device cpu``, and what raises:
-no card, the OpenVoice perturbation (ROADMAP queue 1 item 3b), multi-GPU
-(item 3c)."""
+no card and multi-GPU (ROADMAP queue 1 item 3c); the OpenVoice perturbation,
+which raised until it was ported, now builds."""
 
 import dataclasses
 import os
@@ -25,7 +25,7 @@ from seedvc_tpu_torch.pipelines.convert import VoiceConverter
 from seedvc_tpu_torch.train.dataset import FTDataset
 from seedvc_tpu_torch.train.trainer import Trainer, TrainerConfig
 from seedvc_tpu_torch.weights import load_jax_params, to_jax_params
-from torch_port_helpers import port_cfg, tiny_train_cfg, vc_tree
+from torch_port_helpers import ov_tiny_cfg, ov_tree, port_cfg, tiny_train_cfg, vc_tree
 
 torch.set_num_threads(1)
 
@@ -172,8 +172,20 @@ def test_what_raises(wav_dir, monkeypatch):
             Trainer(CFG, tc, whisper_cfg=WHISPER)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_app.main(["--dataset-dir", wav_dir, "--max-steps", "1"])
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        Trainer(CFG, tc, whisper_cfg=WHISPER, openvoice_params={}, device="cpu")
+    # the OpenVoice perturbation (tiny converter) builds and prepares a batch
+    import seedvc_tpu.models.openvoice as jov
+    import seedvc_tpu_torch.models.openvoice as pov
+
+    pcfg = ov_tiny_cfg(pov)
+    monkeypatch.setattr(pov, "OpenVoiceConfig", lambda: pcfg)
+    tr = Trainer(CFG, dataclasses.replace(tc, mel_bucket=64), whisper_cfg=WHISPER,
+                 openvoice_params=ov_tree(ov_tiny_cfg(jov)),
+                 se_db=np.ones((4, 12), np.float32), device="cpu")
+    batch = next(iter(FTDataset(wav_dir, SR, 2).batches(shuffle=False)))
+    feats = tr.prepare_batch(batch, np.random.default_rng(0))
+    assert feats["s_alt"].shape == feats["s_ori"].shape
+    assert torch.isfinite(feats["s_alt"]).all()
+    assert (feats["s_alt"] - feats["s_ori"]).abs().max() > 1e-3
     with pytest.raises(NotImplementedError, match="item 3c"):
         Trainer(CFG, tc, whisper_cfg=WHISPER, n_model=2, device="cpu")
     with pytest.raises(NotImplementedError, match="item 3c"):

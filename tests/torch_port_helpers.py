@@ -277,9 +277,10 @@ def jax_chain_draws(p):
     return draws_fn
 
 
-def trainer_pair(wav_dir):
+def trainer_pair(wav_dir, **extra):
     """A JAX trainer (n_model=4 on the 8-device CPU mesh) and a port trainer
-    on the CPU, on the same trees and config; the port draws JAX's draws."""
+    on the CPU, on the same trees and config; the port draws JAX's draws.
+    ``extra``: more keyword arguments for both constructors (numpy trees)."""
     from seedvc_tpu.models.whisper import WhisperEncoderConfig as JWhisperEncoderConfig
     from seedvc_tpu.train.trainer import Trainer as JTrainer
     from seedvc_tpu_torch.models.whisper import WhisperEncoderConfig
@@ -288,11 +289,44 @@ def trainer_pair(wav_dir):
     jcfg, params = trainer_trees()
     jt, pt = _trainer_cfgs(wav_dir)
     jtr = JTrainer(jcfg, jt, whisper_cfg=JWhisperEncoderConfig(**TRAINER_WHISPER), n_model=4,
-                   **params)
+                   **params, **extra)
     ptr = Trainer(port_cfg(jcfg), pt, whisper_cfg=WhisperEncoderConfig(**TRAINER_WHISPER),
                   device="cpu", draws_fn=jax_chain_draws(jcfg.model_params.DiT.class_dropout_prob),
-                  **params)
+                  **params, **extra)
     return jtr, ptr
+
+
+# ---------------------------------------------------------------------------
+# OpenVoice (tests/test_torch_openvoice.py, test_torch_trainer_openvoice.py, test_torch_eval.py)
+
+def ov_tiny_cfg(mod):
+    """The tiny config of tests/test_openvoice.py in ``mod``'s
+    ``OpenVoiceConfig`` (the JAX or the port module): inter 8, hidden 16, one
+    ResBlock, two 4x upsamplings, gin 12."""
+    return mod.OpenVoiceConfig(
+        spec_channels=513, inter_channels=8, hidden_channels=16,
+        resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3, 5),),
+        upsample_rates=(4, 4), upsample_initial_channel=32,
+        upsample_kernel_sizes=(8, 8), gin_channels=12, zero_g=True)
+
+
+def ov_tree(jcfg, seed=0):
+    """A random flax tree (numpy) of the JAX ToneColorConverter of ``jcfg``:
+    the voice_conversion branch and the reference encoder (which setup
+    builds lazily), merged. Every leaf is drawn, each coupling's ``post``
+    included (a fresh JAX init zeroes it, which makes the flow the identity
+    and g inert)."""
+    import jax.numpy as jnp
+
+    from seedvc_tpu.models.openvoice import ToneColorConverter
+
+    m = ToneColorConverter(jcfg)
+    T, g = 16, jnp.zeros((1, jcfg.gin_channels))
+    vc = jax_init(m, jnp.zeros((1, T, jcfg.spec_channels)), jnp.array([T]), g, g,
+                  jnp.zeros((1, T, jcfg.inter_channels)), 0.3,
+                  method=m.voice_conversion, seed=seed)
+    ref = jax_init(m, jnp.zeros((1, T, jcfg.spec_channels)), method=m.extract_se, seed=seed + 1)
+    return {**vc, **ref}
 
 
 # ---------------------------------------------------------------------------
