@@ -146,6 +146,27 @@ failure exits non-zero:
    which must convert nothing; ``--baseline openvoice`` from a pkl (no K1,
    no K2); one source with ``whisper_base_f0_44k --f0-metrics`` (425 K1,
    109 K2); seconds a conversion and of each embedding, the summary line;
+12b. the web UI (``apps.webui``), the serving entry point: (a) in process,
+   ``ConverterRegistry(device="cuda")`` behind ``make_server`` on a thread,
+   warmed with 30 s + 5 s for vc, svc and v2 (seconds, plans and launches a
+   mode: one silent conversion a plan); ``GET /``, ``/api/status`` (the three
+   converters), ``/api/examples`` and one example; ``POST /api/convert`` as
+   multipart wav uploads: vc and svc (pitch shift 2, auto-F0) on 30 s + 5 s
+   (650 K1 / 218 K2 and 850 / 218), v2 with ``convert_style=1`` on 20 s + 5 s
+   (the AR captured and replayed as a CUDA graph on the registry's device
+   thread; 390 K1 and 109 K2 a chunk), 0 K3, each request's client wall, ``X-RTF``, the
+   stats' wall and audio-s/s; the vc body against the same conversion called
+   directly (1 LSB) and the same request again (1 LSB); ``/api/convert_stream``
+   in flac and wav, its chunked
+   framing parsed here, decoded to the vc body (1 LSB), its chunks and the
+   time to the first audio chunk; two concurrent 10 s + 5 s requests (seeds 0
+   and 1) from two client threads, each against its sequential run (1 LSB),
+   the pair's wall against the sum; mp3 (400 naming ffmpeg before any header
+   without ``ffmpeg``, else 200 ``audio/mpeg``) and a request without the
+   reference (400); (b) ``python -m seedvc_tpu_torch.apps.webui --warm 10:5
+   --warm-modes vc`` as a subprocess on a free port: its ``warmed`` and
+   ``serving on`` lines within a bounded wait, ``/api/status``, one 10 s +
+   5 s conversion, then it is terminated;
 13. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
    library call at the shapes of every path (each timed window queued behind a
    spin kernel, so the host's dispatch rate does not enter), with each
@@ -160,7 +181,9 @@ failure exits non-zero:
    training run's largest and commonest other T, with the launches a step;
    and the eval rows: K1 at (2, 8, 1536, 64) and (2, 12, 1536, 64) and K2 at
    a 1024-frame chunk's stage shapes at 22.05 and 44.1 kHz, launches from
-   phase 12.
+   phase 12; and the web UI rows: K1 and K2 at the shapes of its vc, svc and
+   v2 requests (the v2 request's plan, which the AR's length sets), launches
+   from phase 12b.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
 profiled warm conversion to phases 5, 6, 8 and 9 (a ``convert_timbre`` in
@@ -2966,6 +2989,416 @@ def phase_eval(card: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 12b: the web UI (apps.webui), the serving entry point, at full width
+# from random weights (seed 0): ConverterRegistry on the card behind
+# make_server on a thread, requests from this process over localhost, then
+# the CLI as a subprocess. Each conversion runs on the registry's device
+# thread under its lock, while the handler threads parse and answer. Limits: a served body against the same conversion called
+# directly, and each streamed or concurrent body against its sequential
+# /api/convert body, within WEB_LSB of int16 (the same kernels on the same
+# inputs: only a library's algorithm choice may differ).
+WEB_LSB = 1
+WEB_SPECS = [(30.0, 5.0)]
+WEB_CLI_TIMEOUT = 300.0
+WEB_PATH = "web UI POST /api/convert {} (a 30 s source, v2 20 s, with a 5 s reference)"
+
+
+def multipart(fields: dict) -> tuple[bytes, str]:
+    """A multipart/form-data body: ``(filename, bytes)`` values as file
+    uploads, everything else as text fields."""
+    import uuid
+
+    boundary = uuid.uuid4().hex
+    parts = []
+    for name, value in fields.items():
+        if isinstance(value, tuple):
+            head = (f'Content-Disposition: form-data; name="{name}"; filename="{value[0]}"\r\n'
+                    "Content-Type: audio/wav\r\n\r\n")
+            data = value[1]
+        else:
+            head, data = f'Content-Disposition: form-data; name="{name}"\r\n\r\n', \
+                str(value).encode()
+        parts.append(f"--{boundary}\r\n{head}".encode() + data + b"\r\n")
+    return (b"".join(parts) + f"--{boundary}--\r\n".encode(),
+            f"multipart/form-data; boundary={boundary}")
+
+
+def wav_upload(wave: np.ndarray, sr: int) -> tuple[bytes, np.ndarray]:
+    """A 16-bit wav of ``wave`` and the float samples the server reads from it."""
+    import io
+
+    from scipy.io import wavfile
+
+    pcm = (np.clip(wave, -1, 1) * 32767).astype(np.int16)
+    buf = io.BytesIO()
+    wavfile.write(buf, sr, pcm)
+    return buf.getvalue(), pcm.astype(np.float32) / 32768.0
+
+
+def read_wav_body(body: bytes) -> tuple[int, np.ndarray]:
+    import io
+
+    from scipy.io import wavfile
+
+    return wavfile.read(io.BytesIO(body))
+
+
+def http_call(port: int, method: str, path: str, fields: dict | None = None,
+              timeout: float = 600.0) -> dict:
+    """One request over a raw socket, the chunked framing parsed here: status,
+    headers (lower-case names), the body, each chunk's arrival (seconds after
+    the request was sent) and the client's wall."""
+    import socket
+
+    body, ctype = multipart(fields) if fields is not None else (b"", None)
+    head = f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nConnection: close\r\n"
+    if fields is not None:
+        head += f"Content-Type: {ctype}\r\nContent-Length: {len(body)}\r\n"
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout) as sock:
+        sock.sendall(head.encode() + b"\r\n" + body)
+        f = sock.makefile("rb")
+        status = int(f.readline().split()[1])
+        headers = {}
+        while (line := f.readline()) not in (b"\r\n", b""):
+            k, v = line.decode().split(":", 1)
+            headers[k.strip().lower()] = v.strip()
+        chunks = []
+        if headers.get("transfer-encoding") == "chunked":
+            while (size := int(f.readline().strip(), 16)) > 0:
+                data = f.read(size)
+                chunks.append((time.perf_counter() - t0, data))
+                if f.read(2) != b"\r\n":
+                    fail(f"{path}: bad chunk framing")
+            f.readline()
+            data = b"".join(c for _, c in chunks)
+        else:
+            data = f.read(int(headers.get("content-length", "0")))
+    return {"status": status, "headers": headers, "body": data, "chunks": chunks,
+            "wall_s": time.perf_counter() - t0}
+
+
+def expect_status(what: str, r: dict, status: int, ctype: str | None = None):
+    if r["status"] != status or (ctype is not None and r["headers"].get("content-type") != ctype):
+        fail(f"{what}: {r['status']} {r['headers'].get('content-type')} "
+             f"{r['body'][:300]!r}; expected {status} {ctype}")
+
+
+def n_chunks(target_len: int, W: int) -> int:
+    """Chunks the pipelines run for ``target_len`` frames at window W."""
+    from seedvc_tpu_torch.pipelines.convert import OVERLAP_FRAMES
+
+    n = processed = 0
+    while processed < target_len:
+        w = min(W, target_len - processed)
+        processed += w if processed + W >= target_len else w - OVERLAP_FRAMES
+        n += 1
+    return n
+
+
+def lsb_diff(a: np.ndarray, b: np.ndarray) -> int:
+    if a.shape != b.shape:
+        return 1 << 30
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max()) if a.size else 0
+
+
+def phase_webui(card: str) -> dict:
+    """Phase 12b: (a) the web UI in process, (b) its CLI."""
+    import shutil
+    import threading
+
+    import torch
+
+    from seedvc_tpu_torch.apps import webui
+    from seedvc_tpu_torch.dsp.flac import decode_flac
+
+    result = {}
+    registry = webui.ConverterRegistry(device="cuda")
+    server = webui.make_server("127.0.0.1", 0, registry)
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        # (1) warm each mode: one silent conversion per distinct plan
+        steps = {"vc": 25, "svc": 25, "v2": V2_STEPS}
+        keys = {"vc": ("v1", "whisper_small_wavenet"), "svc": ("v1", SVC_PRESET),
+                "v2": ("v2", "v2")}  # the registry's key of each mode's converter
+        for mode in ("vc", "svc", "v2"):
+            reset_counts()
+            t0 = time.perf_counter()
+            plans = registry.warm(WEB_SPECS, modes=(mode,))[mode]
+            torch.cuda.synchronize()
+            wall, counts = time.perf_counter() - t0, read_counts()
+            conv = registry.get(*keys[mode])
+            depth = conv.cfg.dit.depth
+            chunks = sum(n_chunks(max(int(s * conv.sr) // conv.hop, 1), plan[2])
+                         for (s, _), plan in zip(WEB_SPECS, plans))
+            expect = {"k1": chunks * steps[mode] * depth, "k2": chunks * 109, "k3": 0}
+            log(f"webui warm {mode}: {wall:.3f} s (the converter's build included), plans "
+                f"{plans}, launches {counts} (expected {expect}), on {card}")
+            check_counts(f"webui warm {mode}", counts, expect)
+            result[f"warm {mode}"] = {"wall_s": wall, "plans": plans, "counts": counts}
+
+        # (2) the pages
+        for path, ctype in (("/", "text/html; charset=utf-8"), ("/api/status", "application/json"),
+                            ("/api/examples", "application/json")):
+            r = http_call(port, "GET", path)
+            expect_status(f"GET {path}", r, 200, ctype)
+            if path == "/api/status":
+                loaded = json.loads(r["body"])["loaded"]
+                if loaded != ["v1:whisper_base_f0_44k", "v1:whisper_small_wavenet", "v2:v2"]:
+                    fail(f"/api/status lists {loaded}")
+            if path == "/api/examples":
+                example = json.loads(r["body"])[0]["url"]
+        r = http_call(port, "GET", example)
+        expect_status(f"GET {example}", r, 200, "audio/wav")
+        log(f"webui pages: /, /api/status, /api/examples, {example}: 200 each")
+
+        # (3) a request a mode, launches checked against the request's plan
+        src22, ref22 = synthetic_audio(30.0, 22050, 140.0, seed=61), \
+            synthetic_audio(5.0, 22050, 220.0, seed=62)
+        src44, ref44 = synthetic_audio(30.0, 44100, 150.0, seed=63), \
+            synthetic_audio(5.0, 44100, 230.0, seed=64)
+        src_v2 = synthetic_audio(20.0, 22050, 140.0, seed=65)
+        (s22, s22_f), (r22, r22_f) = wav_upload(src22, 22050), wav_upload(ref22, 22050)
+        vc_fields = {"mode": "vc", "diffusion_steps": 25, "cfg_rate": 0.7, "seed": 0,
+                     "source": ("s.wav", s22), "target": ("r.wav", r22)}
+        requests = {
+            "vc": (vc_fields, 22050, 256, len(src22)),
+            "svc": ({"mode": "svc", "diffusion_steps": 25, "cfg_rate": 0.7, "seed": 0,
+                     "pitch_shift": 2, "auto_f0_adjust": "1",
+                     "source": ("s.wav", wav_upload(src44, 44100)[0]),
+                     "target": ("r.wav", wav_upload(ref44, 44100)[0])}, 44100, 512, len(src44)),
+            "v2": ({"mode": "v2", "convert_style": "1", "diffusion_steps": V2_STEPS, "seed": 0,
+                    "source": ("s.wav", wav_upload(src_v2, 22050)[0]),
+                    "target": ("r.wav", r22)}, 22050, 256, len(src_v2)),
+        }
+        served = {}
+        for mode, (fields, sr, hop, n_src) in requests.items():
+            reset_counts()
+            r = http_call(port, "POST", "/api/convert", fields)
+            counts = read_counts()
+            expect_status(f"webui {mode}", r, 200, "audio/wav")
+            stats = json.loads(r["headers"]["x-stats"])
+            out_sr, pcm = read_wav_body(r["body"])
+            target_len = stats["target_len"] if mode == "v2" else n_src // hop
+            chunks = stats["chunks"]
+            depth = registry.get(*keys[mode]).cfg.dit.depth
+            expect = {"k1": chunks * steps[mode] * depth, "k2": chunks * 109, "k3": 0}
+            audio_s = len(pcm) / out_sr
+            log(f"webui {mode}: 200, {r['wall_s']:.3f} s from the client, X-RTF "
+                f"{r['headers']['x-rtf']}, stats wall {stats['wall_seconds']:.3f} s, "
+                f"{audio_s:.2f} s of audio at {out_sr} Hz ({audio_s / r['wall_s']:.2f} "
+                f"audio-s/s), {chunks} chunks, launches {counts}, on {card}")
+            if mode == "v2":
+                log(f"  v2: narrow {stats['narrow_tokens']} -> wide {stats['wide_tokens']} "
+                    f"tokens, decode steps {stats['decode_steps']}, replays {stats['replays']}, "
+                    f"AR {stats['ar_seconds']:.3f} s, plan {stats['plan']}")
+                if stats["ar_batch"] < 1 or stats["replays"] != stats["decode_steps"] - 1:
+                    fail(f"webui v2: the AR ran {stats['ar_batch']} rows, {stats['replays']} "
+                         f"replays for {stats['decode_steps']} steps")
+                if chunks != n_chunks(target_len, stats["plan"][2]):
+                    fail(f"webui v2: {chunks} chunks, plan {stats['plan']}")
+            if out_sr != sr or len(pcm) != target_len * hop or not pcm.std() > 0:
+                fail(f"webui {mode}: {out_sr} Hz, {len(pcm)} samples (expected {sr} Hz, "
+                     f"{target_len * hop}), std {pcm.std()}")
+            check_counts(f"webui {mode}", counts, expect)
+            served[mode] = pcm
+            result[mode] = {"wall_s": r["wall_s"], "rtf": float(r["headers"]["x-rtf"]),
+                            "stats_wall_s": stats["wall_seconds"], "audio_s": audio_s,
+                            "counts": counts, "stats": stats}
+        # K1's keys by chunk on the v2 request: prompt + chunk + the 2 prefix tokens
+        v2s = result["v2"]["stats"]
+        W = v2s["plan"][2]
+        p_len = min(len(r22_f) // 256, registry.get("v2", "v2").cfg.prompt_cap_frames)
+        result["v2"]["lens"] = [p_len + min(W, v2s["target_len"] - i * (W - 16)) + 2
+                                for i in range(v2s["chunks"])]
+
+        # (4) the vc body against the same conversion called directly (under
+        # the registry's lock, as the server's are)
+        conv = registry.get("v1", "whisper_small_wavenet")
+        t0 = time.perf_counter()
+        with registry.lock:
+            _, wave, _ = conv.convert(s22_f, 22050, r22_f, 22050, diffusion_steps=25,
+                                      length_adjust=1.0, cfg_rate=0.7,
+                                      auto_f0_adjust=True, pitch_shift=0.0, seed=0)
+        torch.cuda.synchronize()
+        direct_wall = time.perf_counter() - t0
+        if not np.isfinite(wave).all():
+            fail("webui: the direct vc conversion is not finite")
+        direct = (np.clip(wave, -1, 1) * 32767).astype(np.int16)
+        d = lsb_diff(served["vc"], direct)
+        log(f"webui vc body against a direct convert: max |diff| {d} LSB (limit {WEB_LSB}); "
+            f"direct {direct_wall:.3f} s")
+        if d > WEB_LSB:
+            fail(f"webui vc body differs from the direct conversion by {d} LSB")
+        # the same request again: the first one after warm against a later one
+        r = http_call(port, "POST", "/api/convert", vc_fields)
+        expect_status("webui vc again", r, 200, "audio/wav")
+        d = lsb_diff(read_wav_body(r["body"])[1], served["vc"])
+        log(f"webui vc again: {r['wall_s']:.3f} s from the client, stats wall "
+            f"{json.loads(r['headers']['x-stats'])['wall_seconds']:.3f} s, max |diff| against "
+            f"the first {d} LSB")
+        if d > WEB_LSB:
+            fail(f"webui vc again differs from the first by {d} LSB")
+        result["vc again"] = {"wall_s": r["wall_s"]}
+
+        # (5) the chunked streams, flac then wav, against the vc body
+        for fmt, ctype in (("flac", "audio/flac"), ("wav", "audio/wav")):
+            reset_counts()
+            r = http_call(port, "POST", "/api/convert_stream", {**vc_fields, "stream_format": fmt})
+            counts = read_counts()
+            expect_status(f"webui stream {fmt}", r, 200, ctype)
+            if r["headers"].get("transfer-encoding") != "chunked":
+                fail(f"webui stream {fmt}: not chunked")
+            if fmt == "flac":
+                sr_s, pcm_s = decode_flac(r["body"])
+                pcm_s = pcm_s[:, 0]
+            else:
+                sr_s, pcm_s = 22050, np.frombuffer(r["body"][44:], "<i2")
+            d = lsb_diff(pcm_s, served["vc"])
+            if len(r["chunks"]) < 2:
+                fail(f"webui stream {fmt}: {len(r['chunks'])} chunks")
+            first_audio = r["chunks"][1][0]
+            log(f"webui stream {fmt}: {len(r['chunks'])} chunks (header + "
+                f"{len(r['chunks']) - 1} audio), first audio chunk at {first_audio:.3f} s, "
+                f"all at {r['wall_s']:.3f} s, {len(r['body'])} bytes, max |diff| against the "
+                f"body {d} LSB, launches {counts}, on {card}")
+            if sr_s != 22050 or d > WEB_LSB:
+                fail(f"webui stream {fmt}: {sr_s} Hz, {d} LSB from the /api/convert body")
+            check_counts(f"webui stream {fmt}", counts, result["vc"]["counts"])
+            result[f"stream {fmt}"] = {"first_audio_s": first_audio, "wall_s": r["wall_s"],
+                                       "chunks": len(r["chunks"]), "bytes": len(r["body"])}
+
+        # (6) two concurrent requests against their sequential runs
+        src10 = wav_upload(synthetic_audio(10.0, 22050, 160.0, seed=66), 22050)[0]
+        pair = [{**vc_fields, "source": ("s.wav", src10), "seed": s} for s in (0, 1)]
+        one = {"k1": 25 * conv.cfg.dit.depth, "k2": 109, "k3": 0}  # one chunk at context 1536
+        seq = []
+        for f in pair:
+            reset_counts()
+            r = http_call(port, "POST", "/api/convert", f)
+            expect_status("webui sequential", r, 200, "audio/wav")
+            check_counts("webui sequential 10 s", read_counts(), one)
+            seq.append(r)
+        conc = [None, None]
+        reset_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=lambda i=i: conc.__setitem__(
+            i, http_call(port, "POST", "/api/convert", pair[i]))) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        pair_wall = time.perf_counter() - t0
+        counts = read_counts()
+        if any(t.is_alive() for t in threads) or None in conc:
+            fail("webui concurrent pair did not finish")
+        diffs = []
+        for i, r in enumerate(conc):
+            expect_status(f"webui concurrent {i}", r, 200, "audio/wav")
+            diffs.append(lsb_diff(read_wav_body(r["body"])[1], read_wav_body(seq[i]["body"])[1]))
+        seq_sum = sum(r["wall_s"] for r in seq)
+        log(f"webui concurrent pair (10 s + 5 s, seeds 0 and 1): {pair_wall:.3f} s together "
+            f"against {seq_sum:.3f} s for the two in turn ({seq[0]['wall_s']:.3f} + "
+            f"{seq[1]['wall_s']:.3f}); each against its sequential body {diffs} LSB; "
+            f"launches {counts}, on {card}")
+        if max(diffs) > WEB_LSB or lsb_diff(read_wav_body(seq[0]["body"])[1],
+                                             read_wav_body(seq[1]["body"])[1]) == 0:
+            fail(f"webui concurrent pair: {diffs} LSB, or seeds 0 and 1 gave one body")
+        check_counts("webui concurrent pair", counts, {k: 2 * v for k, v in one.items()})
+        result["pair"] = {"wall_s": pair_wall, "seq_s": [r["wall_s"] for r in seq]}
+
+        # (7) mp3, and a request without the reference
+        r = http_call(port, "POST", "/api/convert_stream", {**vc_fields, "stream_format": "mp3"})
+        if shutil.which("ffmpeg") is None:
+            expect_status("webui mp3 without ffmpeg", r, 400)
+            if b"ffmpeg" not in r["body"] or r["chunks"]:
+                fail(f"webui mp3 without ffmpeg: {r['body'][:200]!r}")
+            log("webui mp3: no ffmpeg on PATH, 400 before any chunked header: "
+                f"{r['body'].decode()}")
+        else:
+            expect_status("webui mp3", r, 200, "audio/mpeg")
+            if not r["body"]:
+                fail("webui mp3: empty body")
+            log(f"webui mp3: ffmpeg on PATH, 200 audio/mpeg, {len(r['body'])} bytes")
+        missing = {k: v for k, v in vc_fields.items() if k != "target"}
+        r = http_call(port, "POST", "/api/convert", missing)
+        expect_status("webui without target", r, 400)
+        log(f"webui without the target upload: 400 {r['body'].decode()}")
+        vc_walls = [result["vc"]["wall_s"], result["vc again"]["wall_s"]] + [
+            result[f"stream {f}"]["wall_s"] for f in ("flac", "wav")]
+        log("webui vc 30 s walls from the client, the first request after warm first: "
+            f"{[round(w, 3) for w in vc_walls]}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        registry._cache.clear()
+        torch.cuda.empty_cache()
+
+    result["cli"] = phase_webui_cli(card)
+    return result
+
+
+def phase_webui_cli(card: str) -> dict:
+    """(b) ``python -m seedvc_tpu_torch.apps.webui --warm 10:5 --warm-modes vc``
+    as a subprocess on a free port: its warmed and serving lines, /api/status,
+    one 10 s + 5 s conversion; then it is terminated."""
+    import socket
+    import threading
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "seedvc_tpu_torch.apps.webui", "--port",
+                             str(port), "--warm", "10:5", "--warm-modes", "vc"], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, serving = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("serving on"):
+                serving.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        if not serving.wait(WEB_CLI_TIMEOUT):
+            fail(f"webui cli: no 'serving on' line in {WEB_CLI_TIMEOUT:.0f} s (exit "
+                 f"{proc.poll()}): " + " | ".join(lines[-20:]))
+        up = time.perf_counter() - t0
+        warmed = [x for x in lines if x.startswith("warmed")]
+        log(f"webui cli: serving after {up:.1f} s; " + " | ".join(warmed))
+        if not warmed:
+            fail("webui cli: no 'warmed' line")
+        r = http_call(port, "GET", "/api/status")
+        expect_status("webui cli status", r, 200, "application/json")
+        if "v1:whisper_small_wavenet" not in json.loads(r["body"])["loaded"]:
+            fail(f"webui cli status: {r['body']!r}")
+        src = synthetic_audio(10.0, 22050, 170.0, seed=67)
+        fields = {"mode": "vc", "source": ("s.wav", wav_upload(src, 22050)[0]),
+                  "target": ("r.wav", wav_upload(synthetic_audio(5.0, 22050, 210.0, seed=68),
+                                                 22050)[0])}
+        r = http_call(port, "POST", "/api/convert", fields)
+        expect_status("webui cli convert", r, 200, "audio/wav")
+        sr, pcm = read_wav_body(r["body"])
+        log(f"webui cli convert: 200, {r['wall_s']:.3f} s from the client, X-RTF "
+            f"{r['headers']['x-rtf']}, {len(pcm)} samples at {sr} Hz, on {card}")
+        if sr != 22050 or len(pcm) != len(src) // 256 * 256 or not pcm.std() > 0:
+            fail(f"webui cli convert: {sr} Hz, {len(pcm)} samples, std {pcm.std()}")
+        return {"up_s": up, "wall_s": r["wall_s"], "warmed": warmed}
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+
+
 @contextlib.contextmanager
 def smi_sampler(period_ms: int = 100):
     """Samples of the card's SM clock, power draw, power limit and temperature
@@ -3061,7 +3494,7 @@ def k1_row(t: dict, launches: int, err: float, path: str) -> dict:
 
 
 def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: dict,
-                      v2: dict, ev: dict) -> dict:
+                      v2: dict, ev: dict, web: dict) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -3080,6 +3513,9 @@ def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: di
     # the eval path: one chunk at context 1536, the 10 s source's keys
     k1_eval = k1_timing(EVAL_T, 8, EVAL_LENS[0], seed=37)
     k1_eval_svc = k1_timing(EVAL_T, K1_SVC_HEADS, EVAL_LENS[0], seed=38)
+    # the web UI's v2 request: the AR sets its length, so its plan is its own
+    web_cap, web_context, web_W = web["v2"]["stats"]["plan"]
+    k1_web_v2 = k1_timing(web_context + 2, 8, web["v2"]["lens"][0], seed=39, B=3)
 
     # K3 at its entry point's shape: the microbench attention component,
     # q/k/v (2, 8, 2560, 64) bf16 after RoPE, every key valid
@@ -3112,6 +3548,7 @@ def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: di
         k2_v2 = k2_timing(UPSAMPLE_22K, V2_W)
         k2_eval = k2_timing(UPSAMPLE_22K, EVAL_W)
         k2_eval_svc = k2_timing(UPSAMPLE_44K, EVAL_W)
+        k2_web_v2 = k2_timing(UPSAMPLE_22K, web_W)
     log("K2 windows, nvidia-smi clocks.sm, power.draw, power.limit, temperature.gpu: "
         + " | ".join(samples))
     main_path, svc_path = "whisper_small_wavenet conversion", f"{SVC_PRESET} SVC conversion"
@@ -3136,6 +3573,12 @@ def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: di
         k2_row(k2_eval, ev["eval"]["counts"]["k2"], errs["k2_eval"], EVAL_PATH),
         k1_row(k1_eval_svc, ev["eval f0"]["counts"]["k1"], errs["k1_eval_svc"], EVAL_F0_PATH),
         k2_row(k2_eval_svc, ev["eval f0"]["counts"]["k2"], errs["k2_eval_svc"], EVAL_F0_PATH),
+        k1_row(k1_main, web["vc"]["counts"]["k1"], errs["k1"], WEB_PATH.format("vc")),
+        k2_row(k2_main, web["vc"]["counts"]["k2"], errs["k2"], WEB_PATH.format("vc")),
+        k1_row(k1_svc, web["svc"]["counts"]["k1"], errs["k1_svc"], WEB_PATH.format("svc")),
+        k2_row(k2_svc, web["svc"]["counts"]["k2"], errs["k2_svc"], WEB_PATH.format("svc")),
+        k1_row(k1_web_v2, web["v2"]["counts"]["k1"], errs["k1_v2"], WEB_PATH.format("v2")),
+        k2_row(k2_web_v2, web["v2"]["counts"]["k2"], errs["k2_v2"], WEB_PATH.format("v2")),
     ]}
 
 
@@ -3182,7 +3625,8 @@ def main(argv=None) -> int:
     v2t = phase_train_v2(card, args.profile)
     phase_openvoice_train(card)
     ev = phase_eval(card)
-    line = phase_kernel_line(errs, full, svc, mb_counts, rt, v2, ev)
+    web = phase_webui(card)
+    line = phase_kernel_line(errs, full, svc, mb_counts, rt, v2, ev, web)
     line["kernels"] += train_rows(train["train f32"]["T"], card, "v1 fine-tuning (apps.train, f32)")
     line["kernels"] += train_rows(v2t["T"], card, "v2 fine-tuning (apps.train_v2, f32)",
                                   kinds=TRAIN_KINDS[:2])

@@ -276,8 +276,34 @@ class VoiceConverter:
     def compute_style(self, wave_16k: np.ndarray) -> torch.Tensor:
         return campplus_style(self.campplus, wave_16k, self.device)
 
-    def warm(self, *args, **kwargs):
-        raise NotImplementedError("warm() is not ported: PyTorch runs eagerly")
+    def warm(self, specs, *, diffusion_steps: int = 25, cfg_rate: float = 0.7,
+             verbose: bool = True) -> list:
+        """One silent conversion per distinct ``plan_chunks`` plan of the
+        ``(source_seconds, ref_seconds)`` pairs in ``specs``; returns the
+        plans warmed, without repeats. Eager PyTorch compiles no program per
+        shape, but the first conversion on the card pays for what later ones
+        reuse: the build of the kernels (``ops/build.py`` runs ``nvcc`` at
+        first use), the cuDNN and cuBLAS handles and the plans they pick per
+        shape, the allocator's pool, and the device tables (RoPE, filters)
+        the modules cache. A server warms at start-up so that its first
+        request does not pay for them."""
+        warmed, seen = [], set()
+        for src_s, ref_s in specs:
+            target_len = max(int(src_s * self.sr) // self.hop, 1)
+            p_len = min(max(int(ref_s * self.sr) // self.hop, 1), self.prompt_cap)
+            plan = self.plan_chunks(target_len, p_len)
+            if plan in seen:
+                continue
+            seen.add(plan)
+            t0 = time.time()
+            src = np.zeros(target_len * self.hop, np.float32)
+            ref = np.zeros(p_len * self.hop, np.float32)
+            self.convert(src, self.sr, ref, self.sr, diffusion_steps=diffusion_steps,
+                         cfg_rate=cfg_rate)
+            warmed.append(plan)
+            if verbose:
+                print(f"warmed (prompt_cap, context, W) = {plan} in {time.time() - t0:.1f} s")
+        return warmed
 
     def extract_f0(self, src_16k: np.ndarray, ref_16k: np.ndarray, *,
                    auto_f0_adjust: bool = True, pitch_shift: float = 0.0):

@@ -1,11 +1,12 @@
 """The PyTorch port stands alone: no JAX, no fallbacks.
 
-- neither ``chip_smoke.py`` nor any module of ``seedvc_tpu_torch`` imports
+- neither ``chip_smoke.py``, ``tools/*.py`` nor any module of ``seedvc_tpu_torch`` imports
   ``jax``, ``flax`` or ``seedvc_tpu`` (AST scan, so lazy imports count too);
 - ``VoiceConverter()``, ``SeedVCWrapper()``, ``StreamingConverter`` on a
   default converter, ``VoiceConverterV2()``, the AR's ``ARGenerator``, the
-  trainers (v1 and v2), and the infer, infer_v2, realtime, stream_bench,
-  train and train_v2 CLIs, given no device,
+  trainers (v1 and v2), the web UI's ``ConverterRegistry()``, the OpenVoice
+  baseline, and the infer, infer_v2, realtime, stream_bench, train,
+  train_v2, eval and webui CLIs, given no device,
   raise when CUDA is absent (``device="cpu"`` / ``--device cpu`` is
   the only way to the CPU);
 - the streaming path's SOLA loader never writes into ``native/`` (in
@@ -21,7 +22,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from seedvc_tpu_torch.apps import infer, infer_v2, realtime, stream_bench
+from seedvc_tpu_torch.apps import baselines, infer, infer_v2, realtime, stream_bench, webui
+from seedvc_tpu_torch.apps import eval as eval_app
 from seedvc_tpu_torch.apps import train as train_app
 from seedvc_tpu_torch.apps import train_v2 as train_v2_app
 from seedvc_tpu_torch.models import ar
@@ -31,7 +33,8 @@ from seedvc_tpu_torch.train import trainer, trainer_v2
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "seedvc_tpu")
-PORT_FILES = sorted((ROOT / "seedvc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "seedvc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").rglob("*.py")))
 
 
 def _imported_roots(path: Path):
@@ -73,9 +76,14 @@ def test_voice_converter_needs_cuda_by_default(monkeypatch):
     lambda: train_app.main(["--dataset-dir", "d"]),
     lambda: trainer_v2.TrainerV2(convert_v2.V2Config(), trainer_v2.TrainerV2Config()),
     lambda: train_v2_app.main(["--dataset-dir", "d"]),
+    lambda: webui.ConverterRegistry(),
+    lambda: webui.main(["--port", "0", "--warm", "10:5"]),
+    lambda: eval_app.main(["--source-dir", "s", "--target-dir", "t"]),
+    lambda: baselines.OpenVoiceBaseline("openvoice.pkl"),
 ], ids=["converter_cuda", "wrapper", "wrapper_cuda0", "infer_cli", "streaming", "realtime_cli",
         "stream_bench", "converter_v2", "infer_v2_cli", "ar_generator", "trainer", "train_cli",
-        "trainer_v2", "train_v2_cli"])
+        "trainer_v2", "train_v2_cli", "webui_registry", "webui_cli", "eval_cli",
+        "openvoice_baseline"])
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

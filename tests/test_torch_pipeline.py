@@ -152,3 +152,35 @@ def test_cosine_crossfade_matches_jax():
     rng = np.random.default_rng(11)
     a, b = rng.standard_normal(4096), rng.standard_normal(3000)
     np.testing.assert_array_equal(cosine_crossfade(a, b, 4096), j_crossfade(a, b, 4096))
+
+
+WARM_SPECS = [(30.0, 5.0), (10.0, 5.0), (30.0, 5.0), (10.0, 5.2), (5.0, 3.0), (0.5, 40.0)]
+
+
+def test_warm_returns_jax_plans_one_conversion_each(converters, monkeypatch, capsys):
+    """``warm`` on both converters with the flagship's window (context 2560,
+    prompt cap 768) set on them and ``convert`` recorded: the same plans,
+    without repeats, and one silent conversion per plan at the given steps
+    and rate."""
+    seen = []
+    for vc in converters:
+        calls = []
+        monkeypatch.setattr(vc, "context", 2560)
+        monkeypatch.setattr(vc, "prompt_cap", 768)
+        monkeypatch.setattr(vc, "convert", lambda src, ssr, ref, rsr, calls=calls, **kw:
+                            calls.append((len(src), ssr, len(ref), rsr,
+                                          float(np.abs(src).max()), kw)))
+        plans = vc.warm(WARM_SPECS, diffusion_steps=7, cfg_rate=0.4)
+        seen.append((plans, calls))
+    (j_plans, j_calls), (plans, calls) = seen
+    assert plans == j_plans and len(set(plans)) == len(plans) == 4
+    assert calls == j_calls and len(calls) == len(plans)
+    assert all(c[4] == 0.0 and c[5] == {"diffusion_steps": 7, "cfg_rate": 0.4} for c in calls)
+    assert capsys.readouterr().out.count("warmed (prompt_cap, context, W)") == 4
+
+
+def test_warm_converts_on_the_cpu(converters, capsys):
+    _, pvc = converters
+    plans = pvc.warm([(0.5, 0.2), (0.6, 0.2)], diffusion_steps=1)
+    assert plans == [pvc.plan_chunks(43, 17)] == [(PROMPT_CAP, CONTEXT, CONTEXT - PROMPT_CAP)]
+    assert "warmed" in capsys.readouterr().out
