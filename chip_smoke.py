@@ -167,6 +167,24 @@ failure exits non-zero:
    --warm-modes vc`` as a subprocess on a free port: its ``warmed`` and
    ``serving on`` lines within a bounded wait, ``/api/status``, one 10 s +
    5 s conversion, then it is terminated;
+12c. checkpoints, the reference's files into the port without JAX: the
+   full-width ``whisper_small_wavenet`` models, the v2 stack, RMVPE and HiFT
+   from seed 0, written in the reference's layout under the zoo's file names
+   (``tests/torch_ref_checkpoints.py``: the DiT ``.pth`` with a ``net`` and a
+   differing ``ema``, CAMPPlus's ``.bin``, BigVGAN's ``{'generator'}``,
+   Whisper's ``model.safetensors``, the v2 CFM and AR ``.pth``, ASTRAL,
+   HuBERT with ``weight_g`` / ``weight_v``), converted by ``python -m
+   seedvc_tpu_torch.apps.convert_checkpoint`` in four processes at once (v1;
+   ``--use-ema --hift``; v2 with ``--rmvpe``; a ``.pth`` with a key
+   deleted, which must exit non-zero naming it); every ``.pkl`` against the
+   exported tree (equal, a folded weight norm's kernel to 1e-6 of its
+   largest value); ``python -m seedvc_tpu_torch.apps.infer --checkpoint-dir``
+   on 30 s + 5 s against a converter given the same files' trees in memory
+   (1 LSB; 650 K1, 218 K2), and again after one DiT weight was changed in the
+   ``.pth`` (the wave must move); v2's ``convert_timbre`` on 20 s + 5 s from
+   ``load_v2_params`` against the in-memory trees (1 LSB; 390 K1, 109 K2);
+   the seconds of the build, the writes, the CLI, the loads and the infer
+   beside phase 5's;
 13. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
    library call at the shapes of every path (each timed window queued behind a
    spin kernel, so the host's dispatch rate does not enter), with each
@@ -183,7 +201,8 @@ failure exits non-zero:
    a 1024-frame chunk's stage shapes at 22.05 and 44.1 kHz, launches from
    phase 12; and the web UI rows: K1 and K2 at the shapes of its vc, svc and
    v2 requests (the v2 request's plan, which the AR's length sets), launches
-   from phase 12b.
+   from phase 12b; and the checkpoint rows: K1 and K2 at phase 5's and
+   phase 9's shapes, launches from phase 12c.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
 profiled warm conversion to phases 5, 6, 8 and 9 (a ``convert_timbre`` in
@@ -3399,6 +3418,291 @@ def phase_webui_cli(card: str) -> dict:
         reader.join(timeout=10)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12c: released checkpoints into the port without JAX. The full-width
+# whisper_small_wavenet models, the v2 stack, RMVPE and HiFT, built from seed
+# 0 on the host, are written in the reference's layout under the zoo's file
+# names (tests/torch_ref_checkpoints.py, which imports torch and numpy only),
+# then converted by `python -m seedvc_tpu_torch.apps.convert_checkpoint` in
+# fresh processes. Every converted tree must equal its exported tree, a
+# weight-norm-folded kernel to CKPT_FOLD_RTOL of its largest value. apps.infer
+# from the converted directory and v2's convert_timbre from load_v2_params
+# must give the waves of converters handed the same files' trees in memory
+# (the CLI's own conversion run in this process), within CKPT_LSB of int16
+# (as WEB_LSB: the same kernels on the same weights; 0 is expected), with
+# phase 5's and phase 9's launches. Planted faults: one DiT weight changed in
+# the .pth must change the wave; one key deleted must stop the CLI naming it.
+CKPT_FOLD_RTOL = 1e-6
+CKPT_LSB = 1
+CKPT_CLI_TIMEOUT = 600.0
+CKPT_CHANGED = "estimator.conv2.weight"  # the DiT's last 1x1 conv onto the mel
+CKPT_DELETED = "estimator.transformer.layers.7.attention.wo.weight"
+CKPT_PATH = "apps.infer from converted checkpoints (whisper_small_wavenet, 30 s + 5 s)"
+CKPT_V2_PATH = "v2 convert_timbre from converted checkpoints (V2Config(), 20 s + 5 s)"
+
+
+def tree_check(what: str, got: dict, want: dict) -> dict:
+    """``got`` (a converted tree) against ``want`` (the exported one): the
+    same leaves, shapes and dtypes, each equal, or a kernel within
+    CKPT_FOLD_RTOL of its largest value (a folded weight norm)."""
+    from torch_ref_checkpoints import flat
+
+    fg, fw = flat(got), flat(want)
+    if sorted(fg) != sorted(fw):
+        fail(f"{what}: leaves differ: only converted {sorted(set(fg) - set(fw))[:4]}, "
+             f"only exported {sorted(set(fw) - set(fg))[:4]}")
+    folded, worst = 0, 0.0
+    for k, w in fw.items():
+        g = fg[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{what}/{k}: {g.shape} {g.dtype}, exported {w.shape} {w.dtype}")
+        if np.array_equal(g, w):
+            continue
+        err = float(np.abs(g - w).max() / max(float(np.abs(w).max()), 1e-30))
+        if not k.endswith("kernel") or err > CKPT_FOLD_RTOL:
+            fail(f"{what}/{k}: differs from the exported leaf by {err:.3e} of its largest value "
+                 f"(limit {CKPT_FOLD_RTOL:g}, kernels only)")
+        folded, worst = folded + 1, max(worst, err)
+    return {"leaves": len(fw), "folded": folded, "worst_rel": worst}
+
+
+def ckpt_cli(out: str, args: list) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-m", "seedvc_tpu_torch.apps.convert_checkpoint",
+                             "--out", out, *args], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def ckpt_in_memory(out: str, args: list) -> dict:
+    """The CLI's conversion of ``args``' files run in this process, its
+    trees kept in memory instead of pickled (``out`` stays empty)."""
+    from seedvc_tpu_torch.apps import convert_checkpoint
+
+    trees, save = {}, convert_checkpoint._save
+    convert_checkpoint._save = lambda out_dir, name, tree: trees.__setitem__(name, tree)
+    try:
+        convert_checkpoint.main(["--out", out, *args])
+    finally:
+        convert_checkpoint._save = save
+    return trees
+
+
+def phase_checkpoints(card: str, full: dict, v2_full: dict) -> dict:
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_ref_checkpoints as W
+
+    from seedvc_tpu_torch.apps import infer
+    from seedvc_tpu_torch.apps.audio_io import load_wav, save_wav
+    from seedvc_tpu_torch.apps.infer_v2 import load_v2_params
+    from seedvc_tpu_torch.models.hifigan import HiFTConfig, HiFTGenerator
+    from seedvc_tpu_torch.models.rmvpe import RMVPE_E2E
+    from seedvc_tpu_torch.pipelines.convert import VoiceConverter
+    from seedvc_tpu_torch.pipelines.convert_v2 import VoiceConverterV2
+    from seedvc_tpu_torch.pipelines.wrapper import load_params_dir
+    from seedvc_tpu_torch.weights import to_jax_params
+
+    timing = {}
+    t0 = time.perf_counter()
+    v1 = VoiceConverter(device="cpu", seed=0)
+    v2 = VoiceConverterV2(device="cpu", seed=0)
+    torch.manual_seed(0)
+    trees = {"vc": to_jax_params(v1.vc), "whisper": to_jax_params(v1.whisper),
+             "campplus": to_jax_params(v1.campplus), "vocoder": to_jax_params(v1.vocoder),
+             "rmvpe": to_jax_params(RMVPE_E2E()), "hift": to_jax_params(HiFTGenerator(HiFTConfig())),
+             **{n: to_jax_params(getattr(v2, n))
+                for n in ("ssl", "narrow", "wide", "cfm_reg", "ar_reg", "dit", "ar")}}
+    del v1, v2
+    ema = W.halved(trees["vc"])
+    timing["build_export_s"] = time.perf_counter() - t0
+    n_params = sum(a.size for t in trees.values() for a in W.flat(t).values())
+    log(f"checkpoints: {len(trees)} trees, {n_params / 1e6:.1f} M values, built from seed 0 and "
+        f"exported in {timing['build_export_s']:.1f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        zoo = os.path.join(tmp, "zoo")
+        t0 = time.perf_counter()
+        contents = W.zoo_contents(trees, ema)
+        paths = W.write_zoo(zoo, contents)
+        broken = dict(contents["dit"]["net"]["cfm"])
+        del broken[CKPT_DELETED]
+        torch.save({"net": {**contents["dit"]["net"], "cfm": broken}},
+                   os.path.join(tmp, "missing.pth"))
+        timing["write_s"] = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(zoo) for f in fs)
+        log(f"checkpoints: wrote {len(paths)} files, {size / 2 ** 30:.2f} GiB, in "
+            f"{timing['write_s']:.1f} s: " + ", ".join(os.path.relpath(p, zoo)
+                                                       for p in paths.values()))
+
+        # four CLI processes at once: v1, --use-ema with --hift, v2 with
+        # RMVPE, and the .pth with a key deleted
+        v1_flags = ("dit", "campplus", "bigvgan", "whisper")
+        v2_flags = ("astral_narrow", "astral_wide", "v2_cfm", "v2_ar", "hubert", "rmvpe")
+        runs = {"v1": W.cli_args({f: paths[f] for f in v1_flags}),
+                "ema": ["--use-ema", *W.cli_args({f: paths[f] for f in ("dit", "hift")})],
+                "v2": W.cli_args({f: paths[f] for f in v2_flags}),
+                "missing": ["--dit", os.path.join(tmp, "missing.pth")]}
+        outs = {run: os.path.join(tmp, f"out_{run}") for run in runs}
+        t0 = time.perf_counter()
+        procs = {run: (ckpt_cli(outs[run], args), time.perf_counter()) for run, args in runs.items()}
+        results = {}
+        for run, (proc, start) in procs.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=CKPT_CLI_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                for p, _ in procs.values():
+                    p.kill()
+                fail(f"convert_checkpoint {run}: no exit within {CKPT_CLI_TIMEOUT:.0f} s")
+            results[run] = (proc.returncode, stdout, stderr, time.perf_counter() - start)
+        timing["cli_wall_s"] = time.perf_counter() - t0
+        for run, (rc, stdout, stderr, wall) in results.items():
+            log(f"checkpoints: convert_checkpoint {run}: exit {rc} after {wall:.1f} s (of the "
+                f"four processes' {timing['cli_wall_s']:.1f} s); "
+                + " | ".join(line.replace(tmp, "<tmp>") for line in stdout.splitlines()))
+            if run != "missing" and rc != 0:
+                fail(f"convert_checkpoint {run} failed: {stderr[-2000:]}")
+        rc, _, stderr, _ = results["missing"]
+        named = CKPT_DELETED.split("estimator.", 1)[1]
+        log(f"checkpoints: planted fault, {CKPT_DELETED} deleted: exit {rc}, "
+            f"stderr ends {stderr.strip().splitlines()[-1] if stderr.strip() else ''!r}")
+        if rc == 0 or named not in stderr:
+            fail(f"convert_checkpoint with {CKPT_DELETED} deleted: exit {rc}, key not named")
+
+        # every written tree against the exported one
+        t0 = time.perf_counter()
+        got = {}
+        for run in ("v1", "ema", "v2"):
+            for name in sorted(os.listdir(outs[run])):
+                with open(os.path.join(outs[run], name), "rb") as f:
+                    got[(run, name[:-4])] = pickle.load(f)
+        timing["pickle_load_s"] = time.perf_counter() - t0
+        expect = {("v1", n): trees[n] for n in ("vc", "whisper", "campplus", "vocoder")}
+        expect.update({("ema", "vc"): ema, ("ema", "vocoder"): trees["hift"]})
+        expect.update({("v2", n): trees[n] for n in ("ssl", "narrow", "wide", "cfm_reg", "ar_reg",
+                                                     "dit", "ar", "rmvpe")})
+        if sorted(got) != sorted(expect):
+            fail(f"converted files {sorted(got)}, expected {sorted(expect)}")
+        checks = {f"{run}/{name}.pkl": tree_check(f"{run}/{name}.pkl", got[(run, name)], want)
+                  for (run, name), want in expect.items()}
+        for what, c in checks.items():
+            log(f"  {what}: {c['leaves']} leaves equal the exported tree, {c['folded']} folded "
+                f"kernels within {c['worst_rel']:.2e} of their largest value")
+        a = W.flat(got[("ema", "vc")])["cfm/estimator/cond_projection/kernel"]
+        b = W.flat(got[("v1", "vc")])["cfm/estimator/cond_projection/kernel"]
+        if np.array_equal(a, b):
+            fail("--use-ema converted the net's tensors")
+        del got
+
+        # apps.infer from the converted directory against the converter given
+        # the same files' trees in memory
+        sr = 22050
+        src_path, ref_path = os.path.join(tmp, "src.wav"), os.path.join(tmp, "ref.wav")
+        save_wav(src_path, synthetic_audio(30.0, sr, 140.0, seed=71), sr)
+        save_wav(ref_path, synthetic_audio(5.0, sr, 220.0, seed=72), sr)
+        src, ref = load_wav(src_path)[0], load_wav(ref_path)[0]
+        t0 = time.perf_counter()
+        load_params_dir(outs["v1"])
+        timing["load_params_dir_s"] = time.perf_counter() - t0
+
+        def run_infer(ckpt_dir: str, name: str) -> tuple[np.ndarray, dict, float]:
+            out = os.path.join(tmp, name)
+            reset_counts()
+            start = time.perf_counter()
+            infer.main(["--source", src_path, "--target", ref_path, "--output", out,
+                        "--checkpoint-dir", ckpt_dir, "--diffusion-steps", "25"])
+            torch.cuda.synchronize()
+            wall, counts = time.perf_counter() - start, read_counts()
+            (fname,) = os.listdir(out)
+            return load_wav(os.path.join(out, fname))[0], counts, wall
+
+        wave, infer_counts, timing["infer_wall_s"] = run_infer(outs["v1"], "wav")
+        log(f"checkpoints: apps.infer --checkpoint-dir: {timing['infer_wall_s']:.2f} s wall "
+            f"(build from the pkls and a cold conversion; phase 5's warm conversion "
+            f"{full['wall_s']:.3f} s), {len(wave)} samples, launches {infer_counts}, on {card}")
+        check_counts("apps.infer from converted checkpoints", infer_counts, full["counts"])
+
+        t0 = time.perf_counter()
+        v1_mem = ckpt_in_memory(os.path.join(tmp, "mem_v1"), runs["v1"])
+        timing["in_memory_convert_s"] = time.perf_counter() - t0
+        vc = VoiceConverter(device="cuda", seed=0,
+                            **{f"{n}_params": v1_mem[n] for n in ("vc", "whisper", "campplus",
+                                                                  "vocoder")})
+        out_sr, mem, _ = vc.convert(src, sr, ref, sr, diffusion_steps=25, cfg_rate=0.7, seed=0)
+        del vc
+        save_wav(os.path.join(tmp, "mem.wav"), mem, out_sr)
+        mem = load_wav(os.path.join(tmp, "mem.wav"))[0]
+        to16 = (lambda w: np.round(w * 32768).astype(np.int32))  # noqa: E731
+        lsb = lsb_diff(to16(wave), to16(mem))
+        log(f"checkpoints: apps.infer's wave against the in-memory converter's: {lsb} LSB "
+            f"(limit {CKPT_LSB}); the in-memory conversion of the v1 files took "
+            f"{timing['in_memory_convert_s']:.1f} s")
+        if lsb > CKPT_LSB or not np.isfinite(wave).all() or not np.abs(wave).max() > 0:
+            fail(f"apps.infer from converted checkpoints: {lsb} LSB from the in-memory converter")
+
+        # planted fault: one DiT weight changed in the .pth
+        changed = dict(contents["dit"]["net"]["cfm"])
+        changed[CKPT_CHANGED] = changed[CKPT_CHANGED].clone()
+        changed[CKPT_CHANGED][0, 0, 0] += 1.0
+        torch.save({"net": {**contents["dit"]["net"], "cfm": changed}},
+                   os.path.join(tmp, "changed.pth"))
+        fault_dir = os.path.join(tmp, "out_changed")
+        shutil.copytree(outs["v1"], fault_dir)
+        with contextlib.redirect_stdout(sys.stderr):
+            from seedvc_tpu_torch.apps import convert_checkpoint
+
+            convert_checkpoint.main(["--out", fault_dir, "--dit", os.path.join(tmp, "changed.pth")])
+        faulty, counts, _ = run_infer(fault_dir, "wav_changed")
+        lsb_fault = lsb_diff(to16(faulty), to16(mem))
+        log(f"checkpoints: planted fault, {CKPT_CHANGED}[0, 0, 0] + 1 in the .pth: "
+            f"{lsb_fault} LSB from the in-memory converter (must exceed {CKPT_LSB})")
+        if lsb_fault <= CKPT_LSB:
+            fail("a DiT weight changed in the .pth did not change apps.infer's wave")
+
+        # v2: convert_timbre from load_v2_params against the in-memory trees
+        for name in ("campplus", "vocoder"):
+            shutil.copy(os.path.join(outs["v1"], f"{name}.pkl"), outs["v2"])
+        t0 = time.perf_counter()
+        params = load_v2_params(outs["v2"])
+        timing["load_v2_params_s"] = time.perf_counter() - t0
+        if sorted(params) != sorted(VoiceConverterV2.PARAM_NAMES):
+            fail(f"load_v2_params found {sorted(params)}")
+        v2_mem = ckpt_in_memory(os.path.join(tmp, "mem_v2"), runs["v2"])
+        v2_mem.update(campplus=v1_mem["campplus"], vocoder=v1_mem["vocoder"])
+        src2 = synthetic_audio(20.0, sr, 140.0, seed=73)
+        ref2 = synthetic_audio(5.0, sr, 220.0, seed=74)
+        kw = dict(diffusion_steps=V2_STEPS, intelligibility_cfg_rate=0.7, similarity_cfg_rate=0.7)
+        waves = {}
+        for what, p in (("converted files", params), ("in memory", v2_mem)):
+            t0 = time.perf_counter()
+            conv = VoiceConverterV2(params=p, device="cuda")
+            built = time.perf_counter() - t0
+            reset_counts()
+            t0 = time.perf_counter()
+            _, waves[what], stats = conv.convert_timbre(src2, sr, ref2, sr, **kw)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            log(f"checkpoints: v2 convert_timbre, trees {what}: built in {built:.1f} s, "
+                f"{time.perf_counter() - t0:.2f} s cold (phase 9's warm "
+                f"{v2_full['wall_s']:.3f} s), launches {counts}")
+            if what == "converted files":
+                timing["v2_build_s"], v2_counts = built, counts
+                check_counts("v2 convert_timbre from converted checkpoints", counts,
+                             v2_full["counts"])
+            del conv
+        lsb_v2 = lsb_diff(to16(waves["converted files"]), to16(waves["in memory"]))
+        log(f"checkpoints: v2 convert_timbre from the converted files against in memory: "
+            f"{lsb_v2} LSB (limit {CKPT_LSB})")
+        if lsb_v2 > CKPT_LSB or not np.isfinite(waves["converted files"]).all():
+            fail(f"v2 convert_timbre from converted checkpoints: {lsb_v2} LSB from in memory")
+    log("checkpoints: seconds " + json.dumps({k: round(v, 2) for k, v in timing.items()}))
+    return {"counts": infer_counts, "v2_counts": v2_counts, "timing": timing, "lsb": lsb,
+            "lsb_v2": lsb_v2, "trees": checks}
+
+
 @contextlib.contextmanager
 def smi_sampler(period_ms: int = 100):
     """Samples of the card's SM clock, power draw, power limit and temperature
@@ -3494,7 +3798,7 @@ def k1_row(t: dict, launches: int, err: float, path: str) -> dict:
 
 
 def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: dict,
-                      v2: dict, ev: dict, web: dict) -> dict:
+                      v2: dict, ev: dict, web: dict, ckpt: dict) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -3579,6 +3883,10 @@ def phase_kernel_line(errs: dict, full: dict, svc: dict, mb_counts: dict, rt: di
         k2_row(k2_svc, web["svc"]["counts"]["k2"], errs["k2_svc"], WEB_PATH.format("svc")),
         k1_row(k1_web_v2, web["v2"]["counts"]["k1"], errs["k1_v2"], WEB_PATH.format("v2")),
         k2_row(k2_web_v2, web["v2"]["counts"]["k2"], errs["k2_v2"], WEB_PATH.format("v2")),
+        k1_row(k1_main, ckpt["counts"]["k1"], errs["k1"], CKPT_PATH),
+        k2_row(k2_main, ckpt["counts"]["k2"], errs["k2"], CKPT_PATH),
+        k1_row(k1_v2, ckpt["v2_counts"]["k1"], errs["k1_v2"], CKPT_V2_PATH),
+        k2_row(k2_v2, ckpt["v2_counts"]["k2"], errs["k2_v2"], CKPT_V2_PATH),
     ]}
 
 
@@ -3626,7 +3934,8 @@ def main(argv=None) -> int:
     phase_openvoice_train(card)
     ev = phase_eval(card)
     web = phase_webui(card)
-    line = phase_kernel_line(errs, full, svc, mb_counts, rt, v2, ev, web)
+    ckpt = phase_checkpoints(card, full, v2)
+    line = phase_kernel_line(errs, full, svc, mb_counts, rt, v2, ev, web, ckpt)
     line["kernels"] += train_rows(train["train f32"]["T"], card, "v1 fine-tuning (apps.train, f32)")
     line["kernels"] += train_rows(v2t["T"], card, "v2 fine-tuning (apps.train_v2, f32)",
                                   kinds=TRAIN_KINDS[:2])

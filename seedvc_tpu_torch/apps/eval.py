@@ -10,8 +10,9 @@ Runs on ``cuda`` unless ``--device cpu`` is given (and raises without a card).
 Metrics:
 - SECS, speaker-embedding cosine similarity. ``--xvector-extractor wavlm``
   scores with the WavLM x-vector (``models/wavlm_sv.py``; the reference's
-  microsoft/wavlm-base-plus-sv, converted with ``seedvc_tpu.convert.wavlm_sv``
-  and passed as ``--xvector-checkpoint``), each clip zero-padded to a 5 s
+  microsoft/wavlm-base-plus-sv, converted with ``python -m
+  seedvc_tpu_torch.apps.convert_checkpoint --wavlm-sv`` and passed as
+  ``--xvector-checkpoint``), each clip zero-padded to a 5 s
   bucket with its true length; CAMPPlus, the encoder the model conditions on,
   is then a second column ``secs_campplus`` (as the first it would grade the
   model by its own encoder).

@@ -8,11 +8,11 @@ Checkpoints go to ``./runs/<run-name>``; a run there resumes from its newest
 checkpoint. The final weights are written as ``vc.pkl`` (``--export-dir``),
 a flax-layout tree that ``apps.infer --checkpoint-dir`` loads. An
 ``openvoice.pkl`` in ``--checkpoint-dir`` (the converter's flax tree, as
-``seedvc_tpu/convert/openvoice.py`` writes it) turns on the OpenVoice timbre
-perturbation, and a ``se_db.pkl`` beside it (an (N, 256) array of speaker
-embeddings) gives its target voices; without the bank the batch's own voices
-are shuffled. Multi-GPU (``--n-model`` other than 1, ``--fsdp``) is not
-ported: ROADMAP queue 1 item 3c.
+``python -m seedvc_tpu_torch.apps.convert_checkpoint --openvoice`` writes
+it) turns on the OpenVoice timbre perturbation, and a ``se_db.pkl`` beside it
+(an (N, 256) array of speaker embeddings) gives its target voices; without
+the bank the batch's own voices are shuffled. Multi-GPU (``--n-model``
+other than 1, ``--fsdp``) is not ported: ROADMAP queue 1 item 3c.
 """
 
 from __future__ import annotations

@@ -60,12 +60,15 @@ class RMSNorm(nn.Module):
 class AdaptiveRMSNorm(nn.Module):
     """RMSNorm with weight/bias projected from a conditioning embedding.
     Unconditioned (the time-as-token trunks, which pass ``emb=None``) it is
-    the plain norm and owns no ``project_layer``, as the flax module."""
+    the plain norm and owns no ``project_layer``, as the flax module. A
+    converted reference checkpoint still holds that norm's unused
+    ``project_layer``, which flax ignores: ``load_jax_params`` skips it."""
 
     def __init__(self, dim: int, eps: float = 1e-5, conditioned: bool = True):
         super().__init__()
         self.norm = RMSNorm(dim, eps)
         self.project_layer = Dense(dim, 2 * dim) if conditioned else None
+        self.unused_tree_entries = () if conditioned else ("project_layer",)
 
     def forward(self, x: torch.Tensor, emb: Optional[torch.Tensor]) -> torch.Tensor:
         if emb is None:

@@ -24,9 +24,9 @@ PRESET_BY_F0 = {False: "whisper_small_wavenet", True: "whisper_base_f0_44k"}
 
 def load_params_dir(checkpoint_dir: Optional[str]) -> dict:
     """The converted parameter trees (pickled dicts of numpy arrays, as
-    ``seedvc_tpu/apps/convert_checkpoint.py`` writes them) found in a
-    directory, as ``VoiceConverter`` keyword arguments; a missing file leaves
-    that model's weights random."""
+    ``python -m seedvc_tpu_torch.apps.convert_checkpoint`` writes them) found
+    in a directory, as ``VoiceConverter`` keyword arguments; a missing file
+    leaves that model's weights random."""
     params: dict = {}
     if checkpoint_dir:
         for name in ("vc", "whisper", "campplus", "vocoder", "rmvpe"):

@@ -24,7 +24,10 @@ The port's submodule names mirror the flax names (``layers_0``, ``wqkv``,
 
 Every parameter and buffer of the module must be filled, or this raises;
 BatchNorm's ``num_batches_tracked``, a training-time counter that holds no
-weight, is the one exception.
+weight, is the one exception. A tree entry without a place in the module
+raises too, unless the module names it in ``unused_tree_entries`` (a
+reference checkpoint's weights that the flax module ignores, such as an
+unconditioned ``AdaptiveRMSNorm``'s ``project_layer``).
 
 :func:`to_jax_params` is the inverse walk: a port module's parameters (or
 any tensors named like them, such as their gradients) as a flax tree of
@@ -69,6 +72,8 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> nn.Module:
     def walk(mod: nn.Module, sub: Mapping, path: str):
         for name, value in sub.items():
             where = f"{path}/{name}"
+            if name in getattr(mod, "unused_tree_entries", ()):
+                continue
             if isinstance(value, Mapping):
                 child = getattr(mod, name, None)
                 if not isinstance(child, nn.Module):

@@ -1,7 +1,15 @@
 """The PyTorch port stands alone: no JAX, no fallbacks.
 
-- neither ``chip_smoke.py``, ``tools/*.py`` nor any module of ``seedvc_tpu_torch`` imports
-  ``jax``, ``flax`` or ``seedvc_tpu`` (AST scan, so lazy imports count too);
+- neither ``chip_smoke.py``, ``tools/*.py``, the reference-layout writer
+  ``tests/torch_ref_checkpoints.py`` (which ``chip_smoke.py`` imports) nor any
+  module of ``seedvc_tpu_torch`` imports ``jax``, ``flax`` or ``seedvc_tpu``
+  (AST scan, so lazy imports count too);
+- the checkpoint path (``convert/*``, ``core/hub.py``,
+  ``apps/convert_checkpoint.py``) imports no ``safetensors`` and
+  ``huggingface_hub`` only inside ``hub._download``, and the conversion CLI
+  converts a ``.safetensors`` Whisper in a process where ``safetensors``,
+  ``huggingface_hub``, ``jax``, ``flax`` and ``transformers`` cannot be
+  imported;
 - ``VoiceConverter()``, ``SeedVCWrapper()``, ``StreamingConverter`` on a
   default converter, ``VoiceConverterV2()``, the AR's ``ARGenerator``, the
   trainers (v1 and v2), the web UI's ``ConverterRegistry()``, the OpenVoice
@@ -17,6 +25,9 @@
 """
 
 import ast
+import pickle
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -34,7 +45,10 @@ from seedvc_tpu_torch.train import trainer, trainer_v2
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "seedvc_tpu")
 PORT_FILES = (sorted((ROOT / "seedvc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "tools").rglob("*.py")))
+              + sorted((ROOT / "tools").rglob("*.py")) + [ROOT / "tests/torch_ref_checkpoints.py"])
+CHECKPOINT_FILES = (sorted((ROOT / "seedvc_tpu_torch/convert").glob("*.py"))
+                    + [ROOT / "seedvc_tpu_torch/core/hub.py",
+                       ROOT / "seedvc_tpu_torch/apps/convert_checkpoint.py"])
 
 
 def _imported_roots(path: Path):
@@ -49,6 +63,62 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_checkpoint_path_is_in_the_scan():
+    assert set(CHECKPOINT_FILES) <= set(PORT_FILES) and len(CHECKPOINT_FILES) == 16
+
+
+def _imports_by_function(path: Path):
+    """(imported root, name of the enclosing function or None) of each import."""
+    def walk(node, fn):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                yield from walk(child, child.name)
+            elif isinstance(child, ast.Import):
+                yield from ((a.name.split(".")[0], fn) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.module and child.level == 0:
+                yield child.module.split(".")[0], fn
+            else:
+                yield from walk(child, fn)
+
+    yield from walk(ast.parse(path.read_text(), str(path)), None)
+
+
+@pytest.mark.parametrize("path", CHECKPOINT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_checkpoint_path_needs_no_optional_packages(path):
+    for root, fn in _imports_by_function(path):
+        assert root != "safetensors", f"{path.relative_to(ROOT)} imports safetensors"
+        if root == "huggingface_hub":
+            assert path.name == "hub.py" and fn == "_download", (path, fn)
+
+
+def test_convert_cli_runs_without_optional_packages(tmp_path):
+    """A 12-layer Whisper (the CLI's fixed depth) at width 8 written as
+    ``model.safetensors``, converted in a process that cannot import the
+    optional packages."""
+    import torch_ref_checkpoints as W
+    from seedvc_tpu_torch.models.whisper import WhisperEncoder, WhisperEncoderConfig
+    from seedvc_tpu_torch.weights import to_jax_params
+
+    torch.manual_seed(0)
+    tree = to_jax_params(WhisperEncoder(WhisperEncoderConfig(d_model=8, n_layers=12, n_heads=2,
+                                                             ffn_dim=16, max_positions=16)))
+    paths = W.write_zoo(str(tmp_path), {"whisper": W.write_whisper(tree)})
+    code = ("import sys\n"
+            "for m in ('safetensors', 'huggingface_hub', 'jax', 'flax', 'transformers'):\n"
+            "    sys.modules[m] = None\n"
+            "from seedvc_tpu_torch.apps import convert_checkpoint\n"
+            "import seedvc_tpu_torch.core.hub\n"
+            "convert_checkpoint.main(sys.argv[1:])\n")
+    out = tmp_path / "out"
+    r = subprocess.run([sys.executable, "-c", code, "--out", str(out), *W.cli_args(paths)],
+                       cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == f"wrote {out / 'whisper.pkl'}"
+    with open(out / "whisper.pkl", "rb") as f:
+        got = pickle.load(f)
+    assert (got["layers_11"]["fc2"]["kernel"] == tree["layers_11"]["fc2"]["kernel"]).all()
 
 
 def test_voice_converter_needs_cuda_by_default(monkeypatch):
