@@ -19,9 +19,14 @@ failure exits non-zero:
    offline chunks' T = 2050 with lens (1968, 1968), (1495, 1495) and a 0
    entry, and K1 at the v2 path's 3-way CFG stack: (3, 8, 2560, 64) with
    lens (2154, 2154, 2154) and (3, 8, 2048, 64) with (1966, 1497, 0) and
-   (1497, 1497, 1497), and K1 at the eval path's one chunk at context 1536:
+   (1497, 1497, 1497) and at T = 1536 with every key valid and with
+   (1290, 0, 1290), and K1 at the eval path's one chunk at context 1536:
    (2, 8, 1536, 64) with lens (1291, 946) and a 0 entry, (2, 12, 1536, 64)
-   with (1291, 1291), each with a planted fault that must fail the limits;
+   with (1291, 1291), and the multi-GPU phase's shapes: one CFG branch a
+   rank, (1, 8, 2048, 64) bf16 and f32 with lens 1966, 1477 and 1, and
+   (1, 8, 2560, 64), and (f32) the sharded steps' (2, 4, 896, 64) with
+   (896, 700) and (0, 640) and (1, 8, 896, 64) with 700 and 896 keys, each
+   with a planted fault that must fail the limits;
    ``Attention(use_flash=True)``
    at a T that is no multiple of 512, which must launch K1 (or K3 with
    grouped KV heads) and agree with its plain twins; and K2 at every stage
@@ -39,7 +44,8 @@ failure exits non-zero:
    statistics itself, and in f32 at the v2 trainer's shapes (2, 8, 386, 64)
    and (2, 8, 1154, 64) (T = 128-frame mel bucket + 2) with the lens of its
    clips, a 0 entry and one valid key (K1 f32 at those too, with its
-   log-sum-exp); a row with one valid key must get dq = dk = 0 exactly;
+   log-sum-exp), and in f32 at the multi-GPU steps' (2, 4, 896, 64) and
+   (1, 8, 896, 64); a row with one valid key must get dq = dk = 0 exactly;
    the f32 forward's log-sum-exp against the twin's; SDPA's own f32 error
    against the twins printed beside the kernels' as a yardstick; and one
    K1ᵇ call repeated (dq is summed by atomics);
@@ -185,7 +191,27 @@ failure exits non-zero:
    ``load_v2_params`` against the in-memory trees (1 LSB; 390 K1, 109 K2);
    the seconds of the build, the writes, the CLI, the loads and the infer
    beside phase 5's;
-13. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
+13. multi-GPU (``parallel/*``, one process a GPU): (a) world size 1 over
+   NCCL, in process under the launcher's environment (``RANK=0``,
+   ``WORLD_SIZE=1``): ``apps.train --fsdp`` for 3 steps on phase 10's clips
+   and seed, whose losses must equal phase 10's first three within 1e-5
+   relative, then 2 steps of ``apps.train_v2 --fsdp`` (13 K1 f32 and 13 K1ᵇ a
+   step); (b) two ranks on the one card over gloo with cuda tensors (this
+   script started twice with ``--mg-rank``): one sharded step of the
+   full-width ``whisper_small_wavenet`` model at B = 2, T = 896 on a
+   (2, 1) and a (1, 2) mesh against the one-process step on the same batch
+   and draws (loss, grad norm, every parameter; each rank's K1 f32 and K1ᵇ
+   launches, 13 each, at (1, 8, 896, 64) and (2, 4, 896, 64)); (c) the
+   CFG-sharded ``VoiceConverter`` on phase 5's 30 s + 5 s clip (each rank 650
+   K1 at (1, 8, 2048, 64) and 218 K2) and v2's ``convert_timbre`` with its
+   3-way stack over the 2 ranks on phase 9's clip (390 K1, at B = 2 and 1,
+   and 109 K2 each), each wave against the unsharded one on the same rank;
+   (d) three planted faults that (b)'s checks must catch: a contiguous (not
+   head-aligned) ``wqkv`` split, a grad norm of the local pieces only, and a
+   rank that draws its own rows' noise. FSDP over two ranks does not run on
+   the card (FSDP2 over gloo with cuda tensors dies with SIGSEGV); the CPU
+   tests hold it;
+14. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
    library call at the shapes of every path (each timed window queued behind a
    spin kernel, so the host's dispatch rate does not enter), with each
    kernel's bound on an H100 SXM; before it, K3's time per head at
@@ -202,7 +228,10 @@ failure exits non-zero:
    phase 12; and the web UI rows: K1 and K2 at the shapes of its vc, svc and
    v2 requests (the v2 request's plan, which the AR's length sets), launches
    from phase 12b; and the checkpoint rows: K1 and K2 at phase 5's and
-   phase 9's shapes, launches from phase 12c.
+   phase 9's shapes, launches from phase 12c; and the multi-GPU rows: K1 at
+   one CFG branch a rank (v1 B = 1, v2 B = 2 and 1), K2, and K1 f32 / K1ᵇ at
+   the sharded steps' (2, 4, 896, 64) and (1, 8, 896, 64), launches from
+   phase 13 (each rank's).
 
 The last line is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
 profiled warm conversion to phases 5, 6, 8 and 9 (a ``convert_timbre`` in
@@ -272,7 +301,24 @@ K1_RT_CASES = [(RT_BLOCK_T, None), (RT_OFFLINE_T, (1968, 1968)), (RT_OFFLINE_T, 
 # with 1966 and 1497 keys; and a 0 entry. K2 runs at a 2046-frame chunk's
 # stage shapes.
 V2_T, V2_LENS, V2_W = 2560, 2154, 2046
-K1_V2_CASES = [(V2_T, (V2_LENS,) * 3), (2048, (1966, 1497, 0)), (2048, (1497, 1497, 1497))]
+# and a v2 T other than 2048 and 2560: context 1534 (T = 1536), every key
+# valid, and partial lens with a 0 entry
+K1_V2_CASES = [(V2_T, (V2_LENS,) * 3), (2048, (1966, 1497, 0)), (2048, (1497, 1497, 1497)),
+               (1536, (1536, 1536, 1536)), (1536, (1290, 0, 1290))]
+# Phase 13 (multi-GPU) runs these shapes on each of its two ranks: the
+# sharded train steps at the training phase's 128-frame bucket T = 896, B = 2
+# (f32: K1 with its log-sum-exp, and K1ᵇ), where (1, 2) keeps 4 of the 8
+# heads ((2, 4, 896, 64)) and (2, 1) one of the two rows ((1, 8, 896, 64));
+# the CFG-sharded conversion one CFG branch a rank (bf16 (1, 8, 2048, 64)
+# with the main path's lens); the v2 3-way stack over 2 ranks, 2 rows and 1
+# ((2, 8, 2560, 64), held above, and (1, 8, 2560, 64)). Partial lens, every
+# key, a 0 entry beside a valid row, and (forward) one valid key: a lone row
+# with 0 keys cannot fail the planted fault, which also masks every key, and
+# a lone row with one key has no gradient but dv's to hold K1ᵇ against.
+MG_T, MG_LENS, MG_HEADS = 896, (896, 700), 4
+K1_MG_TRAIN_CASES = [(MG_T, MG_LENS, MG_HEADS), (MG_T, (0, 640), MG_HEADS),
+                     (MG_T, (700,), 8), (MG_T, (MG_T,), 8)]
+K1_MG_CASES = [(2048, (1966,), 8), (2048, (1477,), 8), (2048, (1,), 8), (V2_T, (V2_LENS,), 8)]
 # K1 and K2 on the eval path (apps.eval in the eval phase): a 10 s and a 6 s
 # source with a 5 s reference are one chunk each at context 1536 (W = 1024):
 # keys 430 + 861 = 1291 and 430 + 516 = 946, and a 0 entry; at 8 heads for
@@ -493,14 +539,14 @@ def sass_summary(path) -> dict:
     return {f: (sum(c.values()), c, mma[f]) for f, c in kernels.items()}
 
 
-def _k1_inputs(T, dtype, lens, seed=0, heads=8):
-    """q, k, v (B, heads, T, 64) with B = len(lens) (2 without lens)."""
+def _k1_inputs(T, dtype, lens, seed=0, heads=8, B=2):
+    """q, k, v (B, heads, T, 64) with B = len(lens) (``B`` without lens)."""
     import torch
 
     from seedvc_tpu_torch.nn.layers import rope_full_cache
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    B = 2 if lens is None else len(lens)
+    B = B if lens is None else len(lens)
     q, k, v = (torch.randn((B, heads, T, 64), generator=g, device="cuda").to(dtype)
                for _ in range(3))
     cos, sin = (torch.from_numpy(a).cuda() for a in rope_full_cache(T, 64))
@@ -520,11 +566,13 @@ def phase_kernels() -> dict:
     from seedvc_tpu_torch.ops import anti_alias, attention
 
     errs = {"k1": 0.0, "k1_svc": 0.0, "k1_rt": 0.0, "k1_v2": 0.0, "k1_eval": 0.0,
-            "k1_eval_svc": 0.0, "k2": 0.0, "k2_svc": 0.0, "k2_v2": 0.0, "k2_eval": 0.0,
-            "k2_eval_svc": 0.0, "k3": 0.0}
+            "k1_eval_svc": 0.0, "k1_mg": 0.0, "k2": 0.0, "k2_svc": 0.0, "k2_v2": 0.0,
+            "k2_eval": 0.0, "k2_eval_svc": 0.0, "k3": 0.0}
     slots = {8: "", K1_SVC_HEADS: "_svc", RT_HEADS: "_rt", "v2": "_v2", "eval": "_eval",
-             "eval_svc": "_eval_svc"}
-    heads_of = {"v2": 8, "v2t": 8, "eval": 8, "eval_svc": K1_SVC_HEADS}
+             "eval_svc": "_eval_svc", "mg": "_mg"}
+    heads_of = {"v2": 8, "v2t": 8, "eval": 8, "eval_svc": K1_SVC_HEADS, "mg": 8,
+                ("mgt", 8): 8, ("mgt", MG_HEADS): MG_HEADS}
+    f32_only = ("v2t", ("mgt", 8), ("mgt", MG_HEADS))  # training shapes: f32, as they run
     # K1's first stage: roped q times 2^-3 and roped k, bit for bit
     for T in (2048, 777):
         q, k, _, cos, sin, _ = _k1_inputs(T, torch.bfloat16, None, seed=3)
@@ -546,11 +594,13 @@ def phase_kernels() -> dict:
             cases += [(T, lens, "v2t") for T, lens in K1_V2T_CASES]
             cases += [(T, lens, "eval") for T, lens in K1_EVAL_CASES]
             cases += [(T, lens, "eval_svc") for T, lens in K1_EVAL_SVC_CASES]
+            cases += [(T, lens, "mg") for T, lens, _ in K1_MG_CASES]
+            cases += [(T, lens, ("mgt", h)) for T, lens, h in K1_MG_TRAIN_CASES]
         for dtype in (torch.bfloat16, torch.float32):
             atol, rtol = K1_TOL[str(dtype).split(".")[1]]
             for T, lens, slot_heads in cases:
-                if slot_heads == "v2t" and dtype != torch.float32:
-                    continue  # the v2 trainer's shapes: f32 only, as it runs them
+                if slot_heads in f32_only and dtype != torch.float32:
+                    continue  # the trainers' shapes: f32 only, as they run them
                 heads = heads_of.get(slot_heads, slot_heads)
                 q, k, v, cos, sin, lens_t = _k1_inputs(T, dtype, lens, heads=heads)
                 args = (q, k, v, cos, sin) if rope else (q, k, v)
@@ -683,11 +733,14 @@ def phase_kernels_bwd() -> dict:
         name = str(dtype).split(".")[1]
         rel_tol, max_tol = K1B_TOL[name]
         worst = [0.0, 0.0, 0.0]  # rel L2, max abs over max|ref|, max abs
-        # the v2 trainer's shapes in f32, as it runs them
-        cases = K1B_CASES + (K1_V2T_CASES if dtype == torch.float32 else [])
+        # the trainers' other shapes in f32, as they run them: the v2
+        # trainer's, and the multi-GPU steps' (4 heads, or one row)
+        cases = [(T, lens, 8) for T, lens in K1B_CASES]
+        if dtype == torch.float32:
+            cases += [(T, lens, 8) for T, lens in K1_V2T_CASES] + K1_MG_TRAIN_CASES
         for rope in (True, False):
-            for T, lens in cases:
-                q, k, v, cos, sin, lens_t = _k1_inputs(T, dtype, lens, seed=T + 5)
+            for T, lens, heads in cases:
+                q, k, v, cos, sin, lens_t = _k1_inputs(T, dtype, lens, seed=T + 5, heads=heads)
                 g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(T),
                                 device="cuda").to(dtype)
                 if rope:
@@ -2176,7 +2229,8 @@ def phase_train(card: str, profile: bool = False) -> dict:
                     f"launches (K1, K1b, K3) {totals}; {card}")
                 result[what] = {"steps_per_s": rate, "prep_s": prep, "step_s": step_s,
                                 "T": [r["T"] for r in rows], "peak_gib": peak,
-                                "launches": totals, "wall_s": wall}
+                                "launches": totals, "wall_s": wall,
+                                "losses": [r["loss"] for r in rows]}
 
             # 10 steps on one fixed batch with fixed draws lower the loss
             model = trainer.model
@@ -2302,80 +2356,87 @@ def train_rows(ts: list, card: str, path: str, kinds=TRAIN_KINDS) -> list:
     SDPA's backward alone (autograd.grad through a retained graph)."""
     import collections
 
+    t_counts = collections.Counter(ts)
+    rows = []
+    for T in train_shapes(ts):
+        rows += train_kernel_rows(T, 2, 8, TRAIN_DEPTH * t_counts[T], card, path, kinds)
+    return rows
+
+
+def train_kernel_rows(T: int, B: int, H: int, launches: int, card: str, path: str,
+                      kinds=TRAIN_KINDS, launches_per_step: int = TRAIN_DEPTH) -> list:
+    """:func:`train_rows`' rows at q/k/v (B, H, T, 64), every key valid."""
     import torch
     import torch.nn.functional as F
 
     from seedvc_tpu_torch.core.profiling import cuda_time_ms
     from seedvc_tpu_torch.ops import attention
 
-    t_counts = collections.Counter(ts)
     rows = []
-    for T in train_shapes(ts):
-        launches = TRAIN_DEPTH * t_counts[T]
-        for dtype, kernel in ((getattr(torch, dt), kind) for dt, kind in kinds):
-            q, k, v, cos, sin, _ = _k1_inputs(T, dtype, None, seed=T)
-            B, H, _, d = q.shape
-            g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1),
-                            device="cuda").to(dtype)
-            qr = attention.rope_scaled_reference(q, cos, sin)
-            kr = attention.rope_scaled_reference(k, cos, sin)
-            size = q.element_size()
-            f32 = dtype == torch.float32
-            own = None
-            if kernel == "fwd":
-                out = attention.dit_attention_fused(q, k, v, cos, sin)
-                err = (out - attention.dit_attention_fused_reference(q, k, v, cos, sin)
-                       ).abs().max().item()
-                ms = cuda_time_ms(lambda: attention.dit_attention_fused(q, k, v, cos, sin,
-                                                                        return_lse=True))
-                plain = cuda_time_ms(lambda: attention.dit_attention_fused_reference(
-                    q, k, v, cos, sin), iters=5)
-                lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v))
-                b_ms, b_by = bound_3xtf32(4.0 * B * H * T * T * d,
-                                          4 * B * H * T * d * size + 2 * T * d * 4 + B * H * T * 4)
-                name, n, replaces = ("dit_attention_fused", launches,
-                                     "seedvc_tpu/ops/pallas/attention.py:171")
-                source = "seedvc_tpu_torch/csrc/attention.cu"
-            else:
-                o, lse = attention.dit_attention_fused(q, k, v, cos, sin, return_lse=True)
-                got = attention.dit_attention_fused_bwd(q, k, v, cos, sin, None, o, g, lse)
-                ref = attention.dit_attention_fused_bwd_reference(q, k, v, cos, sin, None, g)
-                err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
-                ms = cuda_time_ms(lambda: attention.dit_attention_fused_bwd(
-                    q, k, v, cos, sin, None, o, g, lse), iters=10)
-                own = cuda_time_ms(lambda: attention.dit_attention_fused_bwd(
-                    q, k, v, cos, sin, None, o, g), iters=10)
-                plain = cuda_time_ms(lambda: attention.dit_attention_fused_bwd_reference(
-                    q, k, v, cos, sin, None, g), iters=3)
-                leaves = [t.detach().clone().requires_grad_() for t in (qr, kr, v)]
-                lib_out = F.scaled_dot_product_attention(*leaves)
-                lib = cuda_time_ms(lambda: torch.autograd.grad(lib_out, leaves, g,
-                                                               retain_graph=True), iters=10)
-                ops, nbytes = 10.0 * B * H * T * T * d, 8 * B * H * T * d * size + 2 * T * d * 4
-                b_ms, b_by = (bound_3xtf32(ops, nbytes + (B * H * T * 4 if f32 else 0)) if f32
-                              else bound(ops, PEAK_BF16, nbytes))
-                name = "dit_attention_bwd"
-                n = launches if dtype == torch.float32 else 0
-                replaces = ("no Pallas kernel: the XLA recompute bwd of _fused_diff / "
-                            "_plain_diff, seedvc_tpu/ops/pallas/attention.py:326-335, :353-362")
-                source = "seedvc_tpu_torch/csrc/attention_bwd.cu"
-            dt = str(dtype).split(".")[1]
-            rate = BOUND_3XTF32 if f32 else "the 989 TFLOP/s dense bf16 peak"
-            log(f"{name} ({kernel}) q/k/v {tuple(q.shape)} {dt}: kernel {ms:.4f} ms"
-                + ("" if own is None else f" (computing its own statistics {own:.4f} ms)")
-                + f", plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}"
-                f"{' (3xTF32)' if f32 and b_by == 'operations' else ''}), share "
-                f"{b_ms / ms:.3f}, max_abs_err {err:.3e}; {card}")
-            row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                   "path": path if n else "none on the training path (phase 3 only)",
-                   "shape": f"q/k/v {tuple(q.shape)} {dt}, lens None",
-                   "launches": n, "launches_per_step": TRAIN_DEPTH if n else 0,
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                   "bound_ms": b_ms, "bound_by": b_by, "bound_rate": rate,
-                   "share": b_ms / ms, "library_ms": lib, "card": card}
-            if own is not None:
-                row["ms_own_statistics"] = own
-            rows.append(row)
+    for dtype, kernel in ((getattr(torch, dt), kind) for dt, kind in kinds):
+        q, k, v, cos, sin, _ = _k1_inputs(T, dtype, None, seed=T, heads=H, B=B)
+        B, H, _, d = q.shape
+        g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                        device="cuda").to(dtype)
+        qr = attention.rope_scaled_reference(q, cos, sin)
+        kr = attention.rope_scaled_reference(k, cos, sin)
+        size = q.element_size()
+        f32 = dtype == torch.float32
+        own = None
+        if kernel == "fwd":
+            out = attention.dit_attention_fused(q, k, v, cos, sin)
+            err = (out - attention.dit_attention_fused_reference(q, k, v, cos, sin)
+                   ).abs().max().item()
+            ms = cuda_time_ms(lambda: attention.dit_attention_fused(q, k, v, cos, sin,
+                                                                    return_lse=True))
+            plain = cuda_time_ms(lambda: attention.dit_attention_fused_reference(
+                q, k, v, cos, sin), iters=5)
+            lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v))
+            b_ms, b_by = bound_3xtf32(4.0 * B * H * T * T * d,
+                                      4 * B * H * T * d * size + 2 * T * d * 4 + B * H * T * 4)
+            name, n, replaces = ("dit_attention_fused", launches,
+                                 "seedvc_tpu/ops/pallas/attention.py:171")
+            source = "seedvc_tpu_torch/csrc/attention.cu"
+        else:
+            o, lse = attention.dit_attention_fused(q, k, v, cos, sin, return_lse=True)
+            got = attention.dit_attention_fused_bwd(q, k, v, cos, sin, None, o, g, lse)
+            ref = attention.dit_attention_fused_bwd_reference(q, k, v, cos, sin, None, g)
+            err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+            ms = cuda_time_ms(lambda: attention.dit_attention_fused_bwd(
+                q, k, v, cos, sin, None, o, g, lse), iters=10)
+            own = cuda_time_ms(lambda: attention.dit_attention_fused_bwd(
+                q, k, v, cos, sin, None, o, g), iters=10)
+            plain = cuda_time_ms(lambda: attention.dit_attention_fused_bwd_reference(
+                q, k, v, cos, sin, None, g), iters=3)
+            leaves = [t.detach().clone().requires_grad_() for t in (qr, kr, v)]
+            lib_out = F.scaled_dot_product_attention(*leaves)
+            lib = cuda_time_ms(lambda: torch.autograd.grad(lib_out, leaves, g,
+                                                           retain_graph=True), iters=10)
+            ops, nbytes = 10.0 * B * H * T * T * d, 8 * B * H * T * d * size + 2 * T * d * 4
+            b_ms, b_by = (bound_3xtf32(ops, nbytes + (B * H * T * 4 if f32 else 0)) if f32
+                          else bound(ops, PEAK_BF16, nbytes))
+            name = "dit_attention_bwd"
+            n = launches if dtype == torch.float32 else 0
+            replaces = ("no Pallas kernel: the XLA recompute bwd of _fused_diff / "
+                        "_plain_diff, seedvc_tpu/ops/pallas/attention.py:326-335, :353-362")
+            source = "seedvc_tpu_torch/csrc/attention_bwd.cu"
+        dt = str(dtype).split(".")[1]
+        rate = BOUND_3XTF32 if f32 else "the 989 TFLOP/s dense bf16 peak"
+        log(f"{name} ({kernel}) q/k/v {tuple(q.shape)} {dt}: kernel {ms:.4f} ms"
+            + ("" if own is None else f" (computing its own statistics {own:.4f} ms)")
+            + f", plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}"
+            f"{' (3xTF32)' if f32 and b_by == 'operations' else ''}), share "
+            f"{b_ms / ms:.3f}, max_abs_err {err:.3e}; {card}")
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "path": path if n else "none on the training path (phase 3 only)",
+               "shape": f"q/k/v {tuple(q.shape)} {dt}, lens None",
+               "launches": n, "launches_per_step": launches_per_step if n else 0,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "bound_ms": b_ms, "bound_by": b_by, "bound_rate": rate,
+               "share": b_ms / ms, "library_ms": lib, "card": card}
+        if own is not None:
+            row["ms_own_statistics"] = own
+        rows.append(row)
     return rows
 
 
@@ -2621,7 +2682,8 @@ def phase_train_v2(card: str, profile: bool = False) -> dict:
             trainer.draws_fn = lambda *_a: fixed
             trainer.optimizer = make_v2_optimizer(1e-4)
             params = trainer.state.params
-            trainer.state = V2TrainState(params, trainer.optimizer.init(params), 0)
+            trainer.state = V2TrainState(params, trainer.optimizer.init(params), 0,
+                                         trainer.state.layout)
             losses, walls = [], []
             for i in range(10):
                 t0 = time.perf_counter()
@@ -3703,6 +3765,417 @@ def phase_checkpoints(card: str, full: dict, v2_full: dict) -> dict:
             "lsb_v2": lsb_v2, "trees": checks}
 
 
+# ---------------------------------------------------------------------------
+# Multi-GPU (parallel/*): one process a GPU in a process group. (1) World
+# size 1 over NCCL: apps.train and apps.train_v2 with --fsdp under the
+# launcher's environment. (2)-(4) Two ranks on the one card over gloo with
+# cuda tensors (NCCL refuses two ranks on one device): the sharded v1 step
+# of the full-width DiT at (2, 1) and (1, 2) against the one-process step on
+# the same batch and draws; the CFG-sharded conversions against the
+# unsharded ones; three planted faults that the checks must catch. FSDP with
+# two ranks does not run here: FSDP2 over gloo with cuda tensors kills both
+# ranks (SIGSEGV) on the first forward, though each collective alone works
+# (a probe on this card's machine); the CPU tests hold FSDP at 2 and 4
+# ranks and (1) holds it over NCCL at world size 1. The two ranks share one
+# card, so their times are no scaling figure.
+MG_WORLD = 2
+MG_MESHES = (("(2, 1)", 2, 1), ("(1, 2)", 1, 2))
+# loss and grad norm relative; parameters over the largest |parameter| (K1ᵇ
+# sums dq by atomics, and the ranks sum the batch and the norm in another order)
+MG_STEP_RTOL = 1e-5
+# the CFG-sharded wave against the unsharded one on the card: the small
+# phase's cuda limit on an f16 output wave
+MG_WAVE_TOL = SMALL_TOL
+MG_WORLD1_RTOL = 1e-5  # world size 1 with FSDP against phase 10's losses
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mg_world1(card: str, train: dict) -> dict:
+    """(1) apps.train --fsdp (3 steps) and apps.train_v2 --fsdp (2 steps)
+    under RANK=0, WORLD_SIZE=1 over NCCL, in process, on phase 10's clips and
+    seed: the v1 losses against phase 10's first three."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from seedvc_tpu_torch.apps import train as train_app
+    from seedvc_tpu_torch.apps import train_v2 as train_v2_app
+    from seedvc_tpu_torch.apps.audio_io import save_wav
+    from seedvc_tpu_torch.parallel import distributed
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    cwd, sr, out = os.getcwd(), 22050, {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="mg_world1_") as tmp:
+            data = os.path.join(tmp, "data")
+            os.makedirs(data)
+            for i, secs in enumerate(TRAIN_CLIPS):
+                save_wav(os.path.join(data, f"clip{i}.wav"),
+                         synthetic_audio(secs, sr, 110.0 + 17 * i, seed=60 + i), sr)
+            os.chdir(tmp)
+            base = ["--dataset-dir", data, "--batch-size", "2", "--log-interval", "1",
+                    "--save-interval", "100", "--fsdp"]
+            for what, app, extra, n in (
+                    ("v1", train_app.main, ["--max-steps", "3", "--export-dir", "x"], 3),
+                    ("v2", train_v2_app.main, ["--max-steps", "2", "--warmup-steps", "1"], 2)):
+                reset_counts()
+                t0 = time.perf_counter()
+                tr = app(base + extra)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                _, rows = train_step_log(tr.history)
+                check_train_history(f"multi-GPU world 1 {what} --fsdp", rows, 1, n)
+                st = tr.state
+                n_fsdp = sum(e.fsdp_dim is not None for e in st.layout.entries.values())
+                dtensors = sum(hasattr(p, "to_local") for p in st.params.values())
+                log(f"multi-GPU world 1 ({dist.get_backend()}, world {dist.get_world_size()}) "
+                    f"{what} --fsdp: {n} steps in {wall:.1f} s wall; mesh {st.layout.mesh}; "
+                    f"{n_fsdp} parameters FSDP-sharded ({dtensors} DTensors) of {len(st.params)}; "
+                    f"losses {[r['loss'] for r in rows]}; launches (K1, K1b) "
+                    f"{[(r['k1'], r['k1b']) for r in rows]}; {card}")
+                if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+                    fail("multi-GPU world 1: not an NCCL group of one rank")
+                if not n_fsdp or not dtensors:
+                    fail(f"multi-GPU world 1 {what}: --fsdp sharded nothing")
+                out[what] = {"losses": [r["loss"] for r in rows], "wall_s": wall}
+            ref = train["train f32"]["losses"][:3]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(out["v1"]["losses"], ref))
+            log(f"multi-GPU world 1 v1 --fsdp losses against phase 10's: {out['v1']['losses']} "
+                f"vs {ref}, worst relative difference {rel:.2e} (tol {MG_WORLD1_RTOL:g})")
+            if rel > MG_WORLD1_RTOL:
+                fail("multi-GPU world 1: the FSDP run's losses differ from phase 10's")
+            out["v1"]["rel"] = rel
+    finally:
+        os.chdir(cwd)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        distributed._initialized = False
+        for k in env:
+            os.environ.pop(k, None)
+    return out
+
+
+def mg_shape_hooks(model, shapes: set) -> list:
+    """Record the (B, heads, T, head_dim) that each attention layer of
+    ``model`` hands its kernel (this rank's rows and heads)."""
+    from seedvc_tpu_torch.nn.layers import Attention
+
+    def hook(mod, args):
+        x = args[0]
+        shapes.add((x.shape[0], mod.n_head, x.shape[1], mod.head_dim))
+    return [m.register_forward_pre_hook(hook) for m in model.modules() if isinstance(m, Attention)]
+
+
+def mg_train(rank: int, problems: list) -> dict:
+    """(2) and (4): one step of the full-width v1 model on B = 2, T = 896
+    (mel lens 896 and 700) with fixed draws: the one-process step, then the
+    sharded step at each of MG_MESHES, then the planted faults."""
+    import torch
+
+    from seedvc_tpu_torch.core.config import get_preset
+    from seedvc_tpu_torch.models.vc import VCModel, draw_train
+    from seedvc_tpu_torch.nn.layers import Attention
+    from seedvc_tpu_torch.ops import attention
+    from seedvc_tpu_torch.parallel.mesh import make_mesh
+    from seedvc_tpu_torch.parallel.sharding import Layout, TPSplit
+    from seedvc_tpu_torch.train import step as step_mod
+    from seedvc_tpu_torch.train.optim import make_optimizer
+
+    mp = get_preset("whisper_small_wavenet").model_params
+    torch.manual_seed(0)
+    base = VCModel(mp).state_dict()
+    rng = np.random.default_rng(31)
+    B, T, Ts = 2, MG_T, 448
+    host = {"s_alt": rng.standard_normal((B, Ts, 768)), "s_ori": rng.standard_normal((B, Ts, 768)),
+            "mels": rng.standard_normal((B, T, 80)) - 4.0, "style": rng.standard_normal((B, 192))}
+    batch = {k: torch.from_numpy(v.astype(np.float32)).cuda() for k, v in host.items()}
+    batch["mel_lens"] = torch.tensor(MG_LENS, dtype=torch.int32, device="cuda")
+    batch["s_lens"] = torch.tensor(440, dtype=torch.int32, device="cuda")
+    draws = draw_train(torch.Generator(device="cuda").manual_seed(7), B, T, 80,
+                       mp.DiT.class_dropout_prob, device="cuda")
+    opt = make_optimizer(1e-4, grad_clip=TRAIN_CLIP)
+
+    def fresh():
+        m = VCModel(mp)
+        m.load_state_dict(base)
+        return m.cuda()
+
+    model = fresh()
+    st = step_mod.init_state(model, opt)
+    st, m = step_mod.make_train_step(model, opt, draws_fn=lambda *_: draws)(st, batch, 0)
+    ref = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "params": {n: p.detach().clone() for n, p in model.named_parameters()}}
+    scale = max(p.abs().max().item() for p in ref["params"].values())
+    del model, st
+
+    def sharded(n_data, n_model):
+        mesh = make_mesh(n_data, n_model, device_type="cuda")
+        model = fresh()
+        st = step_mod.shard_state(step_mod.init_state(model, opt), mesh, model=model)
+        step = step_mod.make_sharded_train_step(model, opt, mesh, draws_fn=lambda *_: draws)
+        shapes: set = set()
+        hooks = mg_shape_hooks(model, shapes)
+        reset_counts()
+        st, m = step(st, batch, 0)
+        torch.cuda.synchronize()
+        counts = (attention.LAUNCHES, attention.BWD_LAUNCHES)
+        for h in hooks:
+            h.remove()
+        full = step_mod.gather_full(st.layout, st.params)
+        err = max((full[n] - r).abs().max().item() for n, r in ref["params"].items())
+        return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "loss_rel": abs(float(m["loss"]) - ref["loss"]) / abs(ref["loss"]),
+                "grad_norm_rel": abs(float(m["grad_norm"]) - ref["grad_norm"]) / ref["grad_norm"],
+                "param_err": err / scale, "k1": counts[0], "k1b": counts[1],
+                "shapes": sorted(shapes),
+                "split": sum(e.tp is not None for e in st.layout.entries.values())}
+
+    def agrees(r):
+        return max(r["loss_rel"], r["grad_norm_rel"], r["param_err"]) <= MG_STEP_RTOL
+
+    out = {"ref": {"loss": ref["loss"], "grad_norm": ref["grad_norm"]}}
+    for name, n_data, n_model in MG_MESHES:
+        r = sharded(n_data, n_model)
+        out[name] = r
+        log(f"[rank {rank}] multi-GPU step {name}: loss {r['loss']:.7f} (one process "
+            f"{ref['loss']:.7f}, rel {r['loss_rel']:.2e}), grad norm {r['grad_norm']:.6f} "
+            f"(rel {r['grad_norm_rel']:.2e}), parameters max diff / max|p| "
+            f"{r['param_err']:.2e} (tol {MG_STEP_RTOL:g}); K1 f32 {r['k1']}, K1b {r['k1b']} "
+            f"launches at {r['shapes']}; {r['split']} tensors split over model")
+        if not agrees(r):
+            problems.append(f"step {name} disagrees with the one-process step")
+        if (r["k1"], r["k1b"]) != (TRAIN_DEPTH, TRAIN_DEPTH):
+            problems.append(f"step {name}: launches (K1, K1b) {(r['k1'], r['k1b'])}")
+        want = ((1, 8, MG_T, 64) if n_data == 2 else (2, MG_HEADS, MG_T, 64))
+        if r["shapes"] != [want]:
+            problems.append(f"step {name}: attention shapes {r['shapes']}, expected {want}")
+
+    # (4) planted faults, each of which the checks above must see
+    real_splits, real_group, real_rows = Attention.tp_splits, Layout.group, step_mod.draw_rows
+
+    def contiguous(self):
+        H, Hkv, hd = self.n_head, self.n_kv, self.head_dim
+        return {"wqkv.weight": TPSplit(0, ((H + 2 * Hkv) * hd,)),
+                "wo.weight": TPSplit(1, (H * hd,))}
+
+    def own_rows(draws, mesh, n):  # a rank that draws for its own rows alone
+        return type(draws)(*(d if d is None or d.ndim == 0 else d[: n // mesh.size("data")]
+                             for d in draws))
+
+    faults = (("contiguous wqkv split", 1, 2, lambda: setattr(Attention, "tp_splits", contiguous)),
+              ("local-only grad norm", 1, 2, lambda: setattr(Layout, "group", lambda s, a: None)),
+              ("a rank's own noise", 2, 1, lambda: setattr(step_mod, "draw_rows", own_rows)))
+    out["faults"] = {}
+    for what, n_data, n_model, plant in faults:
+        plant()
+        try:
+            r = sharded(n_data, n_model)
+        finally:
+            Attention.tp_splits, Layout.group = real_splits, real_group
+            step_mod.draw_rows = real_rows
+        caught = not agrees(r)
+        out["faults"][what] = caught
+        log(f"[rank {rank}] planted fault '{what}' at ({n_data}, {n_model}): loss rel "
+            f"{r['loss_rel']:.2e}, grad norm rel {r['grad_norm_rel']:.2e}, parameters "
+            f"{r['param_err']:.2e}: {'caught' if caught else 'NOT caught'}")
+        if not caught:
+            problems.append(f"planted fault '{what}' passed the checks")
+    return out
+
+
+def mg_convert(rank: int, problems: list) -> dict:
+    """(3) The CFG-sharded conversions: VoiceConverter on phase 5's clip and
+    VoiceConverterV2.convert_timbre on phase 9's, unsharded then with
+    cfg_shard_axis='data' on a (2, 1) mesh; each rank's launches and the
+    shapes its attention runs."""
+    import torch
+
+    from seedvc_tpu_torch.parallel.mesh import make_mesh, set_mesh
+    from seedvc_tpu_torch.pipelines.convert import VoiceConverter
+    from seedvc_tpu_torch.pipelines.convert_v2 import VoiceConverterV2
+
+    mesh = make_mesh(MG_WORLD, 1, device_type="cuda")
+    out = {}
+    v1_src, v1_ref = synthetic_audio(30.0, 22050, 140.0, seed=4), synthetic_audio(
+        5.0, 22050, 220.0, seed=5)
+    v2_src, v2_ref = synthetic_audio(20.0, 22050, 140.0, seed=54), synthetic_audio(
+        5.0, 22050, 220.0, seed=55)
+    for what, make, call, expect in (
+            ("v1", lambda: VoiceConverter(device="cuda"),
+             lambda vc: vc.convert(v1_src, 22050, v1_ref, 22050, diffusion_steps=25,
+                                   cfg_rate=0.7),
+             {"k1": MAIN_CHUNKS * 25 * 13, "k2": MAIN_CHUNKS * 109, "k3": 0}),
+            ("v2", lambda: VoiceConverterV2(device="cuda"),
+             lambda vc: vc.convert_timbre(v2_src, 22050, v2_ref, 22050,
+                                          diffusion_steps=V2_STEPS, intelligibility_cfg_rate=0.7,
+                                          similarity_cfg_rate=0.7),
+             {"k1": V2_STEPS * 13, "k2": 109, "k3": 0})):
+        vc = make()
+        model = vc.vc if what == "v1" else vc.dit
+        _, base, _ = call(vc)
+        vc.cfg_shard_axis = "data"
+        shapes: set = set()
+        hooks = mg_shape_hooks(model, shapes)
+        with set_mesh(mesh):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, wave, _ = call(vc)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+        for h in hooks:
+            h.remove()
+        err, snr = (float(x) for x in compare_waves(f"multi-GPU {what}", wave, base))
+        out[what] = {"counts": counts, "shapes": sorted(shapes), "err": err, "snr": snr,
+                     "wall_s": wall}
+        log(f"[rank {rank}] multi-GPU CFG-sharded {what}: {len(wave) / 22050:.2f} s of audio in "
+            f"{wall:.3f} s wall (the ranks share one card); against the unsharded wave max abs "
+            f"{err:.2e} (tol {MG_WAVE_TOL:g}), SNR {snr:.1f} dB; launches {counts}; attention "
+            f"at {sorted(shapes)}")
+        if counts != expect:
+            problems.append(f"CFG-sharded {what}: launches {counts}, expected {expect}")
+        if err > MG_WAVE_TOL:
+            problems.append(f"CFG-sharded {what}: the wave differs from the unsharded one")
+        del vc, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def mg_rank_main(rank: int, store: str, out_dir: str) -> int:
+    """One of the two ranks of (2)-(4): its results as JSON in ``out_dir``."""
+    import datetime
+
+    import torch
+
+    from seedvc_tpu_torch.parallel import distributed
+
+    distributed.initialize(f"file://{store}", MG_WORLD, rank, device="cuda:0", backend="gloo",
+                           timeout=datetime.timedelta(seconds=300))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    problems: list = []
+    res = {"rank": rank, "train": mg_train(rank, problems),
+           "convert": mg_convert(rank, problems), "problems": problems}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0  # the parent reads the problems from the result
+
+
+def mg_two_ranks(card: str, timeout: float = 420.0) -> list:
+    """Start the two ranks (this script with --mg-rank), wait for both
+    (killing both if one fails or the time runs out), return their results."""
+    import tempfile
+    import threading
+
+    with tempfile.TemporaryDirectory(prefix="mg_ranks_") as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                                   "--mg-rank", str(r), "--mg-store", store, "--mg-out", tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(MG_WORLD)]
+        t0, outs = time.perf_counter(), {}
+
+        def drain(r, p):
+            outs[r] = p.stdout.read()
+        threads = [threading.Thread(target=drain, args=(r, p), daemon=True)
+                   for r, p in enumerate(procs)]
+        for t in threads:
+            t.start()
+        while any(p.poll() is None for p in procs):
+            if (time.perf_counter() - t0 > timeout
+                    or any(p.poll() not in (None, 0) for p in procs)):
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                break
+            time.sleep(0.5)
+        for p in procs:
+            p.wait()
+        for t in threads:
+            t.join(timeout=10)
+        wall = time.perf_counter() - t0
+        for r in range(MG_WORLD):
+            for line in (outs.get(r) or "").splitlines():
+                if line.startswith("[rank") or "Error" in line or "FAILED" in line:
+                    log(line)
+        rcs = [p.returncode for p in procs]
+        log(f"multi-GPU two ranks on one card over gloo: exit codes {rcs}, {wall:.1f} s wall; "
+            f"{card}")
+        results = []
+        for r in range(MG_WORLD):
+            path = os.path.join(tmp, f"rank{r}.json")
+            if not os.path.exists(path):
+                tail = "\n".join((outs.get(r) or "").splitlines()[-30:])
+                fail(f"multi-GPU rank {r} wrote no result (exit {rcs[r]}):\n{tail}")
+            with open(path) as f:
+                results.append(json.load(f))
+    for res in results:
+        for problem in res["problems"]:
+            log(f"FAILED: multi-GPU rank {res['rank']}: {problem}")
+    if any(res["problems"] for res in results) or any(rcs):
+        fail("multi-GPU: a rank's checks failed")
+    return results
+
+
+def mg_rows(mg: dict, errs: dict, card: str) -> list:
+    """The kernels line's rows of phase 13's shapes, launches from its runs
+    (each rank's count; ``launches`` is rank 0's, the shapes rank 0's unless
+    named otherwise): K1 bf16 at one CFG branch a rank of the v1 conversion
+    and of v2's 3-way stack (2 rows on rank 0, 1 on rank 1), K2 in each
+    rank's vocoder, K1 f32 and K1ᵇ at the (1, 2) step's 4 heads and the
+    (2, 1) step's one row."""
+    ranks = mg["ranks"]
+    conv = [r["convert"] for r in ranks]
+    path = "multi-GPU (phase 13): {} on 2 ranks of one card, rank {}"
+    k1_b1 = k1_timing(MAIN_CONTEXT, 8, 1966, seed=41, B=1)
+    v2_b2 = k1_timing(V2_T, 8, V2_LENS, seed=42, B=2)
+    v2_b1 = k1_timing(V2_T, 8, V2_LENS, seed=43, B=1)
+    k2 = k2_timing(UPSAMPLE_22K)
+    per_rank = {w: [c[w]["counts"] for c in conv] for w in ("v1", "v2")}
+    rows = [
+        {**k1_row(k1_b1, conv[0]["v1"]["counts"]["k1"], errs["k1_mg"],
+                  path.format("CFG-sharded whisper_small_wavenet conversion", 0)),
+         "launches_per_rank": [c["k1"] for c in per_rank["v1"]]},
+        {**k2_row(k2, conv[0]["v1"]["counts"]["k2"], errs["k2"],
+                  path.format("CFG-sharded whisper_small_wavenet conversion", 0)),
+         "launches_per_rank": [c["k2"] for c in per_rank["v1"]]},
+        {**k1_row(v2_b2, conv[0]["v2"]["counts"]["k1"], errs["k1_v2"],
+                  path.format("CFG-sharded v2 convert_timbre", 0)),
+         "launches_per_rank": [c["k1"] for c in per_rank["v2"]]},
+        {**k1_row(v2_b1, conv[1]["v2"]["counts"]["k1"], errs["k1_mg"],
+                  path.format("CFG-sharded v2 convert_timbre", 1)),
+         "launches_per_rank": [c["k1"] for c in per_rank["v2"]]}]
+    for name, B, H in (("(1, 2)", 2, MG_HEADS), ("(2, 1)", 1, 8)):
+        steps = [r["train"][name] for r in ranks]
+        for row in train_kernel_rows(MG_T, B, H, steps[0]["k1"], card,
+                                     path.format(f"the sharded v1 step at {name}", 0),
+                                     kinds=TRAIN_KINDS[:2]):
+            key = "k1" if row["name"] == "dit_attention_fused" else "k1b"
+            rows.append({**row, "launches_per_rank": [s[key] for s in steps]})
+    return rows
+
+
+def phase_multi_gpu(card: str, train: dict) -> dict:
+    t0 = time.perf_counter()
+    world1 = mg_world1(card, train)
+    ranks = mg_two_ranks(card)
+    log(f"multi-GPU phase: {time.perf_counter() - t0:.1f} s")
+    return {"world1": world1, "ranks": ranks}
+
+
 @contextlib.contextmanager
 def smi_sampler(period_ms: int = 100):
     """Samples of the card's SM clock, power draw, power limit and temperature
@@ -3910,8 +4383,13 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one warm conversion of each full-width path "
                          "(torch.profiler)")
+    ap.add_argument("--mg-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mg-store", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mg-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
+    if args.mg_rank is not None:  # one rank of the multi-GPU phase
+        return mg_rank_main(args.mg_rank, args.mg_store, args.mg_out)
     card = phase_device()
     import torch
 
@@ -3935,7 +4413,9 @@ def main(argv=None) -> int:
     ev = phase_eval(card)
     web = phase_webui(card)
     ckpt = phase_checkpoints(card, full, v2)
+    mg = phase_multi_gpu(card, train)
     line = phase_kernel_line(errs, full, svc, mb_counts, rt, v2, ev, web, ckpt)
+    line["kernels"] += mg_rows(mg, errs, card)
     line["kernels"] += train_rows(train["train f32"]["T"], card, "v1 fine-tuning (apps.train, f32)")
     line["kernels"] += train_rows(v2t["T"], card, "v2 fine-tuning (apps.train_v2, f32)",
                                   kinds=TRAIN_KINDS[:2])

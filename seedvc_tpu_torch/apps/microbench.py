@@ -330,10 +330,12 @@ def bench_train_step(B=4, T=512, Ts=256, compute_dtype=None, device="cuda", cfg=
     """The v1 train step (98M DiT + WaveNet head, regulator; forward, backward
     through K1ᵇ, the AdamW update) at a fine-tuning shape, with the frozen
     encoders' features given as zeros, as the JAX component gives them:
-    steps/s and TFLOP/s from the JAX package's 3·2·params·B·T estimate."""
+    steps/s and TFLOP/s from the JAX package's 3·2·params·B·T estimate. As
+    the JAX component, the step is the sharded one on a 1 x 1 mesh."""
     from seedvc_tpu_torch.models.vc import VCModel
+    from seedvc_tpu_torch.parallel.mesh import make_mesh
     from seedvc_tpu_torch.train.optim import make_optimizer
-    from seedvc_tpu_torch.train.step import init_state, make_train_step
+    from seedvc_tpu_torch.train.step import init_state, make_sharded_train_step, shard_state
 
     dev = _device(device)
     cfg, mp = _flash_model_params(cfg)
@@ -342,8 +344,9 @@ def bench_train_step(B=4, T=512, Ts=256, compute_dtype=None, device="cuda", cfg=
         model = VCModel(mp)
     model.to(dev)
     optimizer = make_optimizer(1e-4)
-    state = init_state(model, optimizer)
-    step = make_train_step(model, optimizer, compute_dtype=compute_dtype)
+    mesh = make_mesh(n_data=1, n_model=1, device_type=dev.type)
+    state = shard_state(init_state(model, optimizer), mesh, model=model)
+    step = make_sharded_train_step(model, optimizer, mesh, compute_dtype=compute_dtype)
     d_in = mp.length_regulator.in_channels
     batch = {"s_alt": torch.zeros((B, Ts, d_in), device=dev),
              "s_ori": torch.zeros((B, Ts, d_in), device=dev),

@@ -11,8 +11,18 @@ a flax-layout tree that ``apps.infer --checkpoint-dir`` loads. An
 ``python -m seedvc_tpu_torch.apps.convert_checkpoint --openvoice`` writes
 it) turns on the OpenVoice timbre perturbation, and a ``se_db.pkl`` beside it
 (an (N, 256) array of speaker embeddings) gives its target voices; without
-the bank the batch's own voices are shuffled. Multi-GPU (``--n-model``
-other than 1, ``--fsdp``) is not ported: ROADMAP queue 1 item 3c.
+the bank the batch's own voices are shuffled.
+
+Several GPUs, one process each, under a launcher that sets ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``:
+
+    torchrun --nproc-per-node 8 -m seedvc_tpu_torch.apps.train \
+        --dataset-dir ./my_voice --batch-size 8 --n-model 2 --fsdp
+
+lays the ranks out as a (data, model) mesh: ``--n-model`` ranks split the
+DiT's attention heads and FFN (tensor parallel), the rest split the batch,
+and ``--fsdp`` scatters the parameters, AdamW moments and EMA over the data
+ranks. The coordinator (rank 0) writes the checkpoints and the export.
 """
 
 from __future__ import annotations
@@ -51,21 +61,21 @@ def main(argv=None):
                     help="where to write the final serving vc.pkl (default "
                          "runs/<run-name>/ft_model)")
     ap.add_argument("--n-model", type=int, default=1,
-                    help="tensor-parallel width: only 1 is ported (ROADMAP queue 1 item 3c)")
+                    help="tensor-parallel width of the device mesh")
     ap.add_argument("--fsdp", action="store_true",
-                    help="not ported (ROADMAP queue 1 item 3c)")
+                    help="scatter params/optimizer moments over the data axis (ZeRO-3 "
+                         "analogue; composes with --n-model)")
     ap.add_argument("--compute-dtype", default="float32", choices=("float32", "bfloat16"),
                     help="bfloat16 = bf16 model compute, f32 master weights")
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     args = ap.parse_args(argv)
 
     from seedvc_tpu_torch.core.config import get_preset
+    from seedvc_tpu_torch.parallel.distributed import initialize
     from seedvc_tpu_torch.train.dataset import FTDataset
-    from seedvc_tpu_torch.train.step import MULTI_GPU
     from seedvc_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-    if args.n_model != 1 or args.fsdp:
-        raise NotImplementedError(f"--n-model {args.n_model} / --fsdp: {MULTI_GPU}")
+    initialize(device=args.device)  # a no-op outside a launcher
     cfg = get_preset(args.preset)
     tcfg = TrainerConfig(
         data_path=args.dataset_dir, run_dir=f"./runs/{args.run_name}",

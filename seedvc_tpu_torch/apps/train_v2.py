@@ -8,8 +8,12 @@ Runs on ``cuda`` unless ``--device cpu`` is given (and raises without a card).
 Checkpoints go to ``./runs/<run-name>``; a run there resumes from its newest
 checkpoint. ``--checkpoint-dir`` may hold the frozen encoders as flax
 pickles (``ssl.pkl``, ``narrow.pkl``, ``wide.pkl``, ``campplus.pkl``); the
-rest start from random weights. Multi-GPU (``--n-model`` other than 1,
-``--fsdp``) is not ported: ROADMAP queue 1 item 3c.
+rest start from random weights.
+
+Several GPUs, one process each, under ``torchrun`` (as ``apps.train``):
+``--n-model`` ranks split the DiT's and the AR's attention heads and the
+DiT's FFN, the rest split the batch, and ``--fsdp`` scatters the parameters
+and AdamW moments over the data ranks.
 """
 
 from __future__ import annotations
@@ -42,19 +46,18 @@ def main(argv=None, vcfg=None):
     ap.add_argument("--checkpoint-dir", default=None,
                     help="converted frozen-encoder .pkl trees (ssl/narrow/wide/campplus)")
     ap.add_argument("--n-model", type=int, default=1,
-                    help="tensor-parallel width: only 1 is ported (ROADMAP queue 1 item 3c)")
+                    help="tensor-parallel width of the device mesh")
     ap.add_argument("--fsdp", action="store_true",
-                    help="not ported (ROADMAP queue 1 item 3c)")
+                    help="scatter params/optimizer moments over the data axis")
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     args = ap.parse_args(argv)
 
+    from seedvc_tpu_torch.parallel.distributed import initialize
     from seedvc_tpu_torch.pipelines.convert_v2 import V2Config
     from seedvc_tpu_torch.train.dataset import FTDataset
-    from seedvc_tpu_torch.train.step import MULTI_GPU
     from seedvc_tpu_torch.train.trainer_v2 import TrainerV2, TrainerV2Config
 
-    if args.n_model != 1 or args.fsdp:
-        raise NotImplementedError(f"--n-model {args.n_model} / --fsdp: {MULTI_GPU}")
+    initialize(device=args.device)  # a no-op outside a launcher
     frozen = {}
     if args.checkpoint_dir:
         for name in FROZEN:

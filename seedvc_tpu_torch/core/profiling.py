@@ -2,6 +2,8 @@
 
 - :class:`StageTimer`: per-stage wall-clock accounting for the pipelines,
   each stage also a named span in a ``torch.profiler`` trace;
+- :func:`trace`: a ``torch.profiler`` run that writes a TensorBoard-loadable
+  trace into a directory (the JAX package's ``jax.profiler`` trace);
 - :func:`annotate`: a named span (``torch.profiler.record_function``);
 - :func:`probe_ready`: wait for a tensor's device work to finish;
 - :func:`cuda_time_ms`: a function's device time per call, by CUDA events.
@@ -10,7 +12,9 @@
 from __future__ import annotations
 
 import contextlib
+import os
 import time
+from typing import Optional
 
 import torch
 
@@ -24,12 +28,16 @@ class StageTimer:
     >>> timer.report()  # {'semantic': {'seconds': ..., 'calls': 1}}
     """
 
-    def __init__(self):
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled  # False: stages run untimed and unrecorded
         self._acc: dict[str, float] = {}
         self._calls: dict[str, int] = {}
 
     @contextlib.contextmanager
     def __call__(self, stage: str):
+        if not self.enabled:
+            yield
+            return
         t0 = time.perf_counter()
         try:
             with annotate(stage):
@@ -42,6 +50,10 @@ class StageTimer:
         return {stage: {"seconds": self._acc[stage], "calls": self._calls[stage]}
                 for stage in self._acc}
 
+    def total(self) -> float:
+        """Seconds over every stage."""
+        return sum(self._acc.values())
+
 
 def probe_ready(x):
     """Wait until the device work behind ``x`` has finished (a device
@@ -49,6 +61,22 @@ def probe_ready(x):
     if isinstance(x, torch.Tensor) and x.device.type == "cuda":
         torch.cuda.synchronize(x.device)
     return x
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str]):
+    """Profile the block (host, and the device when CUDA is up) and write a
+    TensorBoard trace under ``logdir``; ``None`` or ``""`` profiles nothing."""
+    if not logdir:
+        yield
+        return
+    os.makedirs(logdir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities,
+                                on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)):
+        yield
 
 
 @contextlib.contextmanager

@@ -33,6 +33,8 @@ from torch import nn
 
 from seedvc_tpu_torch.nn.layers import RMSNorm, rope_cache
 from seedvc_tpu_torch.ops import anti_alias, attention
+from seedvc_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
+from seedvc_tpu_torch.parallel.sharding import TensorParallel, TPSplit
 
 # replays between the host's reads of all(done)
 CHECK_EVERY = 32
@@ -82,13 +84,31 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a, b, out_dtype=torch.float32)
 
 
-class ARAttention(nn.Module):
+class ARAttention(TensorParallel, nn.Module):
+    """Grouped-query attention of the AR. Tensor parallel: this rank's query
+    heads and their KV heads (rows of ``wqkv``) and those heads' columns of
+    ``wo``, summed over the ``model`` group (the full-sequence training
+    pass; the decode's caches hold every head)."""
+
     def __init__(self, cfg: ARConfig):
         super().__init__()
         self.cfg = cfg
         c = cfg
+        self.n_head, self.n_kv = c.n_head, c.n_local_heads
         self.wqkv = nn.Linear(c.dim, (c.n_head + 2 * c.n_local_heads) * c.head_dim, bias=False)
         self.wo = nn.Linear(c.n_head * c.head_dim, c.dim, bias=False)
+
+    def tp_splits(self) -> dict:
+        H, G, hd = self.n_head, self.n_kv, self.cfg.head_dim
+        return {"wqkv.weight": TPSplit(0, (H * hd, G * hd, G * hd)),
+                "wo.weight": TPSplit(1, (H * hd,))}
+
+    def tp_divides(self, n: int) -> bool:
+        return self.n_head % n == 0 and self.n_kv % n == 0
+
+    def _tp_local(self, n: int) -> None:
+        self.n_head //= n
+        self.n_kv //= n
 
     def forward(self, x, rope, masked, k_cache=None, v_cache=None, write_pos=None):
         """x: (B, S, D); rope: :func:`rope_rows` of the positions; masked:
@@ -100,10 +120,10 @@ class ARAttention(nn.Module):
         (a 0-d device tensor; decode, S = 1), k/v go to that slot, clamped to
         the last one as the JAX ``dynamic_update_slice`` clamps, and the keys
         are the whole cache."""
-        c = self.cfg
         B, S, _ = x.shape
-        H, G, hd = c.n_head, c.n_local_heads, c.head_dim
+        H, G, hd = self.n_head, self.n_kv, self.cfg.head_dim
         R = H // G
+        x = copy_to_group(x, self.tp_group)
         qk, v = self.wqkv(x).split([(H + G) * hd, G * hd], dim=-1)
         qk = apply_rope_batched(qk.unflatten(-1, (H + G, hd)), rope)  # q and k in one pass
         q, k = qk[:, :, :H], qk[:, :, H:].transpose(1, 2)
@@ -128,7 +148,7 @@ class ARAttention(nn.Module):
         probs = torch.softmax(logits, dim=-1).to(x.dtype).reshape(B * G, R * S, K)
         out = torch.bmm(probs, v_all.reshape(B * G, K, hd))
         out = out.reshape(B, G, R, S, hd).permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
-        return self.wo(out)
+        return reduce_from_group(self.wo(out), self.tp_group)
 
 
 class ARBlock(nn.Module):
@@ -163,6 +183,7 @@ class ARTransformer(nn.Module):
         # through every layer (no biases), where each RMSNorm's gradient is
         # rsqrt(eps), so training from it overflows the gradient
         self.sep_token_emb = nn.Parameter(torch.randn(cfg.dim))
+        self.fsdp_whole = ("sep_token_emb",)  # read by callers, outside forward
         self._rope: dict = {}
 
     def rope(self, input_pos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

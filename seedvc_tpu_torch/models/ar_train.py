@@ -10,7 +10,9 @@ with the second sep at index cl + 1:
   second sep predicts x[0]), position cl + xl + 1 predicts EOS, every other
   position is ignored;
 - the log-softmax is taken in f32 and the loss is the mean over the valid
-  labels.
+  labels (of the whole batch: inside a ``set_mesh`` block whose batch is
+  split over ``data``, this rank's share of it, whose mean over the ranks
+  is the global batch's mean).
 
 The AR's attention is its own ``_bmm_f32`` path (the JAX AR has no Pallas
 kernel); under autograd it runs in f32 as the forward does.
@@ -21,6 +23,8 @@ from __future__ import annotations
 import torch
 
 from seedvc_tpu_torch.models.ar import ARTransformer
+from seedvc_tpu_torch.parallel.collectives import all_reduce_sum
+from seedvc_tpu_torch.parallel.mesh import batch_split
 
 IGNORE = -100
 
@@ -69,4 +73,9 @@ def ar_loss(model: ARTransformer, cond_emb: torch.Tensor, cond_lens: torch.Tenso
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1)
+    split = batch_split()
+    if split is None:
+        return (nll * valid).sum() / torch.clamp(valid.sum(), min=1)
+    mesh, axis = split
+    count = all_reduce_sum(valid.sum(), mesh.group(axis))
+    return (nll * valid).sum() * mesh.size(axis) / torch.clamp(count, min=1)

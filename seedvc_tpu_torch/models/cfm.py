@@ -7,14 +7,18 @@ prompt region of x1 spliced in as the prompt and zeroed in y, the loss taken
 over [prompt_len, x_len) only and reduced in f32. The time ``t``, the noise
 ``z`` and the classifier-free dropout mask are arguments.
 
-Inference: fixed-step Euler over a linear ``t_span = linspace(0, 1, n+1)``;
-classifier-free guidance stacks the conditional batch with a null batch
-(zeroed prompt/style/mu) and combines ``(1+r)·cond − r·uncond``; the prompt
-region of x is re-zeroed every step. The initial noise is an argument.
+Inference: fixed-step Euler over a linear ``t_span = linspace(0, 1, n+1)``
+(or v2's cosine schedule); classifier-free guidance stacks the conditional
+batch with a null batch (zeroed prompt/style/mu) and combines
+``(1+r)·cond − r·uncond``; the prompt region of x is re-zeroed every step.
+The initial noise is an argument. ``shard_axis`` splits the CFG-stacked
+batch over a mesh axis: each rank runs the estimator on its rows and the
+ranks gather the velocity before the combination.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -22,8 +26,31 @@ from torch import nn
 
 from seedvc_tpu_torch.core.config import ModelParams
 from seedvc_tpu_torch.models.dit import DiT
+from seedvc_tpu_torch.parallel.collectives import gather_rows, row_split
+from seedvc_tpu_torch.parallel.mesh import current_mesh
 
 SIGMA_MIN = 1e-6
+SEQ_SHARD = "sequence-sharded sampling (seq_shard_axis) is not ported: ROADMAP queue 1 item 3c(ii)"
+
+
+class StackShard:
+    """This rank's rows of an ``n``-row CFG stack split over mesh axis
+    ``axis`` (of the innermost ``set_mesh`` block; XLA's uneven split:
+    ceil(n / ranks) rows a rank, the last ones short), and the gather of the
+    estimator's output back to all ``n`` rows. ``axis=None``: every row."""
+
+    def __init__(self, axis: Optional[str], n: int):
+        self.n, self.group, self.rows = n, None, slice(0, n)
+        if axis is not None:
+            mesh = current_mesh(axis)
+            self.group = mesh.group(axis)
+            self.rows = row_split(n, mesh.size(axis), mesh.index(axis))
+
+    def take(self, t):
+        return None if t is None else t[self.rows]
+
+    def gather(self, v: torch.Tensor) -> torch.Tensor:
+        return gather_rows(v, self.group, self.n)
 
 
 class CFM(nn.Module):
@@ -76,22 +103,41 @@ class CFM(nn.Module):
         return self.estimator(x, prompt_x, x_lens, t0, style, cond, return_static=True)
 
 
+def cosine_t_span(n_timesteps: int) -> torch.Tensor:
+    """v2's cosine schedule ``t - (cos(pi t / 2) - 1 + t)``: (n + 1,) f32 on
+    the CPU."""
+    t = torch.linspace(0.0, 1.0, n_timesteps + 1, dtype=torch.float32)
+    return t - (torch.cos(math.pi / 2 * t) - 1 + t)
+
+
 @torch.no_grad()
 def euler_solve(estimate_fn: Callable, noise: torch.Tensor, mu: torch.Tensor,
                 x_lens: Optional[torch.Tensor], prompt: torch.Tensor, prompt_len: int,
                 style: torch.Tensor, n_timesteps: int, cfg_rate: float = 0.7,
-                precompute_fn: Optional[Callable] = None) -> torch.Tensor:
+                precompute_fn: Optional[Callable] = None, temperature: float = 1.0,
+                t_scheduler: str = "linear", shard_axis: Optional[str] = None,
+                seq_shard_axis: Optional[str] = None) -> torch.Tensor:
     """Euler CFG sampler; ``estimate_fn(x, prompt_x, x_lens, t, style, mu[,
     static_cond]) -> v``.
 
-    noise: (B, T, n_mels) initial noise in mu's dtype; mu: (B, T, D);
-    x_lens: (B,) or None; prompt: (B, T, n_mels) zero past prompt_len.
-    ``precompute_fn(x, prompt_x, x_lens, style, mu) -> static_cond`` hoists
-    the step-invariant conditioning out of the loop.
+    noise: (B, T, n_mels) initial noise in mu's dtype (scaled by
+    ``temperature``); mu: (B, T, D); x_lens: (B,) or None; prompt: (B, T,
+    n_mels) zero past prompt_len. ``t_scheduler``: ``linear`` or ``cosine``
+    (:func:`cosine_t_span`). ``precompute_fn(x, prompt_x,
+    x_lens, style, mu) -> static_cond`` hoists the step-invariant
+    conditioning out of the loop. ``shard_axis``: split the CFG-stacked batch
+    over that axis of the ``set_mesh`` mesh (each rank runs the estimator on
+    its rows; every rank returns the whole result).
     Returns the generated mel (B, T, n_mels); the prompt region holds zeros.
     """
+    if seq_shard_axis is not None:
+        raise NotImplementedError(SEQ_SHARD)
+    if t_scheduler not in ("linear", "cosine"):
+        raise ValueError(f"unknown t_scheduler {t_scheduler!r}")
     B, T, _ = mu.shape
-    t_span = torch.linspace(0.0, 1.0, n_timesteps + 1)
+    t_span = (cosine_t_span(n_timesteps) if t_scheduler == "cosine"
+              else torch.linspace(0.0, 1.0, n_timesteps + 1))
+    noise = noise * temperature
     in_prompt = (torch.arange(T, device=mu.device) < prompt_len)[None, :, None]
     prompt_x = torch.where(in_prompt, prompt, torch.zeros_like(prompt))
     x = torch.where(in_prompt, torch.zeros_like(noise), noise)
@@ -104,25 +150,31 @@ def euler_solve(estimate_fn: Callable, noise: torch.Tensor, mu: torch.Tensor,
         est_lens = None if x_lens is None else torch.cat([x_lens, x_lens], 0)
     else:
         est_prompt, est_style, est_mu, est_lens = prompt_x, style, mu, x_lens
+    n_stack = est_mu.shape[0]
+    shard = StackShard(shard_axis, n_stack)
+    est_prompt, est_style, est_mu, est_lens = (shard.take(t) for t in (
+        est_prompt, est_style, est_mu, est_lens))
+    n_local = est_mu.shape[0]
 
     est_args = ()
-    if precompute_fn is not None:
-        x_shape = (est_mu.shape[0], T, noise.shape[-1])
+    if precompute_fn is not None and n_local:
+        x_shape = (n_local, T, noise.shape[-1])
         est_args = (precompute_fn(torch.zeros(x_shape, dtype=mu.dtype, device=mu.device),
                                   est_prompt, est_lens, est_style, est_mu),)
 
     for i in range(n_timesteps):
         t_cur = float(t_span[i])
         dt = float(t_span[i + 1] - t_span[i])
+        xx = shard.take(torch.cat([x, x], 0) if use_cfg else x)
+        if n_local:
+            tt = torch.full((n_local,), t_cur, dtype=mu.dtype, device=mu.device)
+            v = estimate_fn(xx, est_prompt, est_lens, tt, est_style, est_mu, *est_args)
+        else:  # more ranks than rows: this one only takes part in the gather
+            v = torch.zeros_like(xx)
+        v = shard.gather(v)
         if use_cfg:
-            tt = torch.full((2 * B,), t_cur, dtype=mu.dtype, device=mu.device)
-            v = estimate_fn(torch.cat([x, x], 0), est_prompt, est_lens, tt, est_style,
-                            est_mu, *est_args)
             v_cond, v_null = v.chunk(2, dim=0)
             v = (1.0 + cfg_rate) * v_cond - cfg_rate * v_null
-        else:
-            tt = torch.full((B,), t_cur, dtype=mu.dtype, device=mu.device)
-            v = estimate_fn(x, est_prompt, est_lens, tt, est_style, est_mu, *est_args)
         x = (x.float() + dt * v.float()).to(x.dtype)
         x = torch.where(in_prompt, torch.zeros_like(x), x)
     return x

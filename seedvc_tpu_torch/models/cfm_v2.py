@@ -16,18 +16,13 @@ noise are arguments (the trainer draws them).
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Optional, Sequence
 
 import torch
 
+from seedvc_tpu_torch.models.cfm import SEQ_SHARD, StackShard, cosine_t_span  # noqa: F401
+
 SIGMA_MIN = 1e-6
-
-
-def cosine_t_span(n_timesteps: int) -> torch.Tensor:
-    """(n + 1,) f32 on the CPU."""
-    t = torch.linspace(0.0, 1.0, n_timesteps + 1, dtype=torch.float32)
-    return t - (torch.cos(math.pi / 2 * t) - 1 + t)
 
 
 def cfg_branches(prompt_x, style, mu, cfg_rates: Sequence[float], random_voice: bool):
@@ -60,10 +55,12 @@ def euler_solve_multicfg(estimate_fn: Callable, noise: torch.Tensor, mu: torch.T
     ``temperature`` here); mu: (B, T, D); x_lens: (B,) or None; prompt:
     (B, T, n_mels); prompt_len: int. ``precompute_fn(x, prompt_x, x_lens,
     style, mu) -> static_cond`` hoists the step-invariant conditioning out of
-    the loop. Returns the generated mel; the prompt region holds zeros."""
-    if shard_axis is not None or seq_shard_axis is not None:
-        raise NotImplementedError("sharded sampling is not ported: "
-                                  "ROADMAP queue 1 item 3c")
+    the loop. ``shard_axis``: split the stack over that axis of the
+    ``set_mesh`` mesh (an uneven split too: 3 branches over 2 ranks are 2 and
+    1 rows); every rank returns the whole result. Returns the generated mel;
+    the prompt region holds zeros."""
+    if seq_shard_axis is not None:
+        raise NotImplementedError(SEQ_SHARD)
     B, T, _ = mu.shape
     z = noise * temperature
     in_prompt = (torch.arange(T, device=mu.device) < prompt_len)[None, :, None]
@@ -75,10 +72,14 @@ def euler_solve_multicfg(estimate_fn: Callable, noise: torch.Tensor, mu: torch.T
     est_prompt, est_style, est_mu = (torch.cat([b[i] for b in branches], 0) for i in range(3))
     est_lens = None if x_lens is None else torch.cat([x_lens] * n_br, 0)
     w = torch.tensor(weights, dtype=mu.dtype, device=mu.device)
+    shard = StackShard(shard_axis, n_br * B)
+    est_prompt, est_style, est_mu, est_lens = (shard.take(t) for t in (
+        est_prompt, est_style, est_mu, est_lens))
+    n_local = est_mu.shape[0]
 
     est_args = ()
-    if precompute_fn is not None:
-        x_shape = (n_br * B, T, noise.shape[-1])
+    if precompute_fn is not None and n_local:
+        x_shape = (n_local, T, noise.shape[-1])
         est_args = (precompute_fn(torch.zeros(x_shape, dtype=mu.dtype, device=mu.device),
                                   est_prompt, est_lens, est_style, est_mu),)
 
@@ -86,9 +87,13 @@ def euler_solve_multicfg(estimate_fn: Callable, noise: torch.Tensor, mu: torch.T
     for i in range(n_timesteps):
         t_cur = float(t_span[i])
         dt = float(t_span[i + 1] - t_span[i])
-        tt = torch.full((n_br * B,), t_cur, dtype=mu.dtype, device=mu.device)
-        v = estimate_fn(torch.cat([x] * n_br, 0), est_prompt, est_lens, tt, est_style, est_mu,
-                        *est_args)
+        xx = shard.take(torch.cat([x] * n_br, 0))
+        if n_local:
+            tt = torch.full((n_local,), t_cur, dtype=mu.dtype, device=mu.device)
+            v = estimate_fn(xx, est_prompt, est_lens, tt, est_style, est_mu, *est_args)
+        else:  # more ranks than rows: this one only takes part in the gather
+            v = torch.zeros_like(xx)
+        v = shard.gather(v)
         v = torch.tensordot(w, v.reshape(n_br, B, *v.shape[1:]), dims=1)
         x = (x.float() + dt * v.float()).to(x.dtype)
         x = torch.where(in_prompt, torch.zeros_like(x), x)

@@ -29,6 +29,7 @@ from torch import nn
 
 from seedvc_tpu_torch.core.config import LengthRegulatorConfig
 from seedvc_tpu_torch.core.utils import sequence_mask
+from seedvc_tpu_torch.parallel.mesh import batch_max
 
 F0_MIN = 50.0
 F0_MAX = 1100.0
@@ -171,7 +172,7 @@ class InterpolateRegulator(nn.Module):
                 h = h + gate * getattr(self, f"extra_codebooks_{i - 1}")(x[:, i])
         else:
             h = self.embedding(x)
-        out_len = ylens.max()
+        out_len = batch_max(ylens.max())  # the global batch's, under a data-sharded step
         h = nearest_interpolate_to(h, out_len, target_len, in_len=x_lens)
         if c.f0_condition:
             if f0 is None:

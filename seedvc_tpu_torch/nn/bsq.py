@@ -15,10 +15,12 @@ index, normalise the quantized vector again and ``project_out``. With
   plus ``commitment_loss_weight`` x MSE(h, quantized) when that weight is
   above 0.
 
-The JAX module averages the codebook statistics across data-parallel
-devices (``pmean_axis``); multi-GPU training is not ported, and any axis
-raises. ``GroupedResidualBSQ`` quantizes equal feature-dim chunks with
-independent BSQs (``rvqs_{i}``).
+With ``pmean_axis`` the batch-mean bit probabilities are averaged over
+that mesh axis (of the innermost ``parallel.mesh.set_mesh`` block) before
+their entropy, as the JAX module's ``jax.lax.pmean``: forward the mean over
+the axis's ranks, backward the mean of their gradients.
+``GroupedResidualBSQ`` quantizes equal feature-dim chunks with independent
+BSQs (``rvqs_{i}``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import numpy as np
 import torch
 from torch import nn
 
-MULTI_GPU = "codebook statistics across devices are not ported: ROADMAP queue 1 item 3c"
+from seedvc_tpu_torch.parallel.collectives import pmean
+from seedvc_tpu_torch.parallel.mesh import current_mesh
 
 
 def l2norm(t: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -47,8 +50,7 @@ class BSQ(nn.Module):
                  commitment_loss_weight: float = 0.0, diversity_gamma: float = 1.0,
                  inv_temperature: float = 1.0, pmean_axis: Optional[str] = None):
         super().__init__()
-        if pmean_axis is not None:
-            raise NotImplementedError(f"BSQ(pmean_axis={pmean_axis!r}): {MULTI_GPU}")
+        self.pmean_axis = pmean_axis
         self.codebook_dim = int(math.log2(codebook_size))
         self.codebook_scale = codebook_scale
         self.spherical = spherical
@@ -86,6 +88,8 @@ class BSQ(nn.Module):
         p = torch.stack([p, 1 - p], dim=-1)
         per_sample = entropy(p).sum(-1).mean()
         avg_prob = p.reshape(-1, p.shape[-2], 2).mean(dim=0)
+        if self.pmean_axis is not None:
+            avg_prob = pmean(avg_prob, current_mesh(self.pmean_axis).group(self.pmean_axis))
         codebook = entropy(avg_prob).sum(-1).mean()
         return per_sample - self.diversity_gamma * codebook
 

@@ -28,6 +28,8 @@ from torch import nn
 
 from seedvc_tpu_torch.ops.attention import (dit_attention, dit_attention_diff,
                                             dit_attention_fused, dit_attention_fused_diff)
+from seedvc_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
+from seedvc_tpu_torch.parallel.sharding import TensorParallel, TPSplit
 
 
 class Dense(nn.Linear):
@@ -109,7 +111,7 @@ def apply_rope(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     return out.reshape(x.shape).to(x.dtype)
 
 
-class Attention(nn.Module):
+class Attention(TensorParallel, nn.Module):
     """Fused-QKV multi-head attention with grouped KV heads and key padding.
 
     With ``use_flash``: K1 (RoPE in the kernel) when the heads are not
@@ -119,6 +121,11 @@ class Attention(nn.Module):
     einsum path: fp32 logits and softmax, probabilities cast to the input
     type before P.V. The JAX package also needs ``T % 512 == 0`` for its
     Pallas tiles; K1 and K3 mask keys >= T, so any T takes the kernels here.
+
+    Tensor parallel (``shard_model_``): this rank keeps its heads of q and
+    the matching KV heads of k and v (rows of ``wqkv``) and those heads'
+    columns of ``wo``; the input's gradient and the output are summed over
+    the ``model`` group, and the kernels run on the local heads.
     """
 
     def __init__(self, dim: int, n_head: int, n_local_heads: int | None = None,
@@ -131,6 +138,18 @@ class Attention(nn.Module):
         self.wqkv = Dense(dim, (n_head + 2 * self.n_kv) * self.head_dim, bias=False)
         self.wo = Dense(n_head * self.head_dim, dim, bias=False)
 
+    def tp_splits(self) -> dict:
+        H, Hkv, hd = self.n_head, self.n_kv, self.head_dim
+        return {"wqkv.weight": TPSplit(0, (H * hd, Hkv * hd, Hkv * hd)),
+                "wo.weight": TPSplit(1, (H * hd,))}
+
+    def tp_divides(self, n: int) -> bool:
+        return self.n_head % n == 0 and self.n_kv % n == 0
+
+    def _tp_local(self, n: int) -> None:
+        self.n_head //= n
+        self.n_kv //= n
+
     def forward(self, x: torch.Tensor, freqs: torch.Tensor, lens: Optional[torch.Tensor],
                 rope_full: Optional[tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         """x: (B, T, dim); freqs: (T, head_dim//2, 2) f32 from ``rope_cache``;
@@ -138,6 +157,7 @@ class Attention(nn.Module):
         f32 cos/sin from ``rope_full_cache``, or None."""
         B, T, _ = x.shape
         H, Hkv, hd = self.n_head, self.n_kv, self.head_dim
+        x = copy_to_group(x, self.tp_group)
         q, k, v = self.wqkv(x).split([H * hd, Hkv * hd, Hkv * hd], dim=-1)
         # a trainable call (grad mode on, q/k/v requiring grad) takes the
         # autograd Functions: K1 or K3 forward, K1ᵇ backward
@@ -146,7 +166,7 @@ class Attention(nn.Module):
             q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2).contiguous() for t in (q, k, v))
             fused = dit_attention_fused_diff if train else dit_attention_fused
             out = fused(q, k, v, *rope_full, lens).transpose(1, 2)
-            return self.wo(out.reshape(B, T, H * hd))
+            return reduce_from_group(self.wo(out.reshape(B, T, H * hd)), self.tp_group)
 
         q = apply_rope(q.reshape(B, T, H, hd), freqs)
         k = apply_rope(k.reshape(B, T, Hkv, hd), freqs)
@@ -165,20 +185,35 @@ class Attention(nn.Module):
                                             torch.finfo(torch.float32).min)
             probs = torch.softmax(logits, dim=-1).to(x.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(x.dtype)
-        return self.wo(out.reshape(B, T, H * hd))
+        return reduce_from_group(self.wo(out.reshape(B, T, H * hd)), self.tp_group)
 
 
-class FeedForward(nn.Module):
-    """SwiGLU: w2(silu(w1 x) * w3 x)."""
+class FeedForward(TensorParallel, nn.Module):
+    """SwiGLU: w2(silu(w1 x) * w3 x). Tensor parallel: this rank's hidden
+    features of ``w1`` / ``w3`` (rows) and ``w2`` (columns), the input's
+    gradient and the output summed over the ``model`` group."""
 
     def __init__(self, dim: int, intermediate: int):
         super().__init__()
+        self.intermediate = intermediate
         self.w1 = Dense(dim, intermediate, bias=False)
         self.w3 = Dense(dim, intermediate, bias=False)
         self.w2 = Dense(intermediate, dim, bias=False)
 
+    def tp_splits(self) -> dict:
+        hidden = (self.intermediate,)
+        return {"w1.weight": TPSplit(0, hidden), "w3.weight": TPSplit(0, hidden),
+                "w2.weight": TPSplit(1, hidden)}
+
+    def tp_divides(self, n: int) -> bool:
+        return self.intermediate % n == 0
+
+    def _tp_local(self, n: int) -> None:
+        self.intermediate //= n
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+        x = copy_to_group(x, self.tp_group)
+        return reduce_from_group(self.w2(F.silu(self.w1(x)) * self.w3(x)), self.tp_group)
 
 
 def ffn_intermediate_size(dim: int) -> int:

@@ -37,7 +37,7 @@ from seedvc_tpu_torch.dsp.resample import resample_host
 from seedvc_tpu_torch.dsp.whisper_mel import whisper_log_mel
 from seedvc_tpu_torch.models.bigvgan import BIGVGAN_22K_80, BIGVGAN_44K_128, BigVGAN
 from seedvc_tpu_torch.models.campplus import CAMPPlus
-from seedvc_tpu_torch.models.cfm import euler_solve
+from seedvc_tpu_torch.models.cfm import SEQ_SHARD, euler_solve
 from seedvc_tpu_torch.models.hifigan import HiFTConfig, HiFTGenerator
 from seedvc_tpu_torch.models.rmvpe import RMVPE, RMVPE_E2E
 from seedvc_tpu_torch.models.ssl import XLSR_300M_L12, SSLEncoder
@@ -118,6 +118,13 @@ class VoiceConverter:
     ``torch.backends.cuda.matmul.allow_tf32``), because the vocoder is
     specified at full f32 precision. Parameters are random (from ``seed``)
     unless flax trees are given through the ``*_params`` arguments.
+
+    ``cfg_shard_axis``: inside a ``parallel.mesh.set_mesh`` block, split the
+    sampler's CFG stack over that mesh axis (each rank runs the DiT on its
+    rows; with two ranks, the conditional and the null branch); every rank
+    runs the encoders and the vocoder whole and returns the whole wave.
+    ``seq_shard_axis`` (time split over a mesh axis) is not ported (ROADMAP
+    queue 1 item 3c(ii)) and raises.
     """
 
     def __init__(self, cfg: Optional[SeedVCConfig] = None, *,
@@ -134,9 +141,9 @@ class VoiceConverter:
                                "to run on the CPU")
         self.cfg = cfg or get_preset("whisper_small_wavenet")
         mp = self.cfg.model_params
-        if cfg_shard_axis is not None or seq_shard_axis is not None:
-            raise NotImplementedError("sharded sampling is not ported: "
-                                      "ROADMAP queue 1 item 3c")
+        if seq_shard_axis is not None:
+            raise NotImplementedError(SEQ_SHARD)
+        self.cfg_shard_axis = cfg_shard_axis
         self.tokenizer_type = mp.speech_tokenizer.type
         self.vocoder_type = mp.vocoder.type
         if self.tokenizer_type not in ("whisper", "xlsr", "cnhubert"):
@@ -356,7 +363,8 @@ class VoiceConverter:
         pm[:, : prompt_mel.shape[1]] = prompt_mel.to(cd)
         mel_out = euler_solve(self.vc.estimate, noise.to(cd), cond_cat, total_len, pm,
                               prompt_len, style.to(cd), n_timesteps=n_steps,
-                              cfg_rate=cfg_rate, precompute_fn=self.vc.precompute_cond)
+                              cfg_rate=cfg_rate, precompute_fn=self.vc.precompute_cond,
+                              shard_axis=self.cfg_shard_axis)
         gen = mel_out[:, prompt_len: prompt_len + W].float()
         return self.vocode(gen, draws).half()
 

@@ -23,7 +23,15 @@ frozen group (``frozen``) that takes no update, no weight decay and holds no
 moments, as ``optax.set_to_zero`` does.
 
 A parameter without a gradient (an unused branch) is updated as if its
-gradient were zero, as optax updates every leaf of the tree. The state holds
+gradient were zero, as optax updates every leaf of the tree.
+
+On a mesh (``layout``, a :class:`~seedvc_tpu_torch.parallel.sharding.Layout`)
+each rank holds its piece of a split parameter, gradient and moments (a
+``DTensor`` under FSDP, whose local shard is updated in place). The norms are
+still those of the full tensors, as optax's ``global_norm`` sees global
+arrays: each rank's sum of squares of the pieces split over an axis is
+summed over that axis's group, and a piece replicated over an axis counts
+once. The state holds
 fp32 moments on the parameters' device and the count and scale as Python
 numbers, so an update reads nothing back from the device. The schedules are
 computed in float32, as jnp computes them.
@@ -36,6 +44,9 @@ from typing import Callable, Union
 
 import numpy as np
 import torch
+
+from seedvc_tpu_torch.parallel.collectives import all_reduce_sum
+from seedvc_tpu_torch.parallel.sharding import WHOLE, Layout
 
 Schedule = Callable[[int], float]
 LR = Union[float, Schedule]
@@ -116,34 +127,42 @@ class Optimizer:
     def init(self, params: dict) -> OptState:
         names = self._groups(params)
         groups = {g: GroupState(0, [] if g in self.frozen else
-                                [torch.zeros_like(params[n], dtype=torch.float32) for n in ns],
+                                [torch.zeros_like(local(params[n]), dtype=torch.float32)
+                                 for n in ns],
                                 [] if g in self.frozen else
-                                [torch.zeros_like(params[n], dtype=torch.float32) for n in ns])
+                                [torch.zeros_like(local(params[n]), dtype=torch.float32)
+                                 for n in ns])
                   for g, ns in names.items()}
         return OptState(groups, 1.0, names)
 
-    def _clip_factor(self, gs: list) -> torch.Tensor:
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+    def _clip_factor(self, gs: list, names: list, layout: Layout) -> torch.Tensor:
+        norm = global_norm(gs, layout, names)
         return torch.where(norm < self.grad_clip, torch.ones_like(norm), self.grad_clip / norm)
 
     @torch.no_grad()
-    def update(self, grads: dict, state: OptState, params: dict) -> tuple[dict, OptState]:
+    def update(self, grads: dict, state: OptState, params: dict,
+               layout: Layout = WHOLE) -> tuple[dict, OptState]:
+        """``layout``: where each parameter lives on a mesh (by default every
+        tensor whole, one process)."""
         updates, new_groups = {}, {}
         group_grads = {
-            g: [(grads.get(n) if grads.get(n) is not None else torch.zeros_like(params[n])).float()
+            g: [local(grads.get(n) if grads.get(n) is not None
+                      else torch.zeros_like(local(params[n]))).float()
                 for n in names] for g, names in state.names.items()}
         # clip by the global norm (of the group, or of every group), taken
         # before anything else; a frozen group's gradients count in the latter
         every = [t for gs in group_grads.values() for t in gs]
-        factor = self._clip_factor(every) if self.global_clip and every else None
+        factor = (self._clip_factor(every, [n for ns in state.names.values() for n in ns], layout)
+                  if self.global_clip and every else None)
         for g, names in state.names.items():
             st = state.groups[g]
             if not names or g in self.frozen:
                 new_groups[g] = st
                 continue
-            ps = [params[n] for n in names]
+            ps = [local(params[n]) for n in names]
             gs = group_grads[g]
-            gs = torch._foreach_mul(gs, factor if factor is not None else self._clip_factor(gs))
+            gs = torch._foreach_mul(gs, factor if factor is not None
+                                    else self._clip_factor(gs, names, layout))
             mu = torch._foreach_mul(st.mu, self.b1)
             torch._foreach_add_(mu, gs, alpha=1 - self.b1)
             nu = torch._foreach_mul(st.nu, self.b2)
@@ -163,12 +182,18 @@ class Optimizer:
         return updates, OptState(new_groups, state.lr_scale, state.names)
 
 
+def local(t):
+    """This rank's piece of ``t``: a DTensor's local shard (a view: writing
+    it writes the parameter), any other tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def apply_updates(params: dict, updates: dict) -> None:
     """``params += updates`` in place (optax's ``apply_updates``)."""
     with torch.no_grad():
         names = list(updates)
-        torch._foreach_add_([params[n] for n in names],
-                            [updates[n].to(params[n].dtype) for n in names])
+        ps = [local(params[n]) for n in names]
+        torch._foreach_add_(ps, [updates[n].to(p.dtype) for n, p in zip(names, ps)])
 
 
 def make_optimizer(lr: LR = 1e-4, *, grad_clip: float = 10.0, weight_decay: float = 0.01,
@@ -213,10 +238,22 @@ def set_lr_scale(state: OptState, value: float) -> OptState:
     return OptState(state.groups, float(value), state.names)
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient (None counts as zero)."""
-    gs = [g.float() for g in grads if g is not None]
-    if not gs:
+def global_norm(grads, layout: Layout = WHOLE, names=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient (None counts as zero):
+    the norm of the full tensors that the ranks' pieces make up, where
+    ``layout`` (with the gradients' parameter ``names``, in order) says how
+    each is cut; by default every gradient is whole."""
+    grads = list(grads)
+    names = [None] * len(grads) if names is None else names
+    by_axes: dict = {}
+    for n, g in zip(names, grads):
+        if g is not None:
+            by_axes.setdefault(layout.axes(n), []).append(local(g).float())
+    norms = []
+    for axes in sorted(by_axes):
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(by_axes[axes])))
+        group = layout.group(axes)
+        norms.append(norm if group is None else all_reduce_sum(norm ** 2, group).sqrt())
+    if not norms:
         return torch.zeros(())
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
-
+    return torch.linalg.vector_norm(torch.stack(norms))

@@ -27,8 +27,20 @@
   ``VoiceConverter(vc_params=...)`` and the JAX package load.
 
 Device: ``cuda`` unless the caller passes ``device="cpu"``; without a card the
-constructor raises. Multi-GPU training (``n_model > 1``, ``fsdp``) is not
-ported (ROADMAP queue 1 item 3c).
+constructor raises.
+
+Several GPUs: one process a GPU in a process group
+(``parallel.distributed.initialize``, e.g. under ``torchrun``), laid out as
+a (data, model) mesh with ``n_data = world_size // n_model``, as the JAX
+trainer lays its devices. The state goes through ``shard_state`` (tensor
+parallel over ``model``, FSDP over ``data`` with ``fsdp`` for parameters of
+the constructor's ``fsdp_min_elems``, JAX's 65536, or more) and the steps
+through ``make_sharded_train_step`` on every mesh, 1 x 1 included. Each rank
+prepares only its rows of the batch (the frozen encoders and the
+perturbation on them; the buckets, the warp rate and the draws from the
+whole batch, so every mesh sees what one process sees); ``save`` writes full
+tensors from the coordinator, ``restore_latest`` cuts them for any mesh,
+and ``validate`` returns the global mean.
 """
 
 from __future__ import annotations
@@ -56,12 +68,16 @@ from seedvc_tpu_torch.models.campplus import CAMPPlus
 from seedvc_tpu_torch.models.vc import VCModel
 from seedvc_tpu_torch.models.whisper import WHISPER_SMALL, WhisperEncoder, WhisperEncoderConfig
 from seedvc_tpu_torch.ops import attention
+from seedvc_tpu_torch.parallel import collectives
+from seedvc_tpu_torch.parallel.distributed import is_coordinator, world_size
+from seedvc_tpu_torch.parallel.mesh import AXES, Mesh, data_rows, make_mesh
 from seedvc_tpu_torch.train.dataset import Batch, FTDataset
-from seedvc_tpu_torch.train.optim import (OptState, get_lr_scale, make_multi_optimizer,
+from seedvc_tpu_torch.train.optim import (OptState, get_lr_scale, local, make_multi_optimizer,
                                           make_optimizer, set_lr_scale, warmup_cosine)
 from seedvc_tpu_torch.train.prefetch import prefetched
-from seedvc_tpu_torch.train.step import (MULTI_GPU, TrainState, init_state, make_eval_step,
-                                         make_train_step)
+from seedvc_tpu_torch.train.step import (TrainState, full_opt_state, gather_full, init_state,
+                                         make_sharded_eval_step, make_sharded_train_step,
+                                         shard_state)
 from seedvc_tpu_torch.weights import load_jax_params, to_jax_params
 
 CKPT_KEEP = 2
@@ -92,7 +108,8 @@ class TrainerConfig:
     # else float32 (features leave it in f32 either way)
     encoder_dtype: Optional[str] = None
     feat_cache_bytes: int = 2 << 30  # per-clip feature cache on the device; 0 = off
-    fsdp: bool = False            # not ported (ROADMAP queue 1 item 3c): must stay False
+    # scatter params / AdamW moments / EMA over the data axis (FSDP2, ZeRO-3)
+    fsdp: bool = False
     perturb_min: float = 0.85
     perturb_max: float = 1.15
     prefetch: int = 2             # batches prepared ahead on a worker thread; 0 = off
@@ -159,17 +176,73 @@ def opt_state_tree(opt: OptState) -> dict:
                            "nu": [t.cpu() for t in gs.nu]} for g, gs in opt.groups.items()}}
 
 
-def load_opt_state(opt: OptState, saved: dict) -> OptState:
-    """Copy a saved optimizer state into ``opt``'s tensors in place; returns it
-    with the saved ``lr_scale``."""
+def load_opt_state(opt: OptState, saved: dict, layout) -> OptState:
+    """Copy a saved optimizer state (full tensors) into ``opt``'s tensors in
+    place, each cut to this rank's piece by ``layout``; returns it with the
+    saved ``lr_scale``."""
     if saved["names"] != opt.names:
         raise ValueError("checkpoint optimizer groups do not match this trainer's")
     for g, gs in opt.groups.items():
         src = saved["groups"][g]
         gs.count = int(src["count"])
-        for dst, t in zip(gs.mu + gs.nu, src["mu"] + src["nu"]):
-            dst.copy_(t)
+        names = opt.names[g] * 2
+        for name, dst, t in zip(names, gs.mu + gs.nu, src["mu"] + src["nu"]):
+            dst.copy_(layout.scatter(name, t))
     return set_lr_scale(opt, float(saved["lr_scale"]))
+
+
+def data_mesh(n_model: int, batch_size: int, device: torch.device) -> Mesh:
+    """The trainers' (data, model) mesh over the process group's ranks:
+    ``n_data = world_size // n_model``, which must divide ``batch_size``."""
+    n_devices = world_size()
+    if n_model < 1 or n_devices % n_model:
+        raise ValueError(f"n_model {n_model} does not divide the {n_devices} ranks")
+    n_data = n_devices // n_model
+    if batch_size % n_data != 0:
+        raise ValueError(
+            f"batch_size {batch_size} must be divisible by the data "
+            f"axis size {n_data} (= {n_devices} devices / n_model {n_model})")
+    return make_mesh(n_data=n_data, n_model=n_model, device_type=device.type)
+
+
+def agree(flag: bool, mesh: Mesh) -> bool:
+    """The coordinator's ``flag`` on every rank of ``mesh``."""
+    group = mesh.all_group()
+    if group is None:
+        return flag
+    import torch.distributed as dist
+
+    t = torch.tensor([float(flag)], device=mesh.device_mesh.device_type)
+    dist.broadcast(t, src=mesh.first_rank, group=group)
+    return bool(t.item())
+
+
+def save_state(run_dir: str, step: int, state):
+    """Checkpoint ``state`` (params, optimizer, step, EMA when kept) as full
+    tensors from the coordinator; every rank takes part in the gathers."""
+    layout = state.layout
+    params = gather_full(layout, state.params)
+    opt = full_opt_state(state.opt_state, layout)
+    ema = getattr(state, "ema_params", None)
+    if ema is not None:
+        ema = gather_full(layout, ema)
+    if not is_coordinator():
+        return
+    tree = {"params": {n: p.detach().cpu() for n, p in params.items()},
+            "opt_state": opt_state_tree(opt), "step": state.step}
+    if ema is not None:
+        tree["ema_params"] = {n: t.cpu() for n, t in ema.items()}
+    write_checkpoint(run_dir, step, tree)
+
+
+def load_state(tree: dict, state):
+    """Copy a checkpoint's full tensors into ``state``'s pieces in place;
+    returns (opt_state, step)."""
+    layout = state.layout
+    with torch.no_grad():
+        for n, p in state.params.items():
+            local(p).copy_(layout.scatter(n, tree["params"][n]))
+    return load_opt_state(state.opt_state, tree["opt_state"], layout), int(tree["step"])
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -184,10 +257,7 @@ class Trainer:
                  whisper_params=None, campplus_params=None, vc_params=None,
                  openvoice_params=None, se_db: Optional[np.ndarray] = None,
                  teacher_params=None, rmvpe_params=None, n_model: int = 1,
-                 device=None, draws_fn=None):
-        if n_model != 1 or tcfg.fsdp:
-            raise NotImplementedError(f"Trainer(n_model={n_model}, fsdp={tcfg.fsdp}): "
-                                      f"{MULTI_GPU}")
+                 device=None, draws_fn=None, fsdp_min_elems: int = 65536):
         if tcfg.optimizer_kind not in ("single", "multi"):
             raise ValueError(f"unknown optimizer_kind {tcfg.optimizer_kind!r}")
         self.device = torch.device("cuda" if device is None else device)
@@ -197,6 +267,9 @@ class Trainer:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg, self.tcfg = cfg, tcfg
+        self.mesh = data_mesh(n_model, tcfg.batch_size, self.device)
+        # the prep's own group: it runs on the prefetch thread beside the step
+        self._prep_group = self.mesh.fresh_group(AXES.data)
         sp = cfg.preprocess_params.spect_params
         self.sr = cfg.preprocess_params.sr
         self.hop = sp.hop_length
@@ -248,14 +321,15 @@ class Trainer:
         schedule = warmup_cosine(tcfg.base_lr, tcfg.warmup_steps, tcfg.max_steps)
         make = make_multi_optimizer if tcfg.optimizer_kind == "multi" else make_optimizer
         self.optimizer = make(schedule, grad_clip=tcfg.grad_clip)
-        self.state: TrainState = init_state(self.model, self.optimizer,
-                                            ema=tcfg.weight_ema_decay > 0)
-        self.step_fn = make_train_step(
-            self.model, self.optimizer, teacher_params=teacher_params,
+        self.state: TrainState = shard_state(
+            init_state(self.model, self.optimizer, ema=tcfg.weight_ema_decay > 0), self.mesh,
+            fsdp=tcfg.fsdp, fsdp_min_elems=fsdp_min_elems, model=self.model)
+        self.step_fn = make_sharded_train_step(
+            self.model, self.optimizer, self.mesh, teacher_params=teacher_params,
             weight_ema_decay=tcfg.weight_ema_decay,
             compute_dtype=None if self.compute_dtype == torch.float32 else self.compute_dtype,
             draws_fn=draws_fn)
-        self.eval_fn = make_eval_step(self.model, draws_fn=draws_fn)
+        self.eval_fn = make_sharded_eval_step(self.model, self.mesh, draws_fn=draws_fn)
 
         self._feat_cache: dict = {}  # clip id -> (s_ori row, style row), device tensors
         self._feat_cache_used = 0
@@ -283,23 +357,28 @@ class Trainer:
         return self.whisper(mel).float()
 
     def _perturb_openvoice(self, waves: torch.Tensor, rng: np.random.Generator,
-                           step: int) -> torch.Tensor:
-        """The OpenVoice conversion of the sr-rate batch ``waves`` (B, Tw), cut
-        to whole 256-sample frames, to the target speaker embeddings, resampled
-        to 16 kHz. Draws from ``rng``: the batch shuffle when there is no
-        ``se_db``, then the (B, frames, inter) noise."""
+                           step: int, B: Optional[int] = None,
+                           rows: slice = slice(None)) -> torch.Tensor:
+        """The OpenVoice conversion of the sr-rate batch ``waves`` (this
+        rank's ``rows`` of a ``B``-row batch; default all), cut to whole
+        256-sample frames, to the target speaker embeddings, resampled to
+        16 kHz. Draws from ``rng``, for the whole batch: the batch shuffle
+        when there is no ``se_db``, then the (B, frames, inter) noise."""
         ov = self.openvoice
-        B = waves.shape[0]
+        B = waves.shape[0] if B is None else B
         spec_len = waves.shape[1] // 256
         if self.se_db is not None:
-            se_tgt = self._put(self.se_db[(step * B + np.arange(B)) % len(self.se_db)])
+            se_tgt = self._put(self.se_db[(step * B + np.arange(B)) % len(self.se_db)][rows])
         else:
             perm = torch.from_numpy(rng.permutation(B)).to(self.device)
-            se_tgt = ov.extract_se(openvoice.linear_spectrogram(waves))[perm]
+            se = ov.extract_se(openvoice.linear_spectrogram(waves))
+            # every rank's embeddings, since the shuffle crosses the ranks' rows
+            se = torch.cat(collectives.all_gather_list(se, self._prep_group))
+            se_tgt = se[perm][rows]
         noise = self._put(rng.standard_normal((B, spec_len, ov.cfg.inter_channels))
-                          .astype(np.float32))
+                          .astype(np.float32)[rows])
         spec = openvoice.linear_spectrogram(waves[:, : spec_len * 256])
-        lens = torch.full((B,), spec_len, dtype=torch.int32, device=self.device)
+        lens = torch.full((spec.shape[0],), spec_len, dtype=torch.int32, device=self.device)
         converted = ov.voice_conversion(spec, lens, ov.extract_se(spec), se_tgt, noise, 0.3)
         return resample(converted, self.sr, 16000, self._to16k)
 
@@ -310,18 +389,23 @@ class Trainer:
         draws the perturbation (one ``uniform(perturb_min, perturb_max)`` warp
         rate, or the OpenVoice converter's draws); ``step`` (default: the
         state's) picks the ``se_db`` rows; ``cache=False`` bypasses the per-clip
-        feature cache (validation: its clip ids index another dataset)."""
+        feature cache (validation: its clip ids index another dataset).
+
+        On a mesh with ``data`` wider than 1 the features are this rank's rows
+        of the batch; the sizes, the warp rate and the draws are the whole
+        batch's."""
         tb = self.tcfg
         if step is None:
             step = self.state.step
         B = batch.waves.shape[0]
+        rows = data_rows(self.mesh, B)
         mel_lens = (batch.wave_lengths // self.hop).astype(np.int32)
         bucket = -(-int(mel_lens.max()) // tb.mel_bucket) * tb.mel_bucket
         waves = np.zeros((B, bucket * self.hop), np.float32)
         n = min(waves.shape[1], batch.waves.shape[1])
         waves[:, :n] = batch.waves[:, :n]
-        waves_d = self._put(waves)
-        mel_lens_d = self._put(mel_lens)
+        waves_d = self._put(waves[rows])
+        mel_lens_d = self._put(mel_lens[rows])
         mels = padded_mel(self.mel_fn, waves_d, mel_lens_d)
 
         # one 1 s-bucketed 16 kHz batch for every consumer
@@ -331,19 +415,20 @@ class Trainer:
         w16b[:, :nb] = batch.waves_16k[:, :nb]
         eff_16k = np.minimum(batch.wave_16k_lengths, w16_T)
         frame_lens = np.maximum((eff_16k - 400) // 160 + 1, 1).astype(np.int32)
-        w16 = self._put(w16b)
+        w16 = self._put(w16b[rows])
         if self.openvoice is None:
             # the warp takes 1/rate: out[i] = wave[i * r] compresses by r
             alt = warp_rate(w16, np.float32(1.0 / rng.uniform(tb.perturb_min, tb.perturb_max)))
         else:
             # the converted wave at its own length; Whisper zero-pads it to 30 s
-            alt = self._perturb_openvoice(waves_d, rng, step)[:, :WHISPER_CHUNK]
+            alt = self._perturb_openvoice(waves_d, rng, step, B, rows)[:, :WHISPER_CHUNK]
+        Bl = w16.shape[0]
 
-        ids = batch.ids if (cache and tb.feat_cache_bytes > 0) else None
+        ids = batch.ids[rows] if (cache and tb.feat_cache_bytes > 0) else None
         if ids is not None and all(int(i) in self._feat_cache for i in ids):
-            rows = [self._feat_cache[int(i)] for i in ids]
-            s_ori = torch.stack([r[0] for r in rows])
-            style = torch.stack([r[1] for r in rows])
+            cached = [self._feat_cache[int(i)] for i in ids]
+            s_ori = torch.stack([c[0] for c in cached])
+            style = torch.stack([c[1] for c in cached])
             s_alt = self._whisper(alt)
         else:
             # one encoder call for both; zero-padding them to one length leaves
@@ -351,8 +436,8 @@ class Trainer:
             T = max(w16.shape[1], alt.shape[1])
             s = self._whisper(torch.cat([F.pad(w16, (0, T - w16.shape[1])),
                                          F.pad(alt, (0, T - alt.shape[1]))]))
-            s_ori, s_alt = s[:B], s[B:]
-            style = batch_style(self.campplus, w16, self._put(frame_lens))
+            s_ori, s_alt = s[:Bl], s[Bl:]
+            style = batch_style(self.campplus, w16, self._put(frame_lens[rows]))
             if ids is not None:
                 for b, i in enumerate(ids):
                     i = int(i)
@@ -373,7 +458,7 @@ class Trainer:
                  "s_lens": self._put(np.asarray(min(s_true, s_bucket), np.int32)),
                  "mels": mels, "mel_lens": mel_lens_d, "style": style}
         if self.f0_condition:
-            f0 = self.rmvpe.infer_from_audio_batch(w16b)  # (B, T16 // 160 + 1)
+            f0 = self.rmvpe.infer_from_audio_batch(w16b[rows])  # (B, T16 // 160 + 1)
             feats["f0"] = self._put(f0.astype(np.float32))
             feats["f0_lens"] = self._put(np.asarray(min(max16 // 160 + 1, f0.shape[1]),
                                                     np.int32))
@@ -399,37 +484,30 @@ class Trainer:
 
     def save(self, step: int):
         """Checkpoint the params, optimizer state, step and EMA at ``step``
-        (``run_dir/ckpt_<step>.pt``); once a step, newest two kept."""
-        if not self.tcfg.run_dir or self.latest_step() == step:
+        (``run_dir/ckpt_<step>.pt``) as full tensors; once a step, newest two
+        kept. On a mesh every rank calls it and the coordinator writes."""
+        if not self.tcfg.run_dir or agree(self.latest_step() == step, self.mesh):
             return
-        st = self.state
-        tree = {"params": {n: p.detach().cpu() for n, p in st.params.items()},
-                "opt_state": opt_state_tree(st.opt_state), "step": st.step}
-        if st.ema_params is not None:
-            tree["ema_params"] = {n: t.cpu() for n, t in st.ema_params.items()}
-        write_checkpoint(self.tcfg.run_dir, step, tree)
+        save_state(self.tcfg.run_dir, step, self.state)
 
     def restore_latest(self) -> bool:
-        """Load the newest checkpoint of ``run_dir`` into the trainer; False if
-        there is none. A checkpoint without EMA restored into a run with EMA
-        seeds the EMA from its params."""
+        """Load the newest checkpoint of ``run_dir`` into the trainer (cut to
+        this rank's pieces); False if there is none. A checkpoint without EMA
+        restored into a run with EMA seeds the EMA from its params."""
         latest = self.latest_step()
         if latest is None:
             return False
         tree = torch.load(checkpoint_paths(self.tcfg.run_dir)[latest], map_location=self.device,
                           weights_only=True)
         st = self.state
-        with torch.no_grad():
-            for n, p in st.params.items():
-                p.copy_(tree["params"][n])
-        opt = load_opt_state(st.opt_state, tree["opt_state"])
+        opt, step = load_state(tree, st)
         ema = st.ema_params
         if ema is not None:
             src = tree.get("ema_params") or tree["params"]
             with torch.no_grad():
                 for n, t in ema.items():
-                    t.copy_(src[n])
-        self.state = TrainState(st.params, opt, int(tree["step"]), ema)
+                    t.copy_(st.layout.scatter(n, src[n]))
+        self.state = TrainState(st.params, opt, step, ema, st.layout)
         return True
 
     def export_serving(self, out_dir: Optional[str] = None, use_ema: bool = True) -> str:
@@ -438,12 +516,14 @@ class Trainer:
         ``VoiceConverter(vc_params=...)``, ``apps.infer --checkpoint-dir`` and
         the JAX package load."""
         out_dir = out_dir or os.path.join(self.tcfg.run_dir, "ft_model")
-        os.makedirs(out_dir, exist_ok=True)
-        ema = self.state.ema_params
-        tree = to_jax_params(self.model, ema if use_ema and ema is not None else None)
+        st = self.state
+        values = st.ema_params if use_ema and st.ema_params is not None else st.params
+        tree = to_jax_params(self.model, gather_full(st.layout, values))
         path = os.path.join(out_dir, "vc.pkl")
-        with open(path, "wb") as f:
-            pickle.dump(tree, f)
+        if is_coordinator():  # every rank gathered; one writes
+            os.makedirs(out_dir, exist_ok=True)
+            with open(path, "wb") as f:
+                pickle.dump(tree, f)
         return path
 
     # ------------------------------------------------------------------
@@ -457,7 +537,8 @@ class Trainer:
             if i >= tb.val_batches:
                 break
             feats = self.prepare_batch(batch, rng, cache=False, step=self.state.step)
-            losses.append(float(self.eval_fn(self.state.params, feats, (tb.seed + i,))))
+            losses.append(float(self.eval_fn(self.state.params, feats, (tb.seed + i,),
+                                             local_rows=True)))
         return float(np.mean(losses)) if losses else float("nan")
 
     def train(self, dataset: Optional[FTDataset] = None,
@@ -485,7 +566,8 @@ class Trainer:
                                             depth=tb.prefetch):
                 before = (attention.LAUNCHES, attention.BWD_LAUNCHES,
                           attention.DIT_ATTENTION_LAUNCHES)
-                self.state, metrics = self.step_fn(self.state, feats, (tb.seed, step))
+                self.state, metrics = self.step_fn(self.state, feats, (tb.seed, step),
+                                                   local_rows=True)
                 step += 1
                 after = (attention.LAUNCHES, attention.BWD_LAUNCHES,
                          attention.DIT_ATTENTION_LAUNCHES)

@@ -33,8 +33,16 @@ there (the JAX trainer gathers past them).
 
 Device: ``cuda`` unless the caller passes ``device="cpu"``; without a card the
 constructor raises. On cuda TF32 is turned off (cuDNN and matmuls): the step
-is specified in f32. Multi-GPU training (``n_model > 1``, ``fsdp``) is not
-ported (ROADMAP queue 1 item 3c).
+is specified in f32.
+
+Several GPUs, as the v1 trainer (``train/trainer.py``): a (data, model) mesh
+over the process group with ``n_data = world_size // n_model``; the DiT's and
+the AR's attention and the DiT's FFN split over ``model``, FSDP2 over
+``data`` with ``fsdp`` (the constructor's ``fsdp_min_elems``); each rank prepares and steps on its rows of the
+batch, with the whole batch's sizes and draws (the whole-batch prompt and
+content drops are one draw on every rank). The CFM loss is the mean over
+ranks of the ranks' means, the AR loss the mean over every rank's valid
+labels, so a step on any mesh is the one-process step on the same batch.
 """
 
 from __future__ import annotations
@@ -60,15 +68,18 @@ from seedvc_tpu_torch.models.regulator import InterpolateRegulator
 from seedvc_tpu_torch.models.ssl import SSLEncoder
 from seedvc_tpu_torch.nn.bsq import duration_reduction
 from seedvc_tpu_torch.ops import attention
+from seedvc_tpu_torch.parallel.collectives import all_reduce_max, pmean
+from seedvc_tpu_torch.parallel.mesh import AXES, data_rows, set_mesh
+from seedvc_tpu_torch.parallel.sharding import WHOLE, Layout
 from seedvc_tpu_torch.pipelines.convert_v2 import V2Config
 from seedvc_tpu_torch.train.dataset import Batch
 from seedvc_tpu_torch.train.optim import (OptState, apply_updates, global_norm,
                                           make_v2_optimizer, warmup_cosine)
 from seedvc_tpu_torch.train.prefetch import prefetched
-from seedvc_tpu_torch.train.step import MULTI_GPU, step_seed
-from seedvc_tpu_torch.train.trainer import (batch_style, checkpoint_paths, latest_checkpoint,
-                                            load_opt_state, opt_state_tree, padded_mel,
-                                            to_device, write_checkpoint)
+from seedvc_tpu_torch.train.step import average_gradients, draw_rows, shard_model, step_seed
+from seedvc_tpu_torch.train.trainer import (agree, batch_style, checkpoint_paths, data_mesh,
+                                            latest_checkpoint, load_state, padded_mel,
+                                            save_state, to_device)
 from seedvc_tpu_torch.weights import load_jax_params
 
 SSL_BUCKET = 5 * 16000  # 16 kHz samples
@@ -96,17 +107,19 @@ class TrainerV2Config:
     validation_interval: int = 0  # steps between validate() (0 = off)
     val_batches: int = 4          # batches averaged per validation
     early_stop_patience: int = 10  # validations without improvement -> stop
-    fsdp: bool = False            # not ported (ROADMAP queue 1 item 3c): must stay False
+    fsdp: bool = False            # scatter params / AdamW moments over the data axis
     prefetch: int = 2             # batches prepared ahead on a worker thread; 0 = off
 
 
 class V2TrainState(NamedTuple):
     """``params``: name -> the trainable modules' own parameters (updated in
-    place); ``opt_state``; ``step`` (Python int)."""
+    place); ``opt_state``; ``step`` (Python int); ``layout``: where each
+    lives on the mesh (by default every tensor whole, one process)."""
 
     params: dict
     opt_state: OptState
     step: int
+    layout: Layout = WHOLE
 
 
 class TrainDrawsV2(NamedTuple):
@@ -170,10 +183,7 @@ class TrainerV2:
     def __init__(self, vcfg: V2Config, tcfg: TrainerV2Config, *,
                  frozen_params: Optional[dict] = None, n_model: int = 1,
                  teacher_params: Optional[dict] = None, device=None,
-                 draws_fn: Optional[DrawsFn] = None):
-        if n_model != 1 or tcfg.fsdp:
-            raise NotImplementedError(f"TrainerV2(n_model={n_model}, fsdp={tcfg.fsdp}): "
-                                      f"{MULTI_GPU}")
+                 draws_fn: Optional[DrawsFn] = None, fsdp_min_elems: int = 65536):
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("TrainerV2: no CUDA device; pass device='cpu' to train on the CPU")
@@ -181,6 +191,9 @@ class TrainerV2:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self.vcfg, self.tcfg = vcfg, tcfg
+        self.mesh = data_mesh(n_model, tcfg.batch_size, self.device)
+        self._n_data = self.mesh.size(AXES.data)
+        self._prep_group = self.mesh.fresh_group(AXES.data)  # the prefetch thread's
         self.mel_fn = MelFrontend(vcfg.sr, SpectConfig(n_mels=vcfg.n_mels))
         frozen_params = frozen_params or {}
         with torch.random.fork_rng(devices=[]):
@@ -204,8 +217,9 @@ class TrainerV2:
         schedule = warmup_cosine(tcfg.base_lr, tcfg.warmup_steps, tcfg.max_steps)
         self.optimizer = make_v2_optimizer(schedule, train_cfm=tcfg.train_cfm,
                                            train_ar=tcfg.train_ar, grad_clip=tcfg.grad_clip)
+        layout = shard_model(self.model, self.mesh, tcfg.fsdp, fsdp_min_elems)
         params = dict(self.model.named_parameters())
-        self.state = V2TrainState(params, self.optimizer.init(params), 0)
+        self.state = V2TrainState(params, self.optimizer.init(params), 0, layout)
         self.best_val_loss = float("inf")
         self.patience_counter = 0
         # one record a step: step, mel frames T, host seconds of its prepare,
@@ -220,27 +234,29 @@ class TrainerV2:
     @torch.no_grad()
     def prepare_batch(self, batch: Batch) -> tuple[dict, dict]:
         """The step's inputs on the device, and its static sizes ``mel_T``,
-        ``ar_C``, ``ar_X``, ``tok_T``."""
+        ``ar_C``, ``ar_X``, ``tok_T``: on a mesh with ``data`` wider than 1,
+        this rank's rows of the batch, at the whole batch's sizes."""
         tc, vc = self.tcfg, self.vcfg
         B = batch.waves.shape[0]
+        rows = data_rows(self.mesh, B)
         mel_lens = (batch.wave_lengths // vc.hop).astype(np.int32)
         mel_T = _bucket(int(mel_lens.max()), tc.mel_bucket)
         waves = np.zeros((B, mel_T * vc.hop), np.float32)
         n = min(waves.shape[1], batch.waves.shape[1])
         waves[:, :n] = batch.waves[:, :n]
-        mel_lens_d = self._put(mel_lens)
-        mels = padded_mel(self.mel_fn, self._put(waves), mel_lens_d)
+        mel_lens_d = self._put(mel_lens[rows])
+        mels = padded_mel(self.mel_fn, self._put(waves[rows]), mel_lens_d)
 
         # content tokens from one SSL pass over the 5 s-bucketed batch
         w16_T = _bucket(batch.waves_16k.shape[1], SSL_BUCKET)
         w16 = np.zeros((B, w16_T), np.float32)
         w16[:, :batch.waves_16k.shape[1]] = batch.waves_16k
-        w16_d = self._put(w16)
+        w16_d = self._put(w16[rows])
         token_lens = (batch.wave_16k_lengths // TOKEN_HOP).astype(np.int32)
         tok_T = _bucket(int(token_lens.max()), tc.token_bucket)
         out_T = min(tok_T, w16_T // TOKEN_HOP)
         ssl_feats = self.ssl(w16_d)
-        token_lens_d = self._put(token_lens)
+        token_lens_d = self._put(token_lens[rows])
         idx_n = self.narrow(ssl_feats)[1][:, :out_T].cpu().numpy()
         idx_w = self.wide(ssl_feats)[1]
         pos = torch.arange(idx_w.shape[1], device=idx_w.device)[None, :]
@@ -248,35 +264,49 @@ class TrainerV2:
                             torch.zeros_like(idx_w))[:, :out_T]
 
         # the AR's condition: duration-reduced narrow tokens (host, data dependent)
-        reduced = [duration_reduction(idx_n[b, :token_lens[b]])[0] for b in range(B)]
+        local_lens = token_lens[rows]
+        reduced = [duration_reduction(idx_n[b, :local_lens[b]])[0] for b in range(len(idx_n))]
         ar_cond_lens = np.array([len(r) for r in reduced], np.int32)
-        ar_C = _bucket(max(int(ar_cond_lens.max()), 1), tc.token_bucket)
-        ar_cond_idx = np.zeros((B, ar_C), np.int64)
+        # the longest over the whole batch (every rank's rows)
+        cond_max = int(all_reduce_max(torch.tensor([max(int(ar_cond_lens.max()), 1)],
+                                                   device=self.device), self._prep_group))
+        ar_C = _bucket(cond_max, tc.token_bucket)
+        ar_cond_idx = np.zeros((len(reduced), ar_C), np.int64)
         for b, r in enumerate(reduced):
             ar_cond_idx[b, :len(r)] = r
 
         # style from the true lengths (kaldi frames, snip_edges)
         frame_lens = np.maximum((batch.wave_16k_lengths - 400) // 160 + 1, 1).astype(np.int32)
-        style = batch_style(self.campplus, w16_d, self._put(frame_lens))
+        style = batch_style(self.campplus, w16_d, self._put(frame_lens[rows]))
         feats = {
             "mels": mels, "mel_lens": mel_lens_d, "wide_idx": idx_w, "token_lens": token_lens_d,
             "tok_max": self._put(np.asarray(min(int(token_lens.max()), idx_w.shape[1]),
                                             np.int32)),
             "ar_cond_idx": self._put(ar_cond_idx), "ar_cond_lens": self._put(ar_cond_lens),
-            "ar_cond_max": self._put(np.asarray(max(int(ar_cond_lens.max()), 1), np.int32)),
+            "ar_cond_max": self._put(np.asarray(cond_max, np.int32)),
             "style": style}
         dims = {"mel_T": mel_T, "ar_C": ar_C, "ar_X": int(idx_w.shape[1]), "tok_T": tok_T}
         return feats, dims
 
     # ------------------------------------------------------------------
     def _draws(self, key, feats: dict) -> TrainDrawsV2:
+        """This rank's rows of the whole batch's draws."""
         mels = feats["mels"]
-        d = self.draws_fn(key, tuple(mels.shape), mels.device)
-        return TrainDrawsV2(*(t.to(mels.device) for t in d))
+        B, T, C = mels.shape
+        d = self.draws_fn(key, (B * self._n_data, T, C), mels.device)
+        return draw_rows(TrainDrawsV2(*(t.to(mels.device) for t in d)), self.mesh,
+                         B * self._n_data)
 
     def _losses(self, model: V2Modules, feats: dict, dims: dict, draws: TrainDrawsV2, *,
                 forward_cfm: bool, forward_ar: bool) -> tuple[torch.Tensor, dict]:
-        """The joint loss over the selected branches, and each branch's."""
+        """The joint loss over the selected branches, and each branch's, of
+        the whole batch (each a mean over the ``data`` ranks)."""
+        with set_mesh(self.mesh, AXES.data):
+            return self._losses_local(model, feats, dims, draws, forward_cfm=forward_cfm,
+                                      forward_ar=forward_ar)
+
+    def _losses_local(self, model, feats, dims, draws, *, forward_cfm, forward_ar):
+        g_data = self.mesh.group(AXES.data)
         total = torch.zeros((), dtype=torch.float32, device=feats["mels"].device)
         metrics = {}
         if forward_cfm:
@@ -292,17 +322,17 @@ class TrainerV2:
             def estimate(x, px, lens, t, s, m):
                 return model.dit(x, px, lens, t, s, m, prompt_drop=pdv, content_drop=cdv)
 
-            loss_cfm = cfm_v2_loss(estimate, mels, mel_lens, prompt_lens, cond, feats["style"],
-                                   t=draws.t, noise=draws.noise)
+            loss_cfm = pmean(cfm_v2_loss(estimate, mels, mel_lens, prompt_lens, cond,
+                                         feats["style"], t=draws.t, noise=draws.noise), g_data)
             total = total + loss_cfm
             metrics["loss_cfm"] = loss_cfm
         if forward_ar:
             ar_X = dims["ar_X"]
             cond_emb = model.ar_reg(feats["ar_cond_idx"], feats["ar_cond_lens"], dims["ar_C"],
                                     x_lens=feats["ar_cond_max"])[0]
-            loss_ar = ar_loss(model.ar, cond_emb, feats["ar_cond_lens"],
-                              feats["wide_idx"][:, :ar_X],
-                              torch.clamp(feats["token_lens"], max=ar_X))
+            loss_ar = pmean(ar_loss(model.ar, cond_emb, feats["ar_cond_lens"],
+                                    feats["wide_idx"][:, :ar_X],
+                                    torch.clamp(feats["token_lens"], max=ar_X)), g_data)
             total = total + loss_ar
             metrics["loss_ar"] = loss_ar
         return total, metrics
@@ -330,11 +360,14 @@ class TrainerV2:
                 total = total + distill
             if total.requires_grad:
                 total.backward()
-        grads = {n: p.grad for n, p in st.params.items()}
-        gnorm = global_norm(grads.values()).to(total.device)
-        updates, opt_state = self.optimizer.update(grads, st.opt_state, st.params)
+        layout = st.layout
+        names = list(st.params)
+        grads = {n: st.params[n].grad for n in names}
+        average_gradients(grads, layout)
+        gnorm = global_norm(grads.values(), layout, names).to(total.device)
+        updates, opt_state = self.optimizer.update(grads, st.opt_state, st.params, layout)
         apply_updates(st.params, updates)
-        self.state = V2TrainState(st.params, opt_state, st.step + 1)
+        self.state = V2TrainState(st.params, opt_state, st.step + 1, layout)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(loss=total.detach(), grad_norm=gnorm)
         return metrics
@@ -368,28 +401,24 @@ class TrainerV2:
 
     def save(self, step: int):
         """Checkpoint the trainable modules' params, the optimizer state and the
-        step at ``step`` (``run_dir/ckpt_<step>.pt``); once a step, newest two
-        kept."""
-        if not self.tcfg.run_dir or self.latest_step() == step:
+        step at ``step`` (``run_dir/ckpt_<step>.pt``) as full tensors; once a
+        step, newest two kept; on a mesh the coordinator writes."""
+        if not self.tcfg.run_dir or agree(self.latest_step() == step, self.mesh):
             return
         os.makedirs(self.tcfg.run_dir, exist_ok=True)
-        st = self.state
-        write_checkpoint(self.tcfg.run_dir, step, {
-            "params": {n: p.detach().cpu() for n, p in st.params.items()},
-            "opt_state": opt_state_tree(st.opt_state), "step": st.step})
+        save_state(self.tcfg.run_dir, step, self.state)
 
     def restore_latest(self) -> bool:
+        """Load the newest checkpoint (cut to this rank's pieces); False if
+        there is none."""
         latest = self.latest_step()
         if latest is None:
             return False
         tree = torch.load(checkpoint_paths(self.tcfg.run_dir)[latest], map_location=self.device,
                           weights_only=True)
         st = self.state
-        with torch.no_grad():
-            for n, p in st.params.items():
-                p.copy_(tree["params"][n])
-        self.state = V2TrainState(st.params, load_opt_state(st.opt_state, tree["opt_state"]),
-                                  int(tree["step"]))
+        opt, step = load_state(tree, st)
+        self.state = V2TrainState(st.params, opt, step, st.layout)
         return True
 
     # ------------------------------------------------------------------

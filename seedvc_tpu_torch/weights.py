@@ -112,6 +112,12 @@ _INVERSE_RENAME = {"running_mean": "mean", "running_var": "var"}
 _TRANSPOSED = (nn.ConvTranspose1d, nn.ConvTranspose2d)
 
 
+def _named(mod: nn.Module, *names: str) -> bool:
+    """Whether ``mod``'s class or a base of it has one of ``names`` (a class
+    that FSDP wraps is a subclass of the module's own)."""
+    return any(c.__name__ in names for c in type(mod).__mro__)
+
+
 def _to_flax(mod: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     if isinstance(mod, _TRANSPOSED):
         if name != "weight":
@@ -130,9 +136,9 @@ def _to_flax(mod: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.ndarra
         return "kernel", arr.transpose(np.argsort(perm))
     if isinstance(mod, nn.Embedding):
         return "embedding", arr
-    if isinstance(mod, _NORMS) or type(mod).__name__ in _NAMED_NORMS:
+    if isinstance(mod, _NORMS) or _named(mod, *_NAMED_NORMS):
         return "scale", arr
-    if isinstance(mod, nn.Linear) or type(mod).__name__ == "SplitDense":
+    if isinstance(mod, nn.Linear) or _named(mod, "SplitDense"):
         return "kernel", arr.T
     return name, arr
 
@@ -152,7 +158,7 @@ def to_jax_params(module: nn.Module, values: Mapping | None = None) -> dict:
         *path, leaf = full.split(".")
         mod = module.get_submodule(".".join(path))
         name, arr = _to_flax(mod, leaf, tensor.detach().float().cpu().numpy())
-        if isinstance(mod, _TRANSPOSED) and type(mod).__name__ != "FlaxConvTranspose1d":
+        if isinstance(mod, _TRANSPOSED) and not _named(mod, "FlaxConvTranspose1d"):
             name = f"{path.pop()}_{name}"  # a flat leaf of the parent
         node = tree
         for part in path:

@@ -6,7 +6,7 @@ diversity weight away from 1), ``spherical=False``, and
 and the gradients of ``sum(out * w) + sum(aux)`` with respect to every
 parameter, ``project_in``'s among them (the straight-through estimator
 passes the gradient to it). ``pmean_axis`` (codebook statistics across
-devices) raises, naming ROADMAP queue 1 item 3c.
+devices) is held in tests/test_torch_parallel_collectives.py.
 
 Tolerance (f32): outputs and aux 1e-5 absolute, gradients 1e-5 relative to
 the largest.
@@ -99,10 +99,3 @@ def test_grouped_residual_bsq_matches_jax():
     x2[..., 12:] = 0.0
     idx2 = pm(torch.from_numpy(x2), training=True)[1]
     assert torch.equal(idx[:3], idx2[:3]) and not torch.equal(idx[3], idx2[3])
-
-
-def test_pmean_axis_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 3c"):
-        bsq.BSQ(16, 16, pmean_axis="data")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3c"):
-        bsq.GroupedResidualBSQ(16, 4, 16, pmean_axis="data")

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no JAX, no fallbacks.
 
 - neither ``chip_smoke.py``, ``tools/*.py``, the reference-layout writer
-  ``tests/torch_ref_checkpoints.py`` (which ``chip_smoke.py`` imports) nor any
-  module of ``seedvc_tpu_torch`` imports ``jax``, ``flax`` or ``seedvc_tpu``
-  (AST scan, so lazy imports count too);
+  ``tests/torch_ref_checkpoints.py`` (which ``chip_smoke.py`` imports), the
+  multi-process tests' ranks ``tests/torch_parallel_worker.py`` nor any
+  module of ``seedvc_tpu_torch`` (``parallel/*`` among them) imports ``jax``,
+  ``flax`` or ``seedvc_tpu`` (AST scan, so lazy imports count too);
 - the checkpoint path (``convert/*``, ``core/hub.py``,
   ``apps/convert_checkpoint.py``) imports no ``safetensors`` and
   ``huggingface_hub`` only inside ``hub._download``, and the conversion CLI
@@ -14,9 +15,11 @@
   default converter, ``VoiceConverterV2()``, the AR's ``ARGenerator``, the
   trainers (v1 and v2), the web UI's ``ConverterRegistry()``, the OpenVoice
   baseline, and the infer, infer_v2, realtime, stream_bench, train,
-  train_v2, eval and webui CLIs, given no device,
-  raise when CUDA is absent (``device="cpu"`` / ``--device cpu`` is
-  the only way to the CPU);
+  train_v2, eval and webui CLIs, given no device, and the multi-GPU entry
+  points (``parallel.distributed.initialize`` under a launcher's
+  environment, the trainers and their CLIs with ``n_model`` / ``fsdp``)
+  raise when CUDA is absent (``device="cpu"`` / ``--device cpu`` is the only
+  way to the CPU);
 - the streaming path's SOLA loader never writes into ``native/`` (in
   tests/test_torch_streaming.py);
 - the kernel build raises without ``nvcc``, and the wrappers refuse tensors
@@ -39,13 +42,15 @@ from seedvc_tpu_torch.apps import train as train_app
 from seedvc_tpu_torch.apps import train_v2 as train_v2_app
 from seedvc_tpu_torch.models import ar
 from seedvc_tpu_torch.ops import anti_alias, attention, build
+from seedvc_tpu_torch.parallel import distributed
 from seedvc_tpu_torch.pipelines import convert, convert_v2, streaming, wrapper
 from seedvc_tpu_torch.train import trainer, trainer_v2
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "seedvc_tpu")
 PORT_FILES = (sorted((ROOT / "seedvc_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "tools").rglob("*.py")) + [ROOT / "tests/torch_ref_checkpoints.py"])
+              + sorted((ROOT / "tools").rglob("*.py")) + [ROOT / "tests/torch_ref_checkpoints.py",
+                                                          ROOT / "tests/torch_parallel_worker.py"])
 CHECKPOINT_FILES = (sorted((ROOT / "seedvc_tpu_torch/convert").glob("*.py"))
                     + [ROOT / "seedvc_tpu_torch/core/hub.py",
                        ROOT / "seedvc_tpu_torch/apps/convert_checkpoint.py"])
@@ -67,6 +72,12 @@ def test_port_imports_no_jax(path):
 
 def test_checkpoint_path_is_in_the_scan():
     assert set(CHECKPOINT_FILES) <= set(PORT_FILES) and len(CHECKPOINT_FILES) == 16
+
+
+def test_parallel_package_is_in_the_scan():
+    names = {p.name for p in PORT_FILES if p.parent.name == "parallel"}
+    assert names == {"__init__.py", "collectives.py", "distributed.py", "mesh.py",
+                     "sharding.py"}
 
 
 def _imports_by_function(path: Path):
@@ -150,10 +161,18 @@ def test_voice_converter_needs_cuda_by_default(monkeypatch):
     lambda: webui.main(["--port", "0", "--warm", "10:5"]),
     lambda: eval_app.main(["--source-dir", "s", "--target-dir", "t"]),
     lambda: baselines.OpenVoiceBaseline("openvoice.pkl"),
+    lambda: distributed.initialize("file:///nonexistent/store", 2, 0),
+    lambda: trainer.Trainer(convert.get_preset("whisper_small_wavenet"),
+                            trainer.TrainerConfig(run_dir="", fsdp=True), n_model=2),
+    lambda: train_app.main(["--dataset-dir", "d", "--n-model", "2", "--fsdp"]),
+    lambda: trainer_v2.TrainerV2(convert_v2.V2Config(), trainer_v2.TrainerV2Config(fsdp=True),
+                                 n_model=2),
+    lambda: train_v2_app.main(["--dataset-dir", "d", "--n-model", "2", "--fsdp"]),
 ], ids=["converter_cuda", "wrapper", "wrapper_cuda0", "infer_cli", "streaming", "realtime_cli",
         "stream_bench", "converter_v2", "infer_v2_cli", "ar_generator", "trainer", "train_cli",
         "trainer_v2", "train_v2_cli", "webui_registry", "webui_cli", "eval_cli",
-        "openvoice_baseline"])
+        "openvoice_baseline", "dist_initialize", "trainer_multi_gpu", "train_cli_multi_gpu",
+        "trainer_v2_multi_gpu", "train_v2_cli_multi_gpu"])
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, make):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,10 +1,16 @@
 """The port's stage-timing helpers (seedvc_tpu_torch/core/profiling.py) on
 the CPU: stage accounting, named spans in a ``torch.profiler`` run, and the
-device wait."""
+device wait; and beside the JAX package's ``core/profiling.py``: a disabled
+``StageTimer`` records nothing, ``total()`` is the sum of the stages'
+seconds, and ``trace(logdir)`` writes a trace under ``logdir`` (``None``
+writes nothing)."""
+
+import os
 
 import pytest
 import torch
 
+from seedvc_tpu.core import profiling as jprofiling
 from seedvc_tpu_torch.core import profiling
 
 torch.set_num_threads(1)
@@ -58,3 +64,38 @@ def test_probe_ready_returns_its_argument():
     x = torch.ones(3)
     assert profiling.probe_ready(x) is x
     assert profiling.probe_ready([1]) == [1]
+
+
+def _run_stages(timer):
+    for stage in ("a", "b", "a"):
+        with timer(stage):
+            sum(range(1000))
+    return timer
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_stage_timer_enabled_and_total_as_jax(enabled):
+    port = _run_stages(profiling.StageTimer(enabled=enabled))
+    ref = _run_stages(jprofiling.StageTimer(enabled=enabled))
+    assert port.enabled is ref.enabled is enabled
+    assert ({k: v["calls"] for k, v in port.report().items()}
+            == {k: v["calls"] for k, v in ref.report().items()}
+            == ({"a": 2, "b": 1} if enabled else {}))
+    for timer in (port, ref):
+        assert timer.total() == pytest.approx(sum(timer._acc.values()))
+        assert (timer.total() > 0) is enabled
+
+
+def _files(d):
+    return [os.path.join(r, f) for r, _, fs in os.walk(d) for f in fs]
+
+
+def test_trace_writes_a_trace_as_jax(tmp_path):
+    for mod, sub in ((profiling, "port"), (jprofiling, "jax")):
+        with mod.trace(None):
+            torch.ones(4) @ torch.ones(4)
+        with mod.trace(str(tmp_path / sub)):
+            with mod.annotate("stage"):
+                torch.ones(4) @ torch.ones(4)
+        assert _files(tmp_path / sub), sub
+    assert sorted(os.listdir(tmp_path)) == ["jax", "port"]

@@ -3,8 +3,8 @@
 LR halving, the validation early stop, ``export_serving`` into the port's
 ``VoiceConverter`` (the tree has the JAX init tree's structure and shapes),
 ``to_jax_params`` round trips, ``apps.train --device cpu``, and what raises:
-no card and multi-GPU (ROADMAP queue 1 item 3c); the OpenVoice perturbation,
-which raised until it was ported, now builds."""
+no card (the multi-GPU trainer is held in tests/test_torch_parallel_trainer.py);
+the OpenVoice perturbation, which raised until it was ported, now builds."""
 
 import dataclasses
 import os
@@ -186,10 +186,3 @@ def test_what_raises(wav_dir, monkeypatch):
     assert feats["s_alt"].shape == feats["s_ori"].shape
     assert torch.isfinite(feats["s_alt"]).all()
     assert (feats["s_alt"] - feats["s_ori"]).abs().max() > 1e-3
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        Trainer(CFG, tc, whisper_cfg=WHISPER, n_model=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        Trainer(CFG, dataclasses.replace(tc, fsdp=True), whisper_cfg=WHISPER, device="cpu")
-    for flags in (["--n-model", "2"], ["--fsdp"]):
-        with pytest.raises(NotImplementedError, match="item 3c"):
-            train_app.main(["--dataset-dir", wav_dir, "--device", "cpu", *flags])

@@ -5,10 +5,9 @@ the same for the DiT and its regulator, whose attention then runs no
 time), the loop's validation and patience early stop, checkpoints
 (``save`` / ``restore_latest``, newest two kept, one save a step),
 ``apps.train_v2 --device cpu`` with a resume, ``--checkpoint-dir`` picking
-up the frozen encoders' pickles, and what raises: multi-GPU (ROADMAP queue 1
-item 3c)."""
+up the frozen encoders' pickles, and what raises: no card (the multi-GPU
+trainer is held in tests/test_torch_parallel_trainer.py)."""
 
-import dataclasses
 import os
 import pickle
 
@@ -104,6 +103,29 @@ def test_save_restore_round_trip(wav_dir, tmp_path):
     assert not _trainer(run_dir=str(tmp_path / "empty")).restore_latest()
 
 
+def test_a_state_built_without_a_layout_steps_and_saves(tmp_path):
+    """A caller may build the state itself (as ``chip_smoke.py`` phase 10b
+    does for a fresh optimizer): without a ``layout`` it is ``WHOLE``, every
+    tensor whole on one process, and the step, the checkpoint and the
+    restore take it."""
+    from seedvc_tpu_torch.parallel.sharding import WHOLE
+    from seedvc_tpu_torch.train.trainer_v2 import V2TrainState
+
+    tr = _trainer(run_dir=str(tmp_path / "run"))
+    params = tr.state.params
+    tr.state = V2TrainState(params, tr.optimizer.init(params), 0)
+    assert tr.state.layout is WHOLE and WHOLE.mesh.size_total == 1 and not WHOLE.entries
+    feats, dims = tr.prepare_batch(v2_batch())
+    assert np.isfinite(float(tr._device_step(feats, dims, (0, 0))["loss"]))
+    assert tr.state.layout is WHOLE
+    tr.save(1)
+    tr2 = _trainer(run_dir=str(tmp_path / "run"))
+    tr2.state = V2TrainState(tr2.state.params, tr2.state.opt_state, tr2.state.step)
+    assert tr2.restore_latest() and tr2.state.step == 1
+    for n, p in tr.state.params.items():
+        assert torch.equal(tr2.state.params[n], p), n
+
+
 def test_train_v2_cli_cpu_run_resumes(wav_dir, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     # the frozen encoders from pickles: the SSL's tree of another trainer
@@ -126,13 +148,6 @@ def test_train_v2_cli_cpu_run_resumes(wav_dir, tmp_path, monkeypatch):
 
 def test_what_raises(wav_dir, monkeypatch):
     tc = TrainerV2Config()
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        TrainerV2(CFG, tc, n_model=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        TrainerV2(CFG, dataclasses.replace(tc, fsdp=True), device="cpu")
-    for flags in (["--n-model", "2"], ["--fsdp"]):
-        with pytest.raises(NotImplementedError, match="item 3c"):
-            train_v2_app.main(["--dataset-dir", wav_dir, "--device", "cpu", *flags], vcfg=CFG)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TrainerV2(CFG, tc)

@@ -276,9 +276,3 @@ def test_euler_solve_multicfg_matches_jax(mode):
 def test_cosine_t_span_matches_jax():
     np.testing.assert_allclose(cfm_v2.cosine_t_span(30).numpy(),
                                np.asarray(jcfm.cosine_t_span(30)), atol=1e-7)
-
-
-def test_multicfg_sharding_raises():
-    with pytest.raises(NotImplementedError, match="sharded"):
-        cfm_v2.euler_solve_multicfg(None, torch.zeros(1, 4, 2), torch.zeros(1, 4, 3), None,
-                                    torch.zeros(1, 4, 2), 0, torch.zeros(1, 2), shard_axis="d")
