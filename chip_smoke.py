@@ -26,7 +26,13 @@ failure exits non-zero:
    rank, (1, 8, 2048, 64) bf16 and f32 with lens 1966, 1477 and 1, and
    (1, 8, 2560, 64), and (f32) the sharded steps' (2, 4, 896, 64) with
    (896, 700) and (0, 640) and (1, 8, 896, 64) with 700 and 896 keys, each
-   with a planted fault that must fail the limits;
+   with a planted fault that must fail the limits; K1 and K3 over a query
+   slab (q of a rank's Tq rows against Tk keys, bf16 and f32): the
+   time-sharded conversions' (2, 8, 1024 / 2048) at both offsets with lens
+   1966, a 0 entry and one valid key, v2's (3, 8, 1281 and 1279 / 2560) and
+   ``xlsr_tiny``'s (2, 6, 1026 and 1024 / 2050), each with a planted fault
+   (past offset 0 q's table at local positions, else the last valid key tile
+   dropped);
    ``Attention(use_flash=True)``
    at a T that is no multiple of 512, which must launch K1 (or K3 with
    grouped KV heads) and agree with its plain twins; and K2 at every stage
@@ -208,9 +214,16 @@ failure exits non-zero:
    and 109 K2 each), each wave against the unsharded one on the same rank;
    (d) three planted faults that (b)'s checks must catch: a contiguous (not
    head-aligned) ``wqkv`` split, a grad norm of the local pieces only, and a
-   rank that draws its own rows' noise. FSDP over two ranks does not run on
-   the card (FSDP2 over gloo with cuda tensors dies with SIGSEGV); the CPU
-   tests hold it;
+   rank that draws its own rows' noise; (e) the time-sharded conversions on a
+   (1, 2) mesh (``seq_shard_axis='model'``): phase 5's clip with the preset
+   (each rank 650 K1 over its (2, 8, 1024 / 2048) slab, 218 K2), the same
+   with ``use_flash_attention=False`` (0 K1) and v2's ``convert_timbre`` on
+   phase 9's (390 K1 over (3, 8, 1281) / (3, 8, 1279), 109 K2), each wave
+   against its unsharded one within one f16 step, the sampler's mels
+   printed beside it, and a planted fault (every halo from a neighbour left
+   zero) that the v1 comparison must catch. FSDP over two ranks does not
+   run on the card (FSDP2 over gloo with cuda tensors dies with SIGSEGV);
+   the CPU tests hold it;
 14. the ``{"kernels": [...]}`` line: device times of kernel, plain twin and
    library call at the shapes of every path (each timed window queued behind a
    spin kernel, so the host's dispatch rate does not enter), with each
@@ -229,9 +242,10 @@ failure exits non-zero:
    v2 requests (the v2 request's plan, which the AR's length sets), launches
    from phase 12b; and the checkpoint rows: K1 and K2 at phase 5's and
    phase 9's shapes, launches from phase 12c; and the multi-GPU rows: K1 at
-   one CFG branch a rank (v1 B = 1, v2 B = 2 and 1), K2, and K1 f32 / K1ᵇ at
-   the sharded steps' (2, 4, 896, 64) and (1, 8, 896, 64), launches from
-   phase 13 (each rank's).
+   one CFG branch a rank (v1 B = 1, v2 B = 2 and 1), K1 over each rank's
+   query slab of the time-sharded conversions (SDPA on the same slab as its
+   library time), K2, and K1 f32 / K1ᵇ at the sharded steps' (2, 4, 896, 64)
+   and (1, 8, 896, 64), launches from phase 13 (each rank's).
 
 The last line is ``{"ok": true, "device": {...}}``. ``--profile`` adds one
 profiled warm conversion to phases 5, 6, 8 and 9 (a ``convert_timbre`` in
@@ -319,6 +333,36 @@ MG_T, MG_LENS, MG_HEADS = 896, (896, 700), 4
 K1_MG_TRAIN_CASES = [(MG_T, MG_LENS, MG_HEADS), (MG_T, (0, 640), MG_HEADS),
                      (MG_T, (700,), 8), (MG_T, (MG_T,), 8)]
 K1_MG_CASES = [(2048, (1966,), 8), (2048, (1477,), 8), (2048, (1,), 8), (V2_T, (V2_LENS,), 8)]
+
+
+def seq_slabs(T: int, n_prefix: int = 0, ranks: int = 2) -> list:
+    """Each rank's query rows (a, b) of the DiT's T + n_prefix tokens when
+    the sampler splits its T time rows over ``ranks`` (ceil(T / ranks) a
+    rank, the last short) and the first rank holds the prefix tokens too."""
+    per, rows, start = -(-T // ranks), [], 0
+    for r in range(ranks):
+        n = max(0, min(per, T - r * per)) + (n_prefix if r == 0 else 0)
+        rows.append((start, start + n))
+        start += n
+    return rows
+
+
+# K1 and K3 over a query slab (phase 13's time-sharded conversions on two
+# ranks): q with a rank's Tq rows, k and v with all Tk, q roped at the rows'
+# global positions. v1: (2, 8, 1024 / 2048) at offsets 0 and 1024 with the
+# main path's keys, a 0 entry and one valid key; v2: the 3-way stack's
+# (3, 8, 1281 / 2560) with the prefix tokens on the first slab and
+# (3, 8, 1279 / 2560); xlsr_tiny's 6 heads, (2, 6, 1026 / 2050), its prefix
+# on the first slab. The planted fault on a slab past offset 0 is q's table
+# at local positions (rows 0..Tq), which must fail the limit; on the first
+# slab, where local and global positions agree, the last valid key tile
+# dropped.
+K1_SEQ_CASES = ([(MAIN_CONTEXT, (1966, 1966), 8, ab) for ab in seq_slabs(MAIN_CONTEXT)]
+                + [(MAIN_CONTEXT, (0, 1966), 8, seq_slabs(MAIN_CONTEXT)[1]),
+                   (MAIN_CONTEXT, (1, 1477), 8, seq_slabs(MAIN_CONTEXT)[1])]
+                + [(RT_OFFLINE_T, (1968, 1968), RT_HEADS, ab)
+                   for ab in seq_slabs(RT_OFFLINE_T - 2, 2)]
+                + [(V2_T, (V2_LENS,) * 3, 8, ab) for ab in seq_slabs(V2_T - 2, 2)])
 # K1 and K2 on the eval path (apps.eval in the eval phase): a 10 s and a 6 s
 # source with a 5 s reference are one chunk each at context 1536 (W = 1024):
 # keys 430 + 861 = 1291 and 430 + 516 = 946, and a 0 entry; at 8 heads for
@@ -626,6 +670,7 @@ def phase_kernels() -> dict:
                 if dtype == torch.bfloat16:
                     slot = key + slots[slot_heads]
                     errs[slot] = max(errs[slot], err)
+    errs["k1_seq"] = seq_slab_checks()
     attention_module_check()
     g = torch.Generator(device="cuda").manual_seed(1)
     for shape, kind in k2_cases():
@@ -653,6 +698,61 @@ def phase_kernels() -> dict:
     if n != 1:
         fail(f"one K2 call ran {n} device kernels, expected 1")
     return errs
+
+
+def seq_slab_checks() -> float:
+    """Phase 3's slab cases (K1_SEQ_CASES): K1 and K3, bf16 and f32, each
+    against its twin on the same slab within K1's limits, with its planted
+    fault; K1 f32's log-sum-exp against the twin's. Returns the worst bf16
+    K1 max abs error."""
+    import torch
+
+    from seedvc_tpu_torch.ops import attention
+
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = K1_TOL[str(dtype).split(".")[1]]
+        for Tk, lens, heads, (a, b) in K1_SEQ_CASES:
+            q, k, v, cos, sin, lens_t = _k1_inputs(Tk, dtype, lens, seed=5, heads=heads)
+            qs = q[:, :, a:b].contiguous()
+            q_rope = (cos[a:b], sin[a:b])
+            for key, kernel, twin, args, fault_args in (
+                    ("K1", attention.dit_attention_fused, attention.dit_attention_fused_reference,
+                     (qs, k, v, cos, sin, lens_t), (q_rope,)),
+                    ("K3", attention.dit_attention, attention.dit_attention_reference,
+                     (attention.rope_scaled_reference(qs, *q_rope),
+                      attention.rope_scaled_reference(k, cos, sin), v, lens_t), ())):
+                kw = {"q_rope": q_rope} if key == "K1" else {}
+                out, lse = kernel(*args, return_lse=True, **kw)
+                ref = twin(*args, *fault_args)
+                if key == "K1" and a > 0:  # q roped at local positions
+                    fault, bad = "q table at local positions", twin(*args, (cos[: b - a],
+                                                                            sin[: b - a]))
+                else:  # the last valid key tile dropped
+                    fault = "last valid key tile dropped"
+                    bad = twin(*args[:-1], lens_t - K1_FAULT_KEYS, *fault_args)
+                err, rel = k1_errors(out, ref)
+                f_err, f_rel = k1_errors(bad, ref)
+                what = (f"{key} slab q rows {a}:{b} of {Tk}, q {tuple(qs.shape)} k/v "
+                        f"{tuple(k.shape)} {dtype} lens={lens}")
+                log(f"{what}: max_abs_err {err:.3e} tol {atol:g}, rel_l2 {rel:.3e} tol {rtol:g}; "
+                    f"planted fault ({fault}) max_abs {f_err:.3e} rel_l2 {f_rel:.3e}")
+                if not (err <= atol and rel <= rtol):
+                    fail(f"{what}: kernel disagrees with its plain twin")
+                if f_err <= atol and f_rel <= rtol:
+                    fail(f"{what}: the limit passes a planted fault")
+                if dtype == torch.float32:
+                    lse_ref = attention.dit_attention_lse_reference(
+                        *((attention.rope_scaled_reference(qs, *q_rope),
+                           attention.rope_scaled_reference(k, cos, sin)) if key == "K1"
+                          else args[:2]), lens_t)
+                    lse_err = ((lse - lse_ref).abs() / lse_ref.abs().clamp(min=1.0)).max().item()
+                    log(f"{what}: lse rel err {lse_err:.3e} tol {LSE_RTOL:g}")
+                    if not lse_err <= LSE_RTOL:
+                        fail(f"{what}: the kernel's log-sum-exp disagrees with the twin's")
+                elif key == "K1":
+                    worst = max(worst, err)
+    return worst
 
 
 # The f32 kernel's row log-sum-exp (kept for K1ᵇ) against the plain one of
@@ -3783,9 +3883,12 @@ MG_MESHES = (("(2, 1)", 2, 1), ("(1, 2)", 1, 2))
 # loss and grad norm relative; parameters over the largest |parameter| (K1ᵇ
 # sums dq by atomics, and the ranks sum the batch and the norm in another order)
 MG_STEP_RTOL = 1e-5
-# the CFG-sharded wave against the unsharded one on the card: the small
-# phase's cuda limit on an f16 output wave
-MG_WAVE_TOL = SMALL_TOL
+# a sharded wave against the unsharded one on the card: one f16 step near
+# 1.0 (4.9e-4). Within it, a split run's bf16 DiT may differ from the whole
+# run's where cuBLAS picks another algorithm for fewer rows; the small
+# phase's 2e-3 (SMALL_TOL) would let the zeroed-halo fault through, whose
+# error sits on the few frames beside each slab's edge.
+MG_WAVE_TOL = 5e-4
 MG_WORLD1_RTOL = 1e-5  # world size 1 with FSDP against phase 10's losses
 
 
@@ -3993,60 +4096,161 @@ def mg_train(rank: int, problems: list) -> dict:
     return out
 
 
-def mg_convert(rank: int, problems: list) -> dict:
-    """(3) The CFG-sharded conversions: VoiceConverter on phase 5's clip and
-    VoiceConverterV2.convert_timbre on phase 9's, unsharded then with
-    cfg_shard_axis='data' on a (2, 1) mesh; each rank's launches and the
-    shapes its attention runs."""
+@contextlib.contextmanager
+def sampler_mels():
+    """Every mel that the converters' samplers return inside the block, on
+    the host (the list yielded)."""
+    from seedvc_tpu_torch.pipelines import convert, convert_v2
+
+    real = convert.euler_solve, convert_v2.euler_solve_multicfg
+    mels: list = []
+
+    def kept(fn):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            mels.append(out.float().cpu())
+            return out
+        return run
+    convert.euler_solve, convert_v2.euler_solve_multicfg = kept(real[0]), kept(real[1])
+    try:
+        yield mels
+    finally:
+        convert.euler_solve, convert_v2.euler_solve_multicfg = real
+
+
+def mg_sharded_run(rank: int, what: str, vc, model, mesh, call, base, expect: dict,
+                   problems: list) -> dict:
+    """One sharded conversion of ``vc`` (its shard axes set by the caller)
+    on ``mesh``: wall, launches, the (B, heads, query rows, head_dim) its
+    attention layers see, and the wave against the unsharded ``base`` =
+    (wave, its sampler's mels); the mels' largest difference is printed
+    beside it."""
     import torch
 
-    from seedvc_tpu_torch.parallel.mesh import make_mesh, set_mesh
+    from seedvc_tpu_torch.parallel.mesh import set_mesh
+
+    shapes: set = set()
+    hooks = mg_shape_hooks(model, shapes)
+    with set_mesh(mesh), sampler_mels() as mels:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, wave, _ = call(vc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    for h in hooks:
+        h.remove()
+    base, base_mels = base
+    err, snr = (float(x) for x in compare_waves(f"multi-GPU {what}", wave, base))
+    mel_err = max(float((a - b).abs().max()) for a, b in zip(mels, base_mels))
+    log(f"[rank {rank}] multi-GPU {what}: {len(wave) / 22050:.2f} s of audio in {wall:.3f} s "
+        f"wall (the ranks share one card); against the unsharded wave max abs {err:.2e} (tol "
+        f"{MG_WAVE_TOL:g}), SNR {snr:.1f} dB, the sampler's mels max abs {mel_err:.2e}; "
+        f"launches {counts}; attention at {sorted(shapes)}")
+    if counts != expect:
+        problems.append(f"{what}: launches {counts}, expected {expect}")
+    if err > MG_WAVE_TOL:
+        problems.append(f"{what}: the wave differs from the unsharded one")
+    return {"counts": counts, "shapes": sorted(shapes), "err": err, "snr": snr,
+            "mel_err": mel_err, "wall_s": wall}
+
+
+@contextlib.contextmanager
+def zero_halos():
+    """Planted fault of the time-sharded runs: every convolution's halo rows
+    from the neighbours left zero (the sequence's own ends still padded)."""
+    from seedvc_tpu_torch.parallel.mesh import SeqShard
+
+    real = SeqShard.halo
+
+    def halo(self, x, pad, mode):
+        out = real(self, x, pad, mode).clone()
+        if pad and self.rows.start > 0:
+            out[..., :pad] = 0
+        if pad and self.rows.stop < self.total:
+            out[..., -pad:] = 0
+        return out
+    SeqShard.halo = halo
+    try:
+        yield
+    finally:
+        SeqShard.halo = real
+
+
+def mg_convert(rank: int, problems: list) -> dict:
+    """(3) The sharded conversions: VoiceConverter on phase 5's clip and
+    VoiceConverterV2.convert_timbre on phase 9's, unsharded, then with
+    cfg_shard_axis='data' on a (2, 1) mesh and with seq_shard_axis='model'
+    on a (1, 2) mesh (K1 over each rank's query slab), and the v1 preset with
+    use_flash_attention=False time-sharded against its own unsharded run;
+    each rank's launches and the shapes its attention runs; the planted
+    fault (zeroed halos) must fail the v1 comparison."""
+    import dataclasses
+
+    import torch
+
+    from seedvc_tpu_torch.core.config import get_preset
+    from seedvc_tpu_torch.parallel.mesh import make_mesh
     from seedvc_tpu_torch.pipelines.convert import VoiceConverter
     from seedvc_tpu_torch.pipelines.convert_v2 import VoiceConverterV2
 
-    mesh = make_mesh(MG_WORLD, 1, device_type="cuda")
+    cfg_mesh = make_mesh(MG_WORLD, 1, device_type="cuda")
+    seq_mesh = make_mesh(1, MG_WORLD, device_type="cuda")
     out = {}
     v1_src, v1_ref = synthetic_audio(30.0, 22050, 140.0, seed=4), synthetic_audio(
         5.0, 22050, 220.0, seed=5)
     v2_src, v2_ref = synthetic_audio(20.0, 22050, 140.0, seed=54), synthetic_audio(
         5.0, 22050, 220.0, seed=55)
-    for what, make, call, expect in (
-            ("v1", lambda: VoiceConverter(device="cuda"),
-             lambda vc: vc.convert(v1_src, 22050, v1_ref, 22050, diffusion_steps=25,
-                                   cfg_rate=0.7),
-             {"k1": MAIN_CHUNKS * 25 * 13, "k2": MAIN_CHUNKS * 109, "k3": 0}),
+    preset = get_preset("whisper_small_wavenet")
+    plain = dataclasses.replace(preset, model_params=dataclasses.replace(
+        preset.model_params, DiT=dataclasses.replace(preset.model_params.DiT,
+                                                     use_flash_attention=False)))
+    v1_expect = {"k1": MAIN_CHUNKS * 25 * 13, "k2": MAIN_CHUNKS * 109, "k3": 0}
+
+    def v1_call(vc):
+        return vc.convert(v1_src, 22050, v1_ref, 22050, diffusion_steps=25, cfg_rate=0.7)
+
+    # each rank's attention in the time-sharded runs: the CFG stack, 8 heads,
+    # its query slab (with v2's prefix tokens on rank 0)
+    a, b = seq_slabs(MAIN_CONTEXT)[rank]
+    v1_slab = [[2, 8, b - a, 64]]
+    a, b = seq_slabs(V2_T - 2, 2)[rank]
+    v2_slab = [[3, 8, b - a, 64]]
+    for what, make, call, expect, slab in (
+            ("v1", lambda: VoiceConverter(device="cuda"), v1_call, v1_expect, v1_slab),
             ("v2", lambda: VoiceConverterV2(device="cuda"),
              lambda vc: vc.convert_timbre(v2_src, 22050, v2_ref, 22050,
                                           diffusion_steps=V2_STEPS, intelligibility_cfg_rate=0.7,
                                           similarity_cfg_rate=0.7),
-             {"k1": V2_STEPS * 13, "k2": 109, "k3": 0})):
+             {"k1": V2_STEPS * 13, "k2": 109, "k3": 0}, v2_slab),
+            ("v1 plain", lambda: VoiceConverter(plain, device="cuda"), v1_call,
+             {**v1_expect, "k1": 0}, v1_slab)):
         vc = make()
-        model = vc.vc if what == "v1" else vc.dit
-        _, base, _ = call(vc)
-        vc.cfg_shard_axis = "data"
-        shapes: set = set()
-        hooks = mg_shape_hooks(model, shapes)
-        with set_mesh(mesh):
-            reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, wave, _ = call(vc)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = read_counts()
-        for h in hooks:
-            h.remove()
-        err, snr = (float(x) for x in compare_waves(f"multi-GPU {what}", wave, base))
-        out[what] = {"counts": counts, "shapes": sorted(shapes), "err": err, "snr": snr,
-                     "wall_s": wall}
-        log(f"[rank {rank}] multi-GPU CFG-sharded {what}: {len(wave) / 22050:.2f} s of audio in "
-            f"{wall:.3f} s wall (the ranks share one card); against the unsharded wave max abs "
-            f"{err:.2e} (tol {MG_WAVE_TOL:g}), SNR {snr:.1f} dB; launches {counts}; attention "
-            f"at {sorted(shapes)}")
-        if counts != expect:
-            problems.append(f"CFG-sharded {what}: launches {counts}, expected {expect}")
-        if err > MG_WAVE_TOL:
-            problems.append(f"CFG-sharded {what}: the wave differs from the unsharded one")
+        model = vc.dit if what == "v2" else vc.vc
+        with sampler_mels() as mels:
+            base = call(vc)[1], mels
+        if what != "v1 plain":
+            vc.cfg_shard_axis = "data"
+            out[what] = mg_sharded_run(rank, f"CFG-sharded {what}", vc, model, cfg_mesh, call,
+                                       base, expect, problems)
+            vc.cfg_shard_axis = None
+        vc.seq_shard_axis = "model"
+        out[f"{what} seq"] = r = mg_sharded_run(rank, f"time-sharded {what}", vc, model,
+                                                seq_mesh, call, base, expect, problems)
+        if [list(x) for x in r["shapes"]] != slab:
+            problems.append(f"time-sharded {what}: attention at {r['shapes']}, expected {slab}")
+        if what == "v1":
+            with zero_halos():
+                fault: list = []
+                r = mg_sharded_run(rank, "time-sharded v1 with zeroed halos (planted fault)",
+                                   vc, model, seq_mesh, call, base, expect, fault)
+            caught = r["err"] > MG_WAVE_TOL
+            out["fault zero halos"] = {"err": r["err"], "mel_err": r["mel_err"], "caught": caught}
+            log(f"[rank {rank}] planted fault 'zeroed halos': max abs {r['err']:.2e}: "
+                f"{'caught' if caught else 'NOT caught'}")
+            if not caught:
+                problems.append("planted fault 'zeroed halos' passed the wave comparison")
         del vc, model
         torch.cuda.empty_cache()
     return out
@@ -4134,7 +4338,9 @@ def mg_rows(mg: dict, errs: dict, card: str) -> list:
     """The kernels line's rows of phase 13's shapes, launches from its runs
     (each rank's count; ``launches`` is rank 0's, the shapes rank 0's unless
     named otherwise): K1 bf16 at one CFG branch a rank of the v1 conversion
-    and of v2's 3-way stack (2 rows on rank 0, 1 on rank 1), K2 in each
+    and of v2's 3-way stack (2 rows on rank 0, 1 on rank 1), K1 over each
+    rank's query slab in the time-sharded v1 and v2 conversions (and, with
+    no launches, xlsr_tiny's slabs of phase 3), K2 in each
     rank's vocoder, K1 f32 and K1ᵇ at the (1, 2) step's 4 heads and the
     (2, 1) step's one row."""
     ranks = mg["ranks"]
@@ -4158,6 +4364,32 @@ def mg_rows(mg: dict, errs: dict, card: str) -> list:
         {**k1_row(v2_b1, conv[1]["v2"]["counts"]["k1"], errs["k1_mg"],
                   path.format("CFG-sharded v2 convert_timbre", 1)),
          "launches_per_rank": [c["k1"] for c in per_rank["v2"]]}]
+    # the time-sharded conversions on a (1, 2) mesh: K1 over each rank's
+    # query slab, K2 in each rank's whole vocoder
+    seq_path = "multi-GPU (phase 13): time-sharded {} on 2 ranks of one card, rank {}"
+    v1_name, v2_name = "whisper_small_wavenet conversion", "v2 convert_timbre"
+    for r, ab in enumerate(seq_slabs(MAIN_CONTEXT)):
+        t = k1_timing(MAIN_CONTEXT, 8, 1966, seed=44 + r, slab=ab)
+        rows.append({**k1_row(t, conv[r]["v1 seq"]["counts"]["k1"], errs["k1_seq"],
+                              seq_path.format(v1_name, r)),
+                     "launches_per_rank": [c["v1 seq"]["counts"]["k1"] for c in conv]})
+    for r, ab in enumerate(seq_slabs(V2_T - 2, 2)):
+        t = k1_timing(V2_T, 8, V2_LENS, seed=46 + r, B=3, slab=ab)
+        rows.append({**k1_row(t, conv[r]["v2 seq"]["counts"]["k1"], errs["k1_seq"],
+                              seq_path.format(v2_name, r)),
+                     "launches_per_rank": [c["v2 seq"]["counts"]["k1"] for c in conv]})
+    # xlsr_tiny's slab (its prefix on the first): phase 3 holds it; no
+    # time-sharded xlsr_tiny path runs here
+    for r, ab in enumerate(seq_slabs(RT_OFFLINE_T - 2, 2)):
+        t = k1_timing(RT_OFFLINE_T, RT_HEADS, 1968, seed=48 + r, slab=ab)
+        rows.append(k1_row(t, 0, errs["k1_seq"], f"none: phase 3 only ({RT_PRESET}'s query "
+                                                 f"slab of rank {r} of 2)"))
+    k2_v2 = k2_timing(UPSAMPLE_22K, V2_W)
+    for what, key, k2_t, err in (
+            (v1_name, "v1 seq", k2, errs["k2"]), (v2_name, "v2 seq", k2_v2, errs["k2_v2"]),
+            (f"{v1_name} with use_flash_attention=False", "v1 plain seq", k2, errs["k2"])):
+        rows.append({**k2_row(k2_t, conv[0][key]["counts"]["k2"], err, seq_path.format(what, 0)),
+                     "launches_per_rank": [c[key]["counts"]["k2"] for c in conv]})
     for name, B, H in (("(1, 2)", 2, MG_HEADS), ("(2, 1)", 1, 8)):
         steps = [r["train"][name] for r in ranks]
         for row in train_kernel_rows(MG_T, B, H, steps[0]["k1"], card,
@@ -4192,9 +4424,12 @@ def smi_sampler(period_ms: int = 100):
         samples.extend(line.strip() for line in out.splitlines() if line.strip())
 
 
-def k1_timing(T: int, heads: int, n_valid: int, seed: int, B: int = 2) -> dict:
+def k1_timing(T: int, heads: int, n_valid: int, seed: int, B: int = 2,
+              slab: tuple | None = None) -> dict:
     """K1 against its plain twin and SDPA (on the same roped q, k) at q/k/v
-    (B, heads, T, 64) bf16 with n_valid keys, and its bound."""
+    (B, heads, T, 64) bf16 with n_valid keys, and its bound. ``slab`` = (a,
+    b): q holds rows a..b only (a rank's query slab, roped at those
+    positions) against all T keys."""
     import torch
     import torch.nn.functional as F
 
@@ -4203,21 +4438,27 @@ def k1_timing(T: int, heads: int, n_valid: int, seed: int, B: int = 2) -> dict:
 
     q, k, v, cos, sin, lens = _k1_inputs(T, torch.bfloat16, (n_valid,) * B, seed=seed,
                                          heads=heads)
-    ms = cuda_time_ms(lambda: attention.dit_attention_fused(q, k, v, cos, sin, lens))
+    a, b = (0, T) if slab is None else slab
+    q = q[:, :, a:b].contiguous()
+    q_rope = (cos[a:b], sin[a:b])
+    ms = cuda_time_ms(lambda: attention.dit_attention_fused(q, k, v, cos, sin, lens,
+                                                            q_rope=q_rope))
     plain = cuda_time_ms(lambda: attention.dit_attention_fused_reference(
-        q, k, v, cos, sin, lens), iters=5)
-    prepass = cuda_time_ms(lambda: attention.rope_prepass(q, k, cos, sin))
-    qr = attention.rope_scaled_reference(q, cos, sin)
+        q, k, v, cos, sin, lens, q_rope), iters=5)
+    prepass = cuda_time_ms(lambda: attention.rope_prepass(q, k, cos, sin, q_rope))
+    qr = attention.rope_scaled_reference(q, *q_rope)
     kr = attention.rope_scaled_reference(k, cos, sin)
     mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, attn_mask=mask))
-    B, H, _, d = q.shape
-    b_ms, b_by = bound(4.0 * d * T * H * n_valid * B, PEAK_BF16,
-                       4 * B * H * T * d * 2 + 2 * T * d * 4 + B * 4)
-    log(f"K1 {tuple(q.shape)} bf16 lens={n_valid}: kernel {ms:.4f} ms (RoPE pre-pass alone "
+    B, H, Tq, d = q.shape
+    b_ms, b_by = bound(4.0 * d * Tq * H * n_valid * B, PEAK_BF16,
+                       2 * (Tq + T) * B * H * d * 2 + 2 * T * d * 4 + B * 4)
+    what = (f"q/k/v {tuple(q.shape)}" if slab is None
+            else f"q {tuple(q.shape)} (rows {a}:{b}), k/v {tuple(k.shape)}")
+    log(f"K1 {what} bf16 lens={n_valid}: kernel {ms:.4f} ms (RoPE pre-pass alone "
         f"{prepass:.4f} ms), plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by})")
-    return {"shape": f"q/k/v {tuple(q.shape)} bf16, lens {n_valid}", "ms": ms,
+    return {"shape": f"{what} bf16, lens {n_valid}", "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
             "library_ms": lib}
 

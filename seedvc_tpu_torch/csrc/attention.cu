@@ -61,6 +61,13 @@
 // 4. Host side: the C entry points encode the tensor maps on every call,
 //    reaching cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the
 //    library needs no -lcuda.
+// 5. A query slab (the sequence-sharded sampler: a rank's Tq query rows
+//    against all Tk keys and values, gathered over the ranks): the q map and
+//    the query-tile grid run over Tq, the k/v maps, the key tiles and the
+//    mask over Tk, and the pre-pass ropes q with q's own (Tq, 64) tables, the
+//    rows at the slab's global positions. Each query row is computed alone,
+//    so a slab's rows equal the whole sequence's bit for bit, and Tq = Tk with
+//    one table is the single-sequence kernel unchanged.
 //
 // The f32 path (K1 and K3 in f32; the fine-tuning path, whose DiT trunk
 // attention runs in f32 as the JAX step's type promotion gives it):
@@ -142,19 +149,28 @@ __device__ __forceinline__ void rope8(const bf16* row, const float* cosb, const 
   *reinterpret_cast<uint4*>(dst) = res;
 }
 
-// One thread per 8 features of one row of q and of k: roped q times 2^-3 to
-// qo, roped k to ko. Rows run over (B*H, T); t is the row's position.
+// One thread per 8 features of one row: the first nq_chunks items are q's
+// rows (B*H, Tq), roped with q's tables times 2^-3 to qo; the rest are k's
+// rows (B*H, Tk), roped with k's tables to ko. A row's table row is its
+// index within its (batch*head); q's tables hold the rows at the queries'
+// global positions (a slab of a sequence split over ranks).
 __global__ void __launch_bounds__(256)
 rope_prepass_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const float* __restrict__ cosb, const float* __restrict__ sinb,
-                    bf16* __restrict__ qo, bf16* __restrict__ ko, int T_len, long long n_chunks) {
+                    const float* __restrict__ cosk, const float* __restrict__ sink,
+                    const float* __restrict__ cosq, const float* __restrict__ sinq,
+                    bf16* __restrict__ qo, bf16* __restrict__ ko, int Tq, int Tk,
+                    long long nq_chunks, long long n_chunks) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n_chunks;
        i += (long long)gridDim.x * blockDim.x) {
-    const long long row = i >> 3;
-    const int d0 = (int)(i & 7) * 8;
-    const int t = (int)(row % T_len);
-    rope8(q + row * D, cosb, sinb, t, d0, 0.125f /* 1/sqrt(64) */, qo + row * D + d0);
-    rope8(k + row * D, cosb, sinb, t, d0, 1.f, ko + row * D + d0);
+    const bool is_q = i < nq_chunks;
+    const long long j = is_q ? i : i - nq_chunks;
+    const long long row = j >> 3;
+    const int d0 = (int)(j & 7) * 8;
+    if (is_q)
+      rope8(q + row * D, cosq, sinq, (int)(row % Tq), d0, 0.125f /* 1/sqrt(64) */,
+            qo + row * D + d0);
+    else
+      rope8(k + row * D, cosk, sink, (int)(row % Tk), d0, 1.f, ko + row * D + d0);
   }
 }
 
@@ -361,12 +377,13 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], uint32_t (&p)[4][4]
   l[1] = l[1] * alpha[1] + ps[1];
 }
 
-// One block per (64-query tile, batch*head). q is roped; sl2 = scale * log2(e)
-// with scale 1 for K1 (q arrives scaled by 2^-3) and 2^-3 for K3.
+// One block per (64-query tile of the Tq rows, batch*head), against the Tk
+// keys. q is roped; sl2 = scale * log2(e) with scale 1 for K1 (q arrives
+// scaled by 2^-3) and 2^-3 for K3.
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 attn_core_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap, const int* __restrict__ lens,
-                 bf16* __restrict__ out, int H, int T_len, float sl2) {
+                 bf16* __restrict__ out, int H, int Tq, int Tk, float sl2) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -379,8 +396,8 @@ attn_core_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.y, q0 = blockIdx.x * TQ;
-  const int n_valid = lens ? lens[bh / H] : T_len;
-  const int all_tiles = (T_len + TK - 1) / TK;
+  const int n_valid = lens ? lens[bh / H] : Tk;
+  const int all_tiles = (Tk + TK - 1) / TK;
   // skip key tiles that hold only masked keys; with no valid key, visit all
   const int n_tiles = n_valid >= 1 ? min(all_tiles, (n_valid + TK - 1) / TK) : all_tiles;
 
@@ -432,7 +449,7 @@ attn_core_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sacc);
-    softmax_tile(sacc, pf, m, l, alpha, 0, n_valid, T_len, sl2, c);
+    softmax_tile(sacc, pf, m, l, alpha, 0, n_valid, Tk, sl2, c);
 
     // Tile it: S = Q.K_it and O += P_{it-1}.V_{it-1} go to the tensor cores
     // back to back; the softmax of S runs while P.V does; then O is rescaled.
@@ -452,7 +469,7 @@ attn_core_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(sacc);
-      softmax_tile(sacc, pn, m, l, alpha, it * TK, n_valid, T_len, sl2, c);
+      softmax_tile(sacc, pn, m, l, alpha, it * TK, n_valid, Tk, sl2, c);
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(pc);
@@ -491,14 +508,14 @@ attn_core_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant
     }
     const float i0 = 1.f / l[0], i1 = 1.f / l[1];
     const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-    bf16* o0 = out + ((size_t)bh * T_len + r0) * D;
-    bf16* o1 = out + ((size_t)bh * T_len + r1) * D;
+    bf16* o0 = out + ((size_t)bh * Tq + r0) * D;
+    bf16* o1 = out + ((size_t)bh * Tq + r1) * D;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = 8 * j + 2 * c;
-      if (r0 < T_len)
+      if (r0 < Tq)
         *reinterpret_cast<uint32_t*>(o0 + col) = pack_bf16(o[4 * j] * i0, o[4 * j + 1] * i0);
-      if (r1 < T_len)
+      if (r1 < Tq)
         *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16(o[4 * j + 2] * i1, o[4 * j + 3] * i1);
     }
   }
@@ -567,125 +584,140 @@ int set_smem_once(Kernel kernel, int bytes, bool (&done)[MAX_DEVICES]) {
 bool core_smem_set[MAX_DEVICES];
 
 int launch_core(const void* q, const void* k, const void* v, const int* lens, void* out, int B,
-                int H, int T_len, float scale, void* stream) {
+                int H, int Tq, int Tk, float scale, void* stream) {
   int err = set_smem_once(attn_core_kernel, CORE_SMEM, core_smem_set);
   if (err) return err;
   const int BH = B * H;
   CUtensorMap qm, km, vm;
-  err = make_map(&qm, q, BH, T_len, TQ);
-  if (!err) err = make_map(&km, k, BH, T_len, TK);
-  if (!err) err = make_map(&vm, v, BH, T_len, TK);
+  err = make_map(&qm, q, BH, Tq, TQ);
+  if (!err) err = make_map(&km, k, BH, Tk, TK);
+  if (!err) err = make_map(&vm, v, BH, Tk, TK);
   if (err) return err;
-  dim3 grid((T_len + TQ - 1) / TQ, BH);
+  dim3 grid((Tq + TQ - 1) / TQ, BH);
   attn_core_kernel<<<grid, THREADS, CORE_SMEM, (cudaStream_t)stream>>>(
-      qm, km, vm, lens, (bf16*)out, H, T_len, scale * LOG2E);
+      qm, km, vm, lens, (bf16*)out, H, Tq, Tk, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
-int launch_prepass(const void* q, const void* k, const float* cosb, const float* sinb, void* qo,
-                   void* ko, int BH, int T_len, void* stream) {
-  const long long n_chunks = (long long)BH * T_len * (D / 8);
-  const int blocks = (int)((n_chunks + 255) / 256 < 8192 ? (n_chunks + 255) / 256 : 8192);
-  rope_prepass_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, cosb, sinb, (bf16*)qo, (bf16*)ko, T_len, n_chunks);
+int grid_blocks(long long n_chunks) {
+  return (int)((n_chunks + 255) / 256 < 8192 ? (n_chunks + 255) / 256 : 8192);
+}
+
+int launch_prepass(const void* q, const void* k, const float* cosk, const float* sink,
+                   const float* cosq, const float* sinq, void* qo, void* ko, int BH, int Tq,
+                   int Tk, void* stream) {
+  const long long nq_chunks = (long long)BH * Tq * (D / 8);
+  const long long n_chunks = nq_chunks + (long long)BH * Tk * (D / 8);
+  rope_prepass_kernel<<<grid_blocks(n_chunks), 256, 0, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, cosk, sink, cosq, sinq, (bf16*)qo, (bf16*)ko, Tq, Tk,
+      nq_chunks, n_chunks);
   return (int)cudaGetLastError();
 }
 
-// f32 RoPE pre-pass: one thread per 4 features of one row of q and of k;
-// roped q times 2^-3 to qo, roped k to ko, each product and the sum rounded on
-// their own (the plain twin's separate tensor ops), so the f32 core reads the
-// twin's roped q (times 2^-3, exact) and k bit for bit.
+// f32 RoPE pre-pass: one thread per 4 features of one row, q's rows first
+// (with q's tables, times 2^-3, to qo), then k's (to ko), as the bf16 one;
+// each product and the sum rounded on their own (the plain twin's separate
+// tensor ops), so the f32 core reads the twin's roped q (times 2^-3, exact)
+// and k bit for bit.
 __global__ void __launch_bounds__(256)
 rope_prepass_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ cosb, const float* __restrict__ sinb,
-                        float* __restrict__ qo, float* __restrict__ ko, int T_len,
-                        long long n_chunks) {
+                        const float* __restrict__ cosk, const float* __restrict__ sink,
+                        const float* __restrict__ cosq, const float* __restrict__ sinq,
+                        float* __restrict__ qo, float* __restrict__ ko, int Tq, int Tk,
+                        long long nq_chunks, long long n_chunks) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n_chunks;
        i += (long long)gridDim.x * blockDim.x) {
-    const long long row = i >> 4;
-    const int d0 = (int)(i & 15) * 4;
-    const size_t cs = (size_t)(row % T_len) * D + d0;
-    const float4 c4 = *reinterpret_cast<const float4*>(cosb + cs);
-    const float4 s4 = *reinterpret_cast<const float4*>(sinb + cs);
+    const bool is_q = i < nq_chunks;
+    const long long j = is_q ? i : i - nq_chunks;
+    const long long row = j >> 4;
+    const int d0 = (int)(j & 15) * 4;
+    const size_t cs = (size_t)(row % (is_q ? Tq : Tk)) * D + d0;
+    const float4 c4 = *reinterpret_cast<const float4*>((is_q ? cosq : cosk) + cs);
+    const float4 s4 = *reinterpret_cast<const float4*>((is_q ? sinq : sink) + cs);
     const float cv[4] = {c4.x, c4.y, c4.z, c4.w}, sv[4] = {s4.x, s4.y, s4.z, s4.w};
-    const float* src[2] = {q, k};
-    float* dst[2] = {qo, ko};
+    const float4 x4 = *reinterpret_cast<const float4*>((is_q ? q : k) + row * D + d0);
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+    const float scale = is_q ? 0.125f /* 1/sqrt(64) */ : 1.f;
+    float y[4];
 #pragma unroll
-    for (int w = 0; w < 2; ++w) {
-      const float4 x4 = *reinterpret_cast<const float4*>(src[w] + row * D + d0);
-      const float x[4] = {x4.x, x4.y, x4.z, x4.w};
-      const float scale = w == 0 ? 0.125f /* 1/sqrt(64) */ : 1.f;
-      float y[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        y[j] = __fmul_rn(__fadd_rn(__fmul_rn(x[j], cv[j]), __fmul_rn(x[j ^ 1], sv[j])), scale);
-      *reinterpret_cast<float4*>(dst[w] + row * D + d0) = make_float4(y[0], y[1], y[2], y[3]);
-    }
+    for (int e = 0; e < 4; ++e)
+      y[e] = __fmul_rn(__fadd_rn(__fmul_rn(x[e], cv[e]), __fmul_rn(x[e ^ 1], sv[e])), scale);
+    *reinterpret_cast<float4*>((is_q ? qo : ko) + row * D + d0) =
+        make_float4(y[0], y[1], y[2], y[3]);
   }
 }
 
 bool f32_smem_set[MAX_DEVICES];
 
 int launch_f32(const float* q, const float* k, const float* v, const int* lens, float* out,
-               float* lse, int B, int H, int T_len, float scale, void* stream) {
+               float* lse, int B, int H, int Tq, int Tk, float scale, void* stream) {
   const int bytes = tf32::fwd_smem_bytes(true);
   const int err = set_smem_once(tf32::attn_fwd_tf32<true, false>, bytes, f32_smem_set);
   if (err) return err;
-  dim3 grid((T_len + tf32::BT - 1) / tf32::BT, B * H);
+  dim3 grid((Tq + tf32::BT - 1) / tf32::BT, B * H);
   tf32::attn_fwd_tf32<true, false><<<grid, tf32::THREADS, bytes, (cudaStream_t)stream>>>(
-      q, k, v, lens, out, lse, H, T_len, scale);
+      q, k, v, lens, out, lse, H, Tq, Tk, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// K1's first stage alone: qo = rope(q) * 2^-3 and ko = rope(k), bf16, rows over
-// (B*H, T). dit_attention_fused_bf16 runs it before the core.
-extern "C" int rope_prepass_bf16(const void* q, const void* k, const float* cosb,
-                                 const float* sinb, void* qo, void* ko, int BH, int T_len,
-                                 void* stream) {
-  return launch_prepass(q, k, cosb, sinb, qo, ko, BH, T_len, stream);
+// The C entry points take q as (B*H, Tq, 64) and k, v as (B*H, Tk, 64), Tq <=
+// Tk: Tq < Tk is a rank's query slab of a sequence split over ranks, whose
+// keys and values were gathered. K1's cosk / sink are k's (Tk, 64) tables and
+// cosq / sinq q's (Tq, 64) ones (the same pointers when Tq = Tk).
+
+// K1's first stage alone: qo = rope(q) * 2^-3 and ko = rope(k), bf16.
+// dit_attention_fused_bf16 runs it before the core.
+extern "C" int rope_prepass_bf16(const void* q, const void* k, const float* cosk,
+                                 const float* sink, const float* cosq, const float* sinq,
+                                 void* qo, void* ko, int BH, int Tq, int Tk, void* stream) {
+  return launch_prepass(q, k, cosk, sink, cosq, sinq, qo, ko, BH, Tq, Tk, stream);
 }
 
-// K1: q/k before RoPE, (T, 64) cos / signed-sin caches; scratch holds
-// 2*B*H*T*64 bf16 for the roped q and k.
+// K1: q/k before RoPE; scratch holds B*H*(Tq + Tk)*64 bf16 for the roped q
+// and k.
 extern "C" int dit_attention_fused_bf16(const void* q, const void* k, const void* v,
-                                        const float* cosb, const float* sinb, const int* lens,
-                                        void* out, void* scratch, int B, int H, int T_len,
+                                        const float* cosk, const float* sink, const float* cosq,
+                                        const float* sinq, const int* lens, void* out,
+                                        void* scratch, int B, int H, int Tq, int Tk,
                                         void* stream) {
   bf16* qr = (bf16*)scratch;
-  bf16* kr = qr + (size_t)B * H * T_len * D;
-  int err = launch_prepass(q, k, cosb, sinb, qr, kr, B * H, T_len, stream);
+  bf16* kr = qr + (size_t)B * H * Tq * D;
+  int err = launch_prepass(q, k, cosk, sink, cosq, sinq, qr, kr, B * H, Tq, Tk, stream);
   if (err) return err;
-  return launch_core(qr, kr, v, lens, out, B, H, T_len, 1.f, stream);
+  return launch_core(qr, kr, v, lens, out, B, H, Tq, Tk, 1.f, stream);
 }
 
-// K1 in f32: scratch holds 2*B*H*T*64 floats for the roped q (times 2^-3)
-// and k; lse, if not null, receives the (B*H, T) row log-sum-exp.
+// K1 in f32: scratch holds B*H*(Tq + Tk)*64 floats for the roped q (times
+// 2^-3) and k; lse, if not null, receives the (B*H, Tq) row log-sum-exp.
 extern "C" int dit_attention_fused_f32(const void* q, const void* k, const void* v,
-                                       const float* cosb, const float* sinb, const int* lens,
-                                       void* out, void* lse, void* scratch, int B, int H,
-                                       int T_len, void* stream) {
+                                       const float* cosk, const float* sink, const float* cosq,
+                                       const float* sinq, const int* lens, void* out, void* lse,
+                                       void* scratch, int B, int H, int Tq, int Tk,
+                                       void* stream) {
   float* qr = (float*)scratch;
-  float* kr = qr + (size_t)B * H * T_len * D;
-  const long long n_chunks = (long long)B * H * T_len * (D / 4);
-  const int blocks = (int)((n_chunks + 255) / 256 < 8192 ? (n_chunks + 255) / 256 : 8192);
-  rope_prepass_f32_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, cosb, sinb, qr, kr, T_len, n_chunks);
+  float* kr = qr + (size_t)B * H * Tq * D;
+  const long long nq_chunks = (long long)B * H * Tq * (D / 4);
+  const long long n_chunks = nq_chunks + (long long)B * H * Tk * (D / 4);
+  rope_prepass_f32_kernel<<<grid_blocks(n_chunks), 256, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, cosk, sink, cosq, sinq, qr, kr, Tq, Tk, nq_chunks,
+      n_chunks);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  return launch_f32(qr, kr, (const float*)v, lens, (float*)out, (float*)lse, B, H, T_len, 1.f,
+  return launch_f32(qr, kr, (const float*)v, lens, (float*)out, (float*)lse, B, H, Tq, Tk, 1.f,
                     stream);
 }
 
 // K3: q/k already roped; no cos/sin.
 extern "C" int dit_attention_bf16(const void* q, const void* k, const void* v, const int* lens,
-                                  void* out, int B, int H, int T_len, void* stream) {
-  return launch_core(q, k, v, lens, out, B, H, T_len, 0.125f /* 1/sqrt(64) */, stream);
+                                  void* out, int B, int H, int Tq, int Tk, void* stream) {
+  return launch_core(q, k, v, lens, out, B, H, Tq, Tk, 0.125f /* 1/sqrt(64) */, stream);
 }
 
 extern "C" int dit_attention_f32(const void* q, const void* k, const void* v, const int* lens,
-                                 void* out, void* lse, int B, int H, int T_len, void* stream) {
+                                 void* out, void* lse, int B, int H, int Tq, int Tk,
+                                 void* stream) {
   return launch_f32((const float*)q, (const float*)k, (const float*)v, lens, (float*)out,
-                    (float*)lse, B, H, T_len, 0.125f /* 1/sqrt(64) */, stream);
+                    (float*)lse, B, H, Tq, Tk, 0.125f /* 1/sqrt(64) */, stream);
 }

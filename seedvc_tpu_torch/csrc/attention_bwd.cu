@@ -447,7 +447,7 @@ int launch(const void* q, const void* k, const void* v, const float* cosb, const
   const dim3 grid((T_len + BT - 1) / BT, B * H);
   if (lse_in == nullptr) {
     attn_fwd_tf32<false, EXACT><<<grid, THREADS, fwd_smem_bytes(false), stream>>>(
-        qs, ks, nullptr, lens, nullptr, lse, H, T_len, 1.f);
+        qs, ks, nullptr, lens, nullptr, lse, H, T_len, T_len, 1.f);
     err = (int)cudaGetLastError();
     if (err) return err;
   }

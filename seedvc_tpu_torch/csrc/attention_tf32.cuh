@@ -286,19 +286,22 @@ __device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m)[2], fl
 // ring, the next tile in flight while the current one's products run. Key
 // tiles that hold only masked keys are skipped (exact: each adds exp(-1e30)
 // = 0), unless no key is valid. PV = false computes the row statistics alone
-// (K1b's, when the forward's were not kept). lse (B*H, T), if not null,
-// receives the row log-sum-exp of the masked logits, m + log(l).
+// (K1b's, when the forward's were not kept). lse (B*H, Tq), if not null,
+// receives the row log-sum-exp of the masked logits, m + log(l). q and out
+// are (B*H, Tq, 64), k and v (B*H, T_len, 64): Tq < T_len is a rank's query
+// slab against keys gathered over ranks.
 template <bool PV, bool EXACT>
 __global__ void __launch_bounds__(THREADS, PV ? 2 : 3)
 attn_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const int* __restrict__ lens,
-              float* __restrict__ out, float* __restrict__ lse, int H, int T_len, float scale) {
+              float* __restrict__ out, float* __restrict__ lse, int H, int Tq, int T_len,
+              float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;             // 2 stages of the key tile
   float* Vs = smem + 2 * TILE;  // 2 stages of the value tile (PV)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
   const int bh = blockIdx.y, q0 = blockIdx.x * BT;
-  const size_t slab = (size_t)bh * T_len * D;
+  const size_t slab = (size_t)bh * T_len * D, qslab = (size_t)bh * Tq * D;
   const int n_valid = lens ? lens[bh / H] : T_len;
   const int all_tiles = (T_len + BT - 1) / BT;
   const int n_tiles = n_valid >= 1 ? min(all_tiles, (n_valid + BT - 1) / BT) : all_tiles;
@@ -311,9 +314,9 @@ attn_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
   const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;
   FragA qf[8];
   {
-    const float* p0 = q + slab + (size_t)min(r0, T_len - 1) * D + c;
-    const float* p1 = q + slab + (size_t)min(r1, T_len - 1) * D + c;
-    const bool in0 = r0 < T_len, in1 = r1 < T_len;
+    const float* p0 = q + qslab + (size_t)min(r0, Tq - 1) * D + c;
+    const float* p1 = q + qslab + (size_t)min(r1, Tq - 1) * D + c;
+    const bool in0 = r0 < Tq, in1 = r1 < Tq;
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       split<EXACT>(in0 ? p0[8 * kk] : 0.f, qf[kk].hi[0], qf[kk].lo[0]);
@@ -387,18 +390,18 @@ attn_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const int col = 8 * nt + 2 * c;
-      if (r0 < T_len)
-        *reinterpret_cast<float2*>(out + slab + (size_t)r0 * D + col) =
+      if (r0 < Tq)
+        *reinterpret_cast<float2*>(out + qslab + (size_t)r0 * D + col) =
             make_float2(o[nt][0] * i0, o[nt][1] * i0);
-      if (r1 < T_len)
-        *reinterpret_cast<float2*>(out + slab + (size_t)r1 * D + col) =
+      if (r1 < Tq)
+        *reinterpret_cast<float2*>(out + qslab + (size_t)r1 * D + col) =
             make_float2(o[nt][2] * i1, o[nt][3] * i1);
     }
   }
   if (lse != nullptr && c == 0) {
-    const size_t row = (size_t)bh * T_len;
-    if (r0 < T_len) lse[row + r0] = __fadd_rn(m[0], logf(l[0]));
-    if (r1 < T_len) lse[row + r1] = __fadd_rn(m[1], logf(l[1]));
+    const size_t row = (size_t)bh * Tq;
+    if (r0 < Tq) lse[row + r0] = __fadd_rn(m[0], logf(l[0]));
+    if (r1 < Tq) lse[row + r1] = __fadd_rn(m[1], logf(l[1]));
   }
 }
 

@@ -13,7 +13,11 @@ batch with a null batch (zeroed prompt/style/mu) and combines
 ``(1+r)·cond − r·uncond``; the prompt region of x is re-zeroed every step.
 The initial noise is an argument. ``shard_axis`` splits the CFG-stacked
 batch over a mesh axis: each rank runs the estimator on its rows and the
-ranks gather the velocity before the combination.
+ranks gather the velocity before the combination. ``seq_shard_axis`` splits
+time over a mesh axis (:class:`~seedvc_tpu_torch.parallel.mesh.SeqShard`):
+each rank runs the estimator on its time rows, the DiT's attention gathers
+keys and values and its convolutions exchange halos, and the velocity is
+gathered over time, then over the stack.
 """
 
 from __future__ import annotations
@@ -27,10 +31,9 @@ from torch import nn
 from seedvc_tpu_torch.core.config import ModelParams
 from seedvc_tpu_torch.models.dit import DiT
 from seedvc_tpu_torch.parallel.collectives import gather_rows, row_split
-from seedvc_tpu_torch.parallel.mesh import current_mesh
+from seedvc_tpu_torch.parallel.mesh import SeqShard, current_mesh, seq_shard_block
 
 SIGMA_MIN = 1e-6
-SEQ_SHARD = "sequence-sharded sampling (seq_shard_axis) is not ported: ROADMAP queue 1 item 3c(ii)"
 
 
 class StackShard:
@@ -51,6 +54,29 @@ class StackShard:
 
     def gather(self, v: torch.Tensor) -> torch.Tensor:
         return gather_rows(v, self.group, self.n)
+
+
+def time_shard(axis: Optional[str], T: int) -> Optional[SeqShard]:
+    """The split of the sampler's T time rows over ``axis`` (None: whole)."""
+    return None if axis is None else SeqShard.over(axis, T)
+
+
+def estimate_rows(estimate_fn: Callable, seq: Optional[SeqShard], shard: StackShard,
+                  xx: torch.Tensor, t_cur: float, est: tuple, est_args: tuple) -> torch.Tensor:
+    """One estimator call on this rank's stack rows and time rows of ``xx``
+    (its time rows already taken; ``est`` = (prompt, lens, style, mu), this
+    rank's rows), the velocity gathered over time, then over the stack."""
+    n_local = xx.shape[0]
+    prompt, lens, style, mu = est
+    if n_local:
+        tt = torch.full((n_local,), t_cur, dtype=mu.dtype, device=mu.device)
+        with seq_shard_block(seq):
+            v = estimate_fn(xx, prompt, lens, tt, style, mu, *est_args)
+    else:  # more ranks than rows: this one only takes part in the gathers
+        v = torch.zeros_like(xx)
+    if seq is not None:
+        v = seq.gather(v)
+    return shard.gather(v)
 
 
 class CFM(nn.Module):
@@ -127,14 +153,16 @@ def euler_solve(estimate_fn: Callable, noise: torch.Tensor, mu: torch.Tensor,
     x_lens, style, mu) -> static_cond`` hoists the step-invariant
     conditioning out of the loop. ``shard_axis``: split the CFG-stacked batch
     over that axis of the ``set_mesh`` mesh (each rank runs the estimator on
-    its rows; every rank returns the whole result).
+    its rows; every rank returns the whole result). ``seq_shard_axis``: split
+    time over that axis (composes with ``shard_axis`` on the other one); each
+    rank's estimator sees its rows of x, the prompt and mu, at their global
+    positions, and ``precompute_fn`` runs on them.
     Returns the generated mel (B, T, n_mels); the prompt region holds zeros.
     """
-    if seq_shard_axis is not None:
-        raise NotImplementedError(SEQ_SHARD)
     if t_scheduler not in ("linear", "cosine"):
         raise ValueError(f"unknown t_scheduler {t_scheduler!r}")
     B, T, _ = mu.shape
+    seq = time_shard(seq_shard_axis, T)
     t_span = (cosine_t_span(n_timesteps) if t_scheduler == "cosine"
               else torch.linspace(0.0, 1.0, n_timesteps + 1))
     noise = noise * temperature
@@ -154,24 +182,25 @@ def euler_solve(estimate_fn: Callable, noise: torch.Tensor, mu: torch.Tensor,
     shard = StackShard(shard_axis, n_stack)
     est_prompt, est_style, est_mu, est_lens = (shard.take(t) for t in (
         est_prompt, est_style, est_mu, est_lens))
+    if seq is not None:
+        est_prompt, est_mu = seq.take(est_prompt), seq.take(est_mu)
     n_local = est_mu.shape[0]
 
     est_args = ()
     if precompute_fn is not None and n_local:
-        x_shape = (n_local, T, noise.shape[-1])
-        est_args = (precompute_fn(torch.zeros(x_shape, dtype=mu.dtype, device=mu.device),
-                                  est_prompt, est_lens, est_style, est_mu),)
+        x_shape = (n_local, est_mu.shape[1], noise.shape[-1])
+        with seq_shard_block(seq):
+            est_args = (precompute_fn(torch.zeros(x_shape, dtype=mu.dtype, device=mu.device),
+                                      est_prompt, est_lens, est_style, est_mu),)
 
+    est = (est_prompt, est_lens, est_style, est_mu)
     for i in range(n_timesteps):
         t_cur = float(t_span[i])
         dt = float(t_span[i + 1] - t_span[i])
         xx = shard.take(torch.cat([x, x], 0) if use_cfg else x)
-        if n_local:
-            tt = torch.full((n_local,), t_cur, dtype=mu.dtype, device=mu.device)
-            v = estimate_fn(xx, est_prompt, est_lens, tt, est_style, est_mu, *est_args)
-        else:  # more ranks than rows: this one only takes part in the gather
-            v = torch.zeros_like(xx)
-        v = shard.gather(v)
+        if seq is not None:
+            xx = seq.take(xx)
+        v = estimate_rows(estimate_fn, seq, shard, xx, t_cur, est, est_args)
         if use_cfg:
             v_cond, v_null = v.chunk(2, dim=0)
             v = (1.0 + cfg_rate) * v_cond - cfg_rate * v_null

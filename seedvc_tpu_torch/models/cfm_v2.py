@@ -20,7 +20,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from seedvc_tpu_torch.models.cfm import SEQ_SHARD, StackShard, cosine_t_span  # noqa: F401
+from seedvc_tpu_torch.models.cfm import StackShard, cosine_t_span, estimate_rows, time_shard
+from seedvc_tpu_torch.parallel.mesh import seq_shard_block
 
 SIGMA_MIN = 1e-6
 
@@ -57,11 +58,11 @@ def euler_solve_multicfg(estimate_fn: Callable, noise: torch.Tensor, mu: torch.T
     style, mu) -> static_cond`` hoists the step-invariant conditioning out of
     the loop. ``shard_axis``: split the stack over that axis of the
     ``set_mesh`` mesh (an uneven split too: 3 branches over 2 ranks are 2 and
-    1 rows); every rank returns the whole result. Returns the generated mel;
+    1 rows); every rank returns the whole result. ``seq_shard_axis``: split
+    time over that axis, as the v1 sampler's. Returns the generated mel;
     the prompt region holds zeros."""
-    if seq_shard_axis is not None:
-        raise NotImplementedError(SEQ_SHARD)
     B, T, _ = mu.shape
+    seq = time_shard(seq_shard_axis, T)
     z = noise * temperature
     in_prompt = (torch.arange(T, device=mu.device) < prompt_len)[None, :, None]
     prompt_x = torch.where(in_prompt, prompt, torch.zeros_like(prompt))
@@ -75,25 +76,26 @@ def euler_solve_multicfg(estimate_fn: Callable, noise: torch.Tensor, mu: torch.T
     shard = StackShard(shard_axis, n_br * B)
     est_prompt, est_style, est_mu, est_lens = (shard.take(t) for t in (
         est_prompt, est_style, est_mu, est_lens))
+    if seq is not None:
+        est_prompt, est_mu = seq.take(est_prompt), seq.take(est_mu)
     n_local = est_mu.shape[0]
 
     est_args = ()
     if precompute_fn is not None and n_local:
-        x_shape = (n_local, T, noise.shape[-1])
-        est_args = (precompute_fn(torch.zeros(x_shape, dtype=mu.dtype, device=mu.device),
-                                  est_prompt, est_lens, est_style, est_mu),)
+        x_shape = (n_local, est_mu.shape[1], noise.shape[-1])
+        with seq_shard_block(seq):
+            est_args = (precompute_fn(torch.zeros(x_shape, dtype=mu.dtype, device=mu.device),
+                                      est_prompt, est_lens, est_style, est_mu),)
 
+    est = (est_prompt, est_lens, est_style, est_mu)
     t_span = cosine_t_span(n_timesteps)
     for i in range(n_timesteps):
         t_cur = float(t_span[i])
         dt = float(t_span[i + 1] - t_span[i])
         xx = shard.take(torch.cat([x] * n_br, 0))
-        if n_local:
-            tt = torch.full((n_local,), t_cur, dtype=mu.dtype, device=mu.device)
-            v = estimate_fn(xx, est_prompt, est_lens, tt, est_style, est_mu, *est_args)
-        else:  # more ranks than rows: this one only takes part in the gather
-            v = torch.zeros_like(xx)
-        v = shard.gather(v)
+        if seq is not None:
+            xx = seq.take(xx)
+        v = estimate_rows(estimate_fn, seq, shard, xx, t_cur, est, est_args)
         v = torch.tensordot(w, v.reshape(n_br, B, *v.shape[1:]), dims=1)
         x = (x.float() + dt * v.float()).to(x.dtype)
         x = torch.where(in_prompt, torch.zeros_like(x), x)

@@ -12,6 +12,12 @@ With ``style_as_token`` the style leaves the merge and enters as a token
 runs unconditioned. The prefix is ``[time, style, x...]``: keys are valid up
 to ``x_lens`` plus the prefix, RoPE spans the prefix too, and the output drops
 it.
+
+Inside a sampler whose time is split (``seq_shard_axis``; the current
+:class:`~seedvc_tpu_torch.parallel.mesh.SeqShard`), x, prompt_x and cond are
+this rank's time rows. The first rank holds the prefix rows before its own;
+the attention gathers keys and values over the axis, the WaveNet head's
+convolutions exchange halos, and the masks and RoPE take global positions.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from seedvc_tpu_torch.core.utils import sequence_mask
 from seedvc_tpu_torch.nn.layers import Dense, TimestepEmbedder
 from seedvc_tpu_torch.nn.transformer import Transformer, TransformerConfig
 from seedvc_tpu_torch.nn.wavenet import WaveNet
+from seedvc_tpu_torch.parallel.mesh import current_seq_shard
 
 
 class SplitDense(nn.Module):
@@ -130,11 +137,15 @@ class DiT(nn.Module):
         if dc.style_as_token:
             prefix.append(style_tok[:, None, :])
         n_prefix = len(prefix)
-        if prefix:
+        seq = current_seq_shard()
+        tokens = None if seq is None else seq.with_lead(n_prefix)
+        lead = n_prefix if seq is None or seq.index == 0 else 0  # prefix rows held here
+        if prefix and lead:
             x_in = torch.cat([*prefix, x_in], dim=1)
+        T_all = T if seq is None else seq.total
         lens = (None if x_lens is None
-                else torch.clamp(x_lens + n_prefix, max=T + n_prefix).to(torch.int32))
-        x_res = self.transformer(x_in, t1[:, None, :], lens)[:, n_prefix:]
+                else torch.clamp(x_lens + n_prefix, max=T_all + n_prefix).to(torch.int32))
+        x_res = self.transformer(x_in, t1[:, None, :], lens, tokens)[:, lead:]
 
         if dc.long_skip_connection:
             x_res = self.skip_linear(torch.cat([x_res.to(x.dtype), x], dim=-1))
@@ -142,8 +153,12 @@ class DiT(nn.Module):
         if dc.final_layer_type == "wavenet":
             h = self.conv1(x_res)
             t2 = self.t_embedder2(t)
-            mask = None if x_lens is None else sequence_mask(x_lens, T)[..., None].to(x.dtype)
-            h = self.wavenet(h, mask, g=t2[:, None, :].to(x.dtype))
+            mask = None
+            if x_lens is not None:
+                valid = (sequence_mask(x_lens, T) if seq is None
+                         else seq.positions(x.device)[None, :] < x_lens[:, None])
+                mask = valid[..., None].to(x.dtype)
+            h = self.wavenet(h, mask, g=t2[:, None, :].to(x.dtype), seq=seq)
             h = h + self.res_projection(x_res)
             h = self.final_layer(h, t1)
             return self.conv2(h.to(x.dtype))

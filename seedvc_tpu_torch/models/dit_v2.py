@@ -8,7 +8,8 @@ style token and then the time token are prepended, so the sequence is
 ``[time, style, x...]``: keys are valid below ``x_lens + 2`` (the ``lens``
 K1 gets) and RoPE spans the prefix. Blocks use a 6-way AdaLN-Zero split
 (shift, scale, gate for attention and for the MLP, from silu(time)); the
-final adaptive norm uses the (scale, shift) chunk order.
+final adaptive norm uses the (scale, shift) chunk order. A split time axis
+(``seq_shard_axis``) is taken as the v1 DiT takes it.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from torch import nn
 from seedvc_tpu_torch.models.dit import SplitDense
 from seedvc_tpu_torch.nn.layers import (Attention, FeedForward, RMSNorm, TimestepEmbedder,
                                         ffn_intermediate_size, rope_cache, rope_full_cache)
+from seedvc_tpu_torch.parallel.mesh import current_seq_shard
 
 
 @dataclass(frozen=True)
@@ -57,11 +59,11 @@ class AdaLNZeroBlock(nn.Module):
         self.ffn_norm = RMSNorm(d, cfg.norm_eps)
         self.feed_forward = FeedForward(d, ffn_intermediate_size(d))
 
-    def forward(self, x, c, freqs, lens, rope_full=None):
+    def forward(self, x, c, freqs, lens, rope_full=None, seq=None):
         (shift_msa, scale_msa, gate_msa,
          shift_mlp, scale_mlp, gate_mlp) = self.adaln_linear(F.silu(c)).chunk(6, dim=-1)
         h = self.attention_norm(x) * (1 + scale_msa) + shift_msa
-        x = x + gate_msa * self.attention(h, freqs, lens, rope_full)
+        x = x + gate_msa * self.attention(h, freqs, lens, rope_full, seq)
         h = self.ffn_norm(x) * (1 + scale_mlp) + shift_mlp
         return x + gate_mlp * self.feed_forward(h)
 
@@ -133,14 +135,18 @@ class DiTV2(nn.Module):
         if cfg.style_as_token:
             prefix.append(style_tok[:, None, :])
         n_prefix = len(prefix)
-        if prefix:
+        seq = current_seq_shard()
+        tokens = None if seq is None else seq.with_lead(n_prefix)
+        lead = n_prefix if seq is None or seq.index == 0 else 0  # prefix rows held here
+        if prefix and lead:
             x_in = torch.cat([*prefix, x_in], dim=1)
         lens = None if x_lens is None else (x_lens + n_prefix).to(torch.int32)
-        freqs, rope_full = self.rope_tables(T + n_prefix, x.device)
+        T_all = T if seq is None else seq.total
+        freqs, rope_full = self.rope_tables(T_all + n_prefix, x.device)
         c = t1[:, None, :]
         h = x_in
         for i in range(cfg.depth):
-            h = getattr(self, f"layers_{i}")(h, c, freqs, lens, rope_full)
+            h = getattr(self, f"layers_{i}")(h, c, freqs, lens, rope_full, tokens)
         scale, shift = self.final_adaln_linear(F.silu(c)).chunk(2, dim=-1)
-        h = (self.final_norm(h) * (1 + scale) + shift)[:, n_prefix:]
+        h = (self.final_norm(h) * (1 + scale) + shift)[:, lead:]
         return self.final_mlp2(F.silu(self.final_mlp0(h)))

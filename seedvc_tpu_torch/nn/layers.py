@@ -29,6 +29,7 @@ from torch import nn
 from seedvc_tpu_torch.ops.attention import (dit_attention, dit_attention_diff,
                                             dit_attention_fused, dit_attention_fused_diff)
 from seedvc_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
+from seedvc_tpu_torch.parallel.mesh import AXES, SeqShard
 from seedvc_tpu_torch.parallel.sharding import TensorParallel, TPSplit
 
 
@@ -103,7 +104,7 @@ def rope_full_cache(seq_len: int, head_dim: int,
 
 def apply_rope(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     """Rotate interleaved pairs in fp32. x: (B, T, H, D); freqs: (T, D//2, 2)."""
-    xf = x.float().reshape(*x.shape[:-1], -1, 2)
+    xf = x.float().reshape(*x.shape[:-1], x.shape[-1] // 2, 2)
     cos = freqs[None, :, None, :, 0]
     sin = freqs[None, :, None, :, 1]
     out = torch.stack([xf[..., 0] * cos - xf[..., 1] * sin,
@@ -126,6 +127,12 @@ class Attention(TensorParallel, nn.Module):
     the matching KV heads of k and v (rows of ``wqkv``) and those heads'
     columns of ``wo``; the input's gradient and the output are summed over
     the ``model`` group, and the kernels run on the local heads.
+
+    Time split (``seq``, a :class:`~seedvc_tpu_torch.parallel.mesh.SeqShard`,
+    sampling only): x holds this rank's rows; k and v are gathered over the
+    axis after the projection, before RoPE, and q stays local. K1 takes the
+    rows ``seq.rows`` of the cos/sin tables for q and the whole tables for
+    k; K3 and the einsum path rope q and k here at those positions.
     """
 
     def __init__(self, dim: int, n_head: int, n_local_heads: int | None = None,
@@ -151,10 +158,12 @@ class Attention(TensorParallel, nn.Module):
         self.n_kv //= n
 
     def forward(self, x: torch.Tensor, freqs: torch.Tensor, lens: Optional[torch.Tensor],
-                rope_full: Optional[tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                rope_full: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+                seq: Optional[SeqShard] = None) -> torch.Tensor:
         """x: (B, T, dim); freqs: (T, head_dim//2, 2) f32 from ``rope_cache``;
         lens: (B,) int32 valid key counts or None; rope_full: (T, head_dim)
-        f32 cos/sin from ``rope_full_cache``, or None."""
+        f32 cos/sin from ``rope_full_cache``, or None. With ``seq`` the
+        tables span the ``seq.total`` rows and x holds ``seq.rows``."""
         B, T, _ = x.shape
         H, Hkv, hd = self.n_head, self.n_kv, self.head_dim
         x = copy_to_group(x, self.tp_group)
@@ -162,15 +171,31 @@ class Attention(TensorParallel, nn.Module):
         # a trainable call (grad mode on, q/k/v requiring grad) takes the
         # autograd Functions: K1 or K3 forward, K1ᵇ backward
         train = torch.is_grad_enabled() and q.requires_grad
+        rows = slice(0, T)
+        if seq is not None:
+            if train:
+                raise ValueError("Attention: a split time axis is for sampling (no grad)")
+            if self.tp_group is not None and seq.axis == AXES.model:
+                raise ValueError("Attention: tensor parallelism and a time split on the "
+                                 f"same axis {seq.axis!r}")
+            k, v = seq.gather(torch.cat([k, v], dim=-1)).split([Hkv * hd, Hkv * hd], dim=-1)
+            rows = seq.rows
+        Tk = k.shape[1]
         if self.use_flash and Hkv == H and rope_full is not None:
-            q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2).contiguous() for t in (q, k, v))
-            fused = dit_attention_fused_diff if train else dit_attention_fused
-            out = fused(q, k, v, *rope_full, lens).transpose(1, 2)
+            q = q.reshape(B, T, H, hd).transpose(1, 2).contiguous()
+            k, v = (t.reshape(B, Tk, H, hd).transpose(1, 2).contiguous() for t in (k, v))
+            if seq is not None:  # q's tables: the rows at its global positions
+                out = dit_attention_fused(q, k, v, *rope_full, lens,
+                                          q_rope=tuple(t[rows] for t in rope_full))
+            else:
+                fused = dit_attention_fused_diff if train else dit_attention_fused
+                out = fused(q, k, v, *rope_full, lens)
+            out = out.transpose(1, 2)
             return reduce_from_group(self.wo(out.reshape(B, T, H * hd)), self.tp_group)
 
-        q = apply_rope(q.reshape(B, T, H, hd), freqs)
-        k = apply_rope(k.reshape(B, T, Hkv, hd), freqs)
-        v = v.reshape(B, T, Hkv, hd)
+        q = apply_rope(q.reshape(B, T, H, hd), freqs[rows])
+        k = apply_rope(k.reshape(B, Tk, Hkv, hd), freqs)
+        v = v.reshape(B, Tk, Hkv, hd)
         if Hkv != H:  # [kv0, kv0, kv1, kv1, ...], as jnp.repeat on the head axis
             k = k.repeat_interleave(H // Hkv, dim=2)
             v = v.repeat_interleave(H // Hkv, dim=2)
@@ -180,7 +205,7 @@ class Attention(TensorParallel, nn.Module):
         else:
             logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
             if lens is not None:
-                valid = torch.arange(T, device=x.device)[None, :] < lens[:, None]
+                valid = torch.arange(Tk, device=x.device)[None, :] < lens[:, None]
                 logits = logits.masked_fill(~valid[:, None, None, :],
                                             torch.finfo(torch.float32).min)
             probs = torch.softmax(logits, dim=-1).to(x.dtype)

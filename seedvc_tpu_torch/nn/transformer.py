@@ -18,6 +18,7 @@ from torch import nn
 
 from seedvc_tpu_torch.nn.layers import (AdaptiveRMSNorm, Attention, Dense, FeedForward,
                                         ffn_intermediate_size, rope_cache, rope_full_cache)
+from seedvc_tpu_torch.parallel.mesh import SeqShard
 
 
 @dataclass(frozen=True)
@@ -47,10 +48,10 @@ class TransformerBlock(nn.Module):
         self.ffn_norm = AdaptiveRMSNorm(cfg.dim, cfg.norm_eps, conditioned)
         self.feed_forward = FeedForward(cfg.dim, ffn_intermediate_size(cfg.dim))
 
-    def forward(self, x, c, freqs, lens, skip_in=None, rope_full=None):
+    def forward(self, x, c, freqs, lens, skip_in=None, rope_full=None, seq=None):
         if self.receives_skip and skip_in is not None:
             x = self.skip_in_linear(torch.cat([x, skip_in.to(x.dtype)], dim=-1))
-        h = x + self.attention(self.attention_norm(x, c), freqs, lens, rope_full)
+        h = x + self.attention(self.attention_norm(x, c), freqs, lens, rope_full, seq)
         return h + self.feed_forward(self.ffn_norm(h, c))
 
 
@@ -83,18 +84,21 @@ class Transformer(nn.Module):
             self._rope[key] = freqs, rope_full
         return self._rope[key]
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor,
-                lens: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, c: torch.Tensor, lens: Optional[torch.Tensor],
+                seq: Optional[SeqShard] = None) -> torch.Tensor:
         """x: (B, T, D); c: (B, 1, D) time embedding (unused with
         ``time_as_token``); lens: (B,) int32 valid key counts or None (every
-        key valid)."""
+        key valid). ``seq``: x holds this rank's rows ``seq.rows`` of a
+        sequence of ``seq.total`` split over a mesh axis; the tables span the
+        whole sequence and each attention takes its queries' rows of them."""
         cfg = self.cfg
-        freqs, rope_full = self.rope_tables(x.shape[1], x.device)
+        T = x.shape[1] if seq is None else seq.total
+        freqs, rope_full = self.rope_tables(T, x.device)
         c = None if cfg.time_as_token else c
         skips: list[torch.Tensor] = []
         for i in range(cfg.n_layer):
             skip_in = skips.pop() if i in self.recv and skips else None
-            x = getattr(self, f"layers_{i}")(x, c, freqs, lens, skip_in, rope_full)
+            x = getattr(self, f"layers_{i}")(x, c, freqs, lens, skip_in, rope_full, seq)
             if i in self.emit:
                 skips.append(x)
         return self.norm(x, c)

@@ -48,18 +48,28 @@ class WaveNet(nn.Module):
             self.add_module(f"res_skip_layers_{i}", CastConv1d(C, out_ch, 1))
 
     def forward(self, x: torch.Tensor, x_mask: Optional[torch.Tensor],
-                g: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: (B, T, C); x_mask: (B, T, 1) or None; g: (B, 1, gin) or None."""
+                g: Optional[torch.Tensor] = None, seq=None) -> torch.Tensor:
+        """x: (B, T, C); x_mask: (B, T, 1) or None; g: (B, 1, gin) or None.
+        ``seq`` (a :class:`~seedvc_tpu_torch.parallel.mesh.SeqShard`): x and
+        the mask are this rank's rows of a sequence split over a mesh axis;
+        each convolution pads with the neighbours' rows (``SeqShard.halo``),
+        and with reflect or zeros only at the sequence's two ends."""
         C = self.C
+        pads = [(self.kernel_size - 1) * self.dilation_rate ** i // 2 for i in range(self.n_layers)]
+        if seq is not None and x.shape[1] == 0:  # no rows here: only the halo exchanges
+            for pad in pads:
+                seq.halo(x.transpose(1, 2), pad, self.pad_mode)
+            return torch.zeros_like(x)
         x = x.transpose(1, 2)
         mask = None if x_mask is None else x_mask.transpose(1, 2)
         output = torch.zeros_like(x)
         g_all = None
         if g is not None and hasattr(self, "cond_layer"):
             g_all = self.cond_layer(g).transpose(1, 2)  # (B, 2*C*n_layers, 1)
-        for i in range(self.n_layers):
-            pad = (self.kernel_size - 1) * self.dilation_rate ** i // 2
-            x_in = getattr(self, f"in_layers_{i}")(F.pad(x, (pad, pad), mode=self.pad_mode))
+        for i, pad in enumerate(pads):
+            padded = (F.pad(x, (pad, pad), mode=self.pad_mode) if seq is None
+                      else seq.halo(x, pad, self.pad_mode))
+            x_in = getattr(self, f"in_layers_{i}")(padded)
             if g_all is not None:
                 x_in = x_in + g_all[:, i * 2 * C:(i + 1) * 2 * C]
             acts = torch.tanh(x_in[:, :C]) * torch.sigmoid(x_in[:, C:])

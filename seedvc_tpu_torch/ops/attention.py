@@ -57,6 +57,12 @@ names, run K1 or K3 forward and K1ᵇ backward.
   last bits vary from run to run); RoPE's transpose and the cast back. A
   batch row with at most one valid key is exact as its own case.
 
+Query slab (a time axis split over ranks, ``seq_shard_axis``): K1 and K3
+take q with Tq rows and k, v with Tk >= Tq rows; K1 ropes q with its own
+(Tq, 64) tables (``q_rope``: the rows of the (Tk, 64) tables at the queries'
+global positions). The key-length mask runs over the Tk keys. K1ᵇ takes
+Tq = Tk only (sampling, the one user of a slab, runs without grad).
+
 A CPU tensor goes to the plain twin; a CUDA tensor launches the kernel or
 raises. ``LAUNCHES`` counts K1's calls, ``DIT_ATTENTION_LAUNCHES`` K3's,
 ``BWD_LAUNCHES`` K1ᵇ's (for either forward).
@@ -80,11 +86,11 @@ BWD_LAUNCHES = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "dit_attention_fused_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "dit_attention_fused_f32": [_P] * 9 + [_I] * 3 + [_P],
-    "dit_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "dit_attention_f32": [_P] * 6 + [_I] * 3 + [_P],
-    "rope_prepass_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "dit_attention_fused_bf16": [_P] * 10 + [_I] * 4 + [_P],
+    "dit_attention_fused_f32": [_P] * 11 + [_I] * 4 + [_P],
+    "dit_attention_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    "dit_attention_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "rope_prepass_bf16": [_P] * 8 + [_I] * 3 + [_P],
     "dit_attention_bwd": [_P] * 13 + [_I] * 5 + [_P],
 }
 
@@ -99,15 +105,15 @@ def _kernel(name: str, source: str = "attention"):
 
 def _pair_swap(x: torch.Tensor) -> torch.Tensor:
     """(x0, x1, x2, x3, ...) -> (x1, x0, x3, x2, ...) on the last axis."""
-    x2 = x.reshape(*x.shape[:-1], -1, 2)
+    x2 = x.reshape(*x.shape[:-1], x.shape[-1] // 2, 2)
     return torch.stack((x2[..., 1], x2[..., 0]), dim=-1).reshape(x.shape)
 
 
 def _masked_logits(q, k, lens):
-    T, d = q.shape[2], q.shape[3]
+    Tk, d = k.shape[2], q.shape[3]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
     if lens is not None:
-        mask = torch.arange(T, device=q.device)[None, :] < lens[:, None]
+        mask = torch.arange(Tk, device=q.device)[None, :] < lens[:, None]
         s = torch.where(mask[:, None, None, :], s, torch.full_like(s, NEG_INF))
     return s
 
@@ -133,32 +139,41 @@ def rope_scaled_reference(x, cos, sin, scale: float = 1.0):
     return ((xf * cos + _pair_swap(xf) * sin) * scale).to(x.dtype)
 
 
-def dit_attention_fused_reference(q, k, v, cos, sin, lens=None):
+def dit_attention_fused_reference(q, k, v, cos, sin, lens=None, q_rope=None):
     """Plain twin of K1: :func:`rope_scaled_reference` on q and k, then
-    :func:`dit_attention_reference` (which scales the logits by 1/√d)."""
-    return dit_attention_reference(rope_scaled_reference(q, cos, sin),
+    :func:`dit_attention_reference` (which scales the logits by 1/√d).
+    cos/sin are k's (Tk, 64) tables; ``q_rope`` = (cos, sin) of q's rows,
+    (Tq, 64), or None for the same tables as k's."""
+    q_cos, q_sin = (cos, sin) if q_rope is None else q_rope
+    return dit_attention_reference(rope_scaled_reference(q, q_cos, q_sin),
                                    rope_scaled_reference(k, cos, sin), v, lens)
 
 
-def _check(op: str, q, k, v, lens, extra=()):
-    """Shapes, dtypes, devices, contiguity and alignment the kernel takes."""
+def _check(op: str, q, k, v, lens, extra=(), same_t: bool = False):
+    """Shapes, dtypes, devices, contiguity and alignment the kernel takes:
+    q (B, H, Tq, 64), k and v (B, H, Tk, 64) with Tq <= Tk (Tq = Tk with
+    ``same_t``); ``extra`` = (name, table, rows) of (rows, 64) f32 tables."""
     B, H, T, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"{op}: head_dim must be {HEAD_DIM}, got {d}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{op}: unsupported dtype {q.dtype}")
+    Tk = k.shape[2]
     for name, t in (("k", k), ("v", v)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+        if (t.shape[:2] != q.shape[:2] or t.shape[2:] != (Tk, d) or t.dtype != q.dtype
+                or t.device != q.device):
             raise ValueError(f"{op}: {name} does not match q")
-    for name, t in extra:
-        if t.shape != (T, d) or t.dtype != torch.float32 or t.device != q.device:
-            raise ValueError(f"{op}: {name} must be ({T}, {d}) f32 on {q.device}")
+    if T > Tk or (same_t and T != Tk):
+        raise ValueError(f"{op}: {T} query rows against {Tk} keys")
+    for name, t, rows in extra:
+        if t.shape != (rows, d) or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"{op}: {name} must be ({rows}, {d}) f32 on {q.device}")
     if lens is not None:
         if lens.shape != (B,) or lens.dtype != torch.int32 or lens.device != q.device:
             raise ValueError(f"{op}: lens must be ({B},) int32 on {q.device}")
         if not lens.is_contiguous():
             raise ValueError(f"{op}: lens must be contiguous")
-    for name, t in (("q", q), ("k", k), ("v", v), *extra):
+    for name, t in (("q", q), ("k", k), ("v", v), *((n, t) for n, t, _ in extra)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{op}: {name} must be contiguous and 16-byte aligned")
 
@@ -167,48 +182,66 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(op: str, fn, q, pointers, lens, after_out=()) -> torch.Tensor:
-    """Calls a C entry point (pointers..., lens, out, after_out..., B, H, T,
-    stream) and returns out."""
+def _launch(op: str, fn, q, k, pointers, lens, after_out=()) -> torch.Tensor:
+    """Calls a C entry point (pointers..., lens, out, after_out..., B, H, Tq,
+    Tk, stream) and returns out (B, H, Tq, 64)."""
     B, H, T, _ = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):  # the C side sets attributes of the current device
         err = fn(*pointers, _ptr(lens), out.data_ptr(), *(_ptr(t) for t in after_out), B, H, T,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 k.shape[2], torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{op}: CUDA launch failed (error {err})")
     return out
 
 
 def _lse_buffer(q, want: bool):
-    """The (B, H, T) f32 buffer the f32 kernel writes the row log-sum-exp to."""
+    """The (B, H, Tq) f32 buffer the f32 kernel writes the row log-sum-exp to."""
     return torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if want else None
+
+
+def _no_rows(q, bf16: bool, return_lse: bool):
+    """The result for q without rows (a rank whose slab is empty): nothing
+    to launch."""
+    out = torch.empty_like(q)
+    return (out, None if bf16 else _lse_buffer(q, True)) if return_lse else out
 
 
 def dit_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         cos: torch.Tensor, sin: torch.Tensor,
-                        lens: torch.Tensor | None = None, return_lse: bool = False):
-    """K1. q/k/v: (B, H, T, 64) bf16 or f32, before RoPE; cos/sin: (T, 64)
-    f32 from ``rope_full_cache``; lens: (B,) valid key counts or None.
-    Returns (B, H, T, 64) in q's dtype; with ``return_lse``, (out, lse):
-    lse (B, H, T) f32 is the row log-sum-exp of the masked logits (K1ᵇ's
-    statistics), None from the bf16 core, which does not write it."""
+                        lens: torch.Tensor | None = None, return_lse: bool = False,
+                        q_rope: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """K1. q: (B, H, Tq, 64) and k/v: (B, H, Tk, 64), bf16 or f32, before
+    RoPE, Tq <= Tk; cos/sin: k's (Tk, 64) f32 tables from
+    ``rope_full_cache``; ``q_rope``: q's (Tq, 64) tables (the rows at the
+    queries' positions), or None when Tq = Tk and q takes k's; lens: (B,)
+    valid key counts or None. Returns (B, H, Tq, 64) in q's dtype; with
+    ``return_lse``, (out, lse): lse (B, H, Tq) f32 is the row log-sum-exp
+    of the masked logits (K1ᵇ's statistics), None from the bf16 core, which
+    does not write it."""
+    q_cos, q_sin = (cos, sin) if q_rope is None else q_rope
     if q.device.type == "cpu":
-        out = dit_attention_fused_reference(q, k, v, cos, sin, lens)
+        out = dit_attention_fused_reference(q, k, v, cos, sin, lens, (q_cos, q_sin))
         if not return_lse:
             return out
-        return out, dit_attention_lse_reference(rope_scaled_reference(q, cos, sin),
+        return out, dit_attention_lse_reference(rope_scaled_reference(q, q_cos, q_sin),
                                                 rope_scaled_reference(k, cos, sin), lens)
     if q.device.type != "cuda":
         raise ValueError(f"dit_attention_fused: unsupported device {q.device}")
-    _check("dit_attention_fused", q, k, v, lens, (("cos", cos), ("sin", sin)))
+    Tq, Tk = q.shape[2], k.shape[2]
+    _check("dit_attention_fused", q, k, v, lens,
+           (("cos", cos, Tk), ("sin", sin, Tk), ("q_rope cos", q_cos, Tq),
+            ("q_rope sin", q_sin, Tq)))
     bf16 = q.dtype == torch.bfloat16
+    if Tq == 0:
+        return _no_rows(q, bf16, return_lse)
     fn = _kernel("dit_attention_fused_bf16" if bf16 else "dit_attention_fused_f32")
     # the pre-pass writes roped q and k here before the core reads them
-    scratch = torch.empty((2, *q.shape), dtype=q.dtype, device=q.device)
+    scratch = torch.empty(q.numel() + k.numel(), dtype=q.dtype, device=q.device)
     lse = None if bf16 else _lse_buffer(q, return_lse)
-    out = _launch("dit_attention_fused", fn, q,
-                  (q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr()),
+    out = _launch("dit_attention_fused", fn, q, k,
+                  (q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                   q_cos.data_ptr(), q_sin.data_ptr()),
                   lens, (scratch,) if bf16 else (lse, scratch))
     global LAUNCHES
     LAUNCHES += 1
@@ -217,9 +250,10 @@ def dit_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def dit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   lens: torch.Tensor | None = None, return_lse: bool = False):
-    """K3. q/k/v: (B, H, T, 64) bf16 or f32, q/k already roped; lens: (B,)
-    valid key counts or None (every key valid). Returns (B, H, T, 64) in
-    q's dtype; ``return_lse`` as in :func:`dit_attention_fused`."""
+    """K3. q: (B, H, Tq, 64) and k/v: (B, H, Tk, 64), bf16 or f32, q/k
+    already roped, Tq <= Tk; lens: (B,) valid key counts or None (every key
+    valid). Returns (B, H, Tq, 64) in q's dtype; ``return_lse`` as in
+    :func:`dit_attention_fused`."""
     if q.device.type == "cpu":
         out = dit_attention_reference(q, k, v, lens)
         return (out, dit_attention_lse_reference(q, k, lens)) if return_lse else out
@@ -227,35 +261,44 @@ def dit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"dit_attention: unsupported device {q.device}")
     _check("dit_attention", q, k, v, lens)
     bf16 = q.dtype == torch.bfloat16
+    if q.shape[2] == 0:
+        return _no_rows(q, bf16, return_lse)
     fn = _kernel("dit_attention_bf16" if bf16 else "dit_attention_f32")
     lse = None if bf16 else _lse_buffer(q, return_lse)
-    out = _launch("dit_attention", fn, q, (q.data_ptr(), k.data_ptr(), v.data_ptr()), lens,
+    out = _launch("dit_attention", fn, q, k, (q.data_ptr(), k.data_ptr(), v.data_ptr()), lens,
                   () if bf16 else (lse,))
     global DIT_ATTENTION_LAUNCHES
     DIT_ATTENTION_LAUNCHES += 1
     return (out, lse) if return_lse else out
 
 
-def rope_prepass(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
-                 sin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def rope_prepass(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                 q_rope: tuple[torch.Tensor, torch.Tensor] | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1's first stage on its own: (rope(q)·2⁻³, rope(k)) in bf16, the
-    inputs of the attention core. q/k: (B, H, T, 64) bf16 before RoPE;
-    cos/sin: (T, 64) f32. K1 runs this stage inside its own call; this entry
-    lets a test hold it to :func:`rope_scaled_reference` bit for bit."""
+    inputs of the attention core. q: (B, H, Tq, 64) and k: (B, H, Tk, 64)
+    bf16 before RoPE; cos/sin: k's (Tk, 64) f32 tables, ``q_rope`` q's as in
+    :func:`dit_attention_fused`. K1 runs this stage inside its own call;
+    this entry lets a test hold it to :func:`rope_scaled_reference` bit for
+    bit."""
+    q_cos, q_sin = (cos, sin) if q_rope is None else q_rope
     if q.device.type == "cpu":
-        return (rope_scaled_reference(q, cos, sin, 1.0 / math.sqrt(HEAD_DIM)),
+        return (rope_scaled_reference(q, q_cos, q_sin, 1.0 / math.sqrt(HEAD_DIM)),
                 rope_scaled_reference(k, cos, sin))
     if q.device.type != "cuda":
         raise ValueError(f"rope_prepass: unsupported device {q.device}")
     if q.dtype != torch.bfloat16:
         raise TypeError(f"rope_prepass: bf16 only, got {q.dtype}")
-    _check("rope_prepass", q, k, k, None, (("cos", cos), ("sin", sin)))
-    B, H, T, _ = q.shape
-    qo, ko = torch.empty((2, *q.shape), dtype=q.dtype, device=q.device)
+    Tq, Tk = q.shape[2], k.shape[2]
+    _check("rope_prepass", q, k, k, None, (("cos", cos, Tk), ("sin", sin, Tk),
+                                           ("q_rope cos", q_cos, Tq), ("q_rope sin", q_sin, Tq)))
+    B, H = q.shape[:2]
+    qo, ko = torch.empty_like(q), torch.empty_like(k)
     with torch.cuda.device(q.device):
         err = _kernel("rope_prepass_bf16")(
-            q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(), qo.data_ptr(),
-            ko.data_ptr(), B * H, T, torch.cuda.current_stream(q.device).cuda_stream)
+            q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(), q_cos.data_ptr(),
+            q_sin.data_ptr(), qo.data_ptr(), ko.data_ptr(), B * H, Tq, Tk,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rope_prepass: CUDA launch failed (error {err})")
     return qo, ko
@@ -293,8 +336,9 @@ def _bwd_scratch_floats(B: int, H: int, T: int, bf16: bool) -> int:
 
 
 def _bwd(op: str, q, k, v, cos, sin, lens, o, g, lse):
-    extra = () if cos is None else (("cos", cos), ("sin", sin))
-    _check(op, q, k, v, lens, extra)
+    T = q.shape[2]
+    extra = () if cos is None else (("cos", cos, T), ("sin", sin, T))
+    _check(op, q, k, v, lens, extra, same_t=True)
     g = g.to(q.dtype).contiguous()
     for name, t in (("o", o), ("g", g)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:

@@ -20,6 +20,12 @@ a ``DeviceMesh``, on which every collective is a no-op.
 :func:`set_mesh` stands in for ``jax.set_mesh``: code that takes a mesh axis
 by name (``euler_solve(shard_axis=...)``, ``BSQ(pmean_axis=...)``) finds the
 mesh in the innermost ``set_mesh`` block.
+
+:class:`SeqShard` splits a time axis over a mesh axis (the samplers'
+``seq_shard_axis``): this rank's rows, the all-gather back to every row and
+the halo of a convolution. The sampler makes it the current one
+(:func:`seq_shard_block`) while it calls the estimator, which reads it with
+:func:`current_seq_shard`.
 """
 
 from __future__ import annotations
@@ -32,6 +38,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
+
+from seedvc_tpu_torch.parallel.collectives import (gather_counts, halo_index, halo_rows,
+                                                   split_counts)
 
 
 @dataclass(frozen=True)
@@ -234,3 +244,85 @@ def current_mesh(axis: Optional[str] = None) -> Mesh:
     if axis is not None and axis not in mesh.shape:
         raise ValueError(f"the mesh has no axis {axis!r} (axes {tuple(mesh.shape)})")
     return mesh
+
+
+class SeqShard:
+    """A time axis split over mesh axis ``axis``: ``counts[r]`` rows on rank
+    r of the axis, in rank order; this rank (``index``) holds rows ``rows``
+    of the ``total``. :meth:`over` splits as XLA splits a sharded dimension
+    (ceil(n / ranks) rows a rank, the last ranks short or empty);
+    :meth:`with_lead` puts rows before the first rank's part (the DiT's
+    prefix tokens). A rank with no rows still takes part in every
+    collective."""
+
+    def __init__(self, axis: str, group, index: int, counts: Sequence[int]):
+        self.axis, self.group, self.index = axis, group, index
+        self.counts = tuple(int(c) for c in counts)
+        self.total = sum(self.counts)
+        start = sum(self.counts[:index])
+        self.rows = slice(start, start + self.counts[index])
+        self._halo: dict = {}
+
+    @classmethod
+    def over(cls, axis: str, n: int) -> "SeqShard":
+        """``n`` rows split over ``axis`` of the innermost ``set_mesh`` mesh."""
+        mesh = current_mesh(axis)
+        return cls(axis, mesh.group(axis), mesh.index(axis), split_counts(n, mesh.size(axis)))
+
+    def with_lead(self, lead: int) -> "SeqShard":
+        """The same split with ``lead`` more rows at the start, held by the
+        first rank."""
+        return SeqShard(self.axis, self.group, self.index,
+                        (self.counts[0] + lead, *self.counts[1:]))
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the whole ``x`` (time on dim 1)."""
+        return x.narrow(1, self.rows.start, self.counts[self.index])
+
+    def positions(self, device) -> torch.Tensor:
+        """The global positions of this rank's rows."""
+        return torch.arange(self.rows.start, self.rows.stop, device=device)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's part (time on dim 1; this rank's is ``x``), joined."""
+        return gather_counts(x, self.group, self.counts, 1)
+
+    def halo(self, x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
+        """This rank's part of ``F.pad(whole, (pad, pad), mode)`` along the
+        last dim (a Conv1d's input, time last): ``x`` with the ``pad`` rows
+        before and after it from the ranks that hold them, and ``reflect``
+        or ``constant`` padding at the sequence's two ends only."""
+        if pad == 0:
+            return x
+        if self.group is None:
+            return F.pad(x, (pad, pad), mode=mode)
+        key = (pad, mode, x.device)
+        if key not in self._halo:
+            e, idx = halo_index(self.counts, self.index, pad, mode)
+            self._halo[key] = e, torch.from_numpy(idx).to(x.device)
+        e, idx = self._halo[key]
+        rows = halo_rows(x, self.group, e, idx)
+        return torch.cat([rows[..., :pad], x, rows[..., pad:]], -1)
+
+
+class _SeqStack(threading.local):
+    def __init__(self):
+        self.blocks: list = []
+
+
+_SEQ = _SeqStack()
+
+
+@contextlib.contextmanager
+def seq_shard_block(seq: Optional[SeqShard]):
+    """Make ``seq`` (None: no split) the current time split inside the block."""
+    _SEQ.blocks.append(seq)
+    try:
+        yield seq
+    finally:
+        _SEQ.blocks.pop()
+
+
+def current_seq_shard() -> Optional[SeqShard]:
+    """The innermost :func:`seq_shard_block`'s split, else None."""
+    return _SEQ.blocks[-1] if _SEQ.blocks else None

@@ -37,7 +37,7 @@ from seedvc_tpu_torch.dsp.resample import resample_host
 from seedvc_tpu_torch.dsp.whisper_mel import whisper_log_mel
 from seedvc_tpu_torch.models.bigvgan import BIGVGAN_22K_80, BIGVGAN_44K_128, BigVGAN
 from seedvc_tpu_torch.models.campplus import CAMPPlus
-from seedvc_tpu_torch.models.cfm import SEQ_SHARD, euler_solve
+from seedvc_tpu_torch.models.cfm import euler_solve
 from seedvc_tpu_torch.models.hifigan import HiFTConfig, HiFTGenerator
 from seedvc_tpu_torch.models.rmvpe import RMVPE, RMVPE_E2E
 from seedvc_tpu_torch.models.ssl import XLSR_300M_L12, SSLEncoder
@@ -123,8 +123,10 @@ class VoiceConverter:
     sampler's CFG stack over that mesh axis (each rank runs the DiT on its
     rows; with two ranks, the conditional and the null branch); every rank
     runs the encoders and the vocoder whole and returns the whole wave.
-    ``seq_shard_axis`` (time split over a mesh axis) is not ported (ROADMAP
-    queue 1 item 3c(ii)) and raises.
+    ``seq_shard_axis``: split the sampler's time axis over that mesh axis
+    (each rank runs the DiT on its time rows; composes with
+    ``cfg_shard_axis`` on the other axis); the encoders, the regulator and
+    the vocoder run whole on every rank, which returns the whole wave.
     """
 
     def __init__(self, cfg: Optional[SeedVCConfig] = None, *,
@@ -141,9 +143,8 @@ class VoiceConverter:
                                "to run on the CPU")
         self.cfg = cfg or get_preset("whisper_small_wavenet")
         mp = self.cfg.model_params
-        if seq_shard_axis is not None:
-            raise NotImplementedError(SEQ_SHARD)
         self.cfg_shard_axis = cfg_shard_axis
+        self.seq_shard_axis = seq_shard_axis
         self.tokenizer_type = mp.speech_tokenizer.type
         self.vocoder_type = mp.vocoder.type
         if self.tokenizer_type not in ("whisper", "xlsr", "cnhubert"):
@@ -364,7 +365,8 @@ class VoiceConverter:
         mel_out = euler_solve(self.vc.estimate, noise.to(cd), cond_cat, total_len, pm,
                               prompt_len, style.to(cd), n_timesteps=n_steps,
                               cfg_rate=cfg_rate, precompute_fn=self.vc.precompute_cond,
-                              shard_axis=self.cfg_shard_axis)
+                              shard_axis=self.cfg_shard_axis,
+                              seq_shard_axis=self.seq_shard_axis)
         gen = mel_out[:, prompt_len: prompt_len + W].float()
         return self.vocode(gen, draws).half()
 

@@ -45,7 +45,6 @@ from seedvc_tpu_torch.models.astral import (ASTRAL_NARROW, ASTRAL_WIDE, AstralCo
                                             AstralQuantizer)
 from seedvc_tpu_torch.models.bigvgan import BIGVGAN_22K_80, BigVGAN
 from seedvc_tpu_torch.models.campplus import CAMPPlus
-from seedvc_tpu_torch.models.cfm import SEQ_SHARD
 from seedvc_tpu_torch.models.cfm_v2 import euler_solve_multicfg
 from seedvc_tpu_torch.models.dit_v2 import DiTV2, DiTV2Config
 from seedvc_tpu_torch.models.regulator import InterpolateRegulator
@@ -83,8 +82,8 @@ class VoiceConverterV2:
     the batched AR decode (:class:`~seedvc_tpu_torch.models.ar.ARGenerator`,
     a CUDA graph a token on cuda). ``cfg_shard_axis`` splits the sampler's
     CFG stack (up to three branches, unevenly too) over that axis of the
-    ``set_mesh`` mesh, as the v1 converter's; ``seq_shard_axis`` raises
-    (ROADMAP queue 1 item 3c(ii))."""
+    ``set_mesh`` mesh, as the v1 converter's; ``seq_shard_axis`` splits its
+    time axis, as the v1 converter's."""
 
     PARAM_NAMES = ("ssl", "narrow", "wide", "campplus", "cfm_reg", "ar_reg",
                    "dit", "ar", "vocoder")
@@ -97,9 +96,8 @@ class VoiceConverterV2:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VoiceConverterV2: no CUDA device; pass device='cpu' "
                                "to run on the CPU")
-        if seq_shard_axis is not None:
-            raise NotImplementedError(SEQ_SHARD)
         self.cfg_shard_axis = cfg_shard_axis
+        self.seq_shard_axis = seq_shard_axis
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         if self.device.type == "cuda":
@@ -231,7 +229,8 @@ class VoiceConverterV2:
         mel_out = euler_solve_multicfg(estimate, noise.to(cd), cond, total_len, pm, prompt_len,
                                        style.to(cd), n_timesteps=n_steps, cfg_rates=rates,
                                        random_voice=random_voice, precompute_fn=precompute,
-                                       shard_axis=self.cfg_shard_axis)
+                                       shard_axis=self.cfg_shard_axis,
+                                       seq_shard_axis=self.seq_shard_axis)
         gen = mel_out[:, prompt_len: prompt_len + W].float()
         return self.vocoder(gen).half()
 

@@ -175,6 +175,69 @@ def test_rope_prepass_matches_twin_exactly(T):
     assert torch.equal(ko, attention.rope_scaled_reference(k, cos, sin))
 
 
+@pytest.mark.parametrize("rope", [True, False], ids=["k1", "k3"])
+@pytest.mark.parametrize("Tk,lens,slab", [(2048, (1966, 1966), (1024, 2048)),
+                                          (2048, (0, 1966), (0, 1024)),
+                                          (2048, (1, 1477), (1024, 2048)),
+                                          (2560, None, (1281, 2560)), (777, (700, 300), (5, 300))])
+@pytest.mark.parametrize("dtype,tol,rel_tol", [(torch.float32, 1e-4, 1e-4),
+                                               (torch.bfloat16, 1e-2, 2e-2)])
+def test_attention_kernel_over_a_query_slab(Tk, lens, slab, dtype, tol, rel_tol, rope):
+    """K1 and K3 with q of Tq rows (a rank's slab of a time-split sequence)
+    against k, v of Tk: the twin on the same slab within the limits of
+    test_attention_kernel_matches_twin, and each output row equal, bit for
+    bit, to the same row of the whole sequence's (a query row is computed
+    alone). K1 ropes q with the tables' rows at the slab's positions."""
+    a, b = slab
+    q, k, v = (_randn(s + 40, 2, 8, Tk, 64).to(dtype) for s in range(3))
+    lens_t = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+    qs = q[:, :, a:b].contiguous()
+    if rope:
+        cos, sin = (torch.from_numpy(x).cuda() for x in rope_full_cache(Tk, 64))
+        before = attention.LAUNCHES
+        out = attention.dit_attention_fused(qs, k, v, cos, sin, lens_t,
+                                            q_rope=(cos[a:b], sin[a:b]))
+        assert attention.LAUNCHES == before + 1
+        ref = attention.dit_attention_fused_reference(qs, k, v, cos, sin, lens_t,
+                                                      (cos[a:b], sin[a:b]))
+        whole = attention.dit_attention_fused(q, k, v, cos, sin, lens_t)
+    else:
+        before = attention.DIT_ATTENTION_LAUNCHES
+        out = attention.dit_attention(qs, k, v, lens_t)
+        assert attention.DIT_ATTENTION_LAUNCHES == before + 1
+        ref = attention.dit_attention_reference(qs, k, v, lens_t)
+        whole = attention.dit_attention(q, k, v, lens_t)
+    assert out.shape == (2, 8, b - a, 64)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    assert (out.float() - ref.float()).norm() / ref.float().norm() <= rel_tol
+    assert torch.equal(out, whole[:, :, a:b])
+
+
+def test_attention_slab_lse_prepass_and_empty_slab():
+    """K1 f32's log-sum-exp over a slab equals the whole's rows; the bf16
+    pre-pass ropes a slab's q with its own tables bit for bit; an empty slab
+    launches nothing; more query rows than keys raise."""
+    Tk, (a, b) = 896, (300, 600)
+    q, k, v = (_randn(s + 50, 2, 4, Tk, 64) for s in range(3))
+    cos, sin = (torch.from_numpy(x).cuda() for x in rope_full_cache(Tk, 64))
+    lens = torch.tensor([896, 1], dtype=torch.int32, device="cuda")
+    qs = q[:, :, a:b].contiguous()
+    _, lse = attention.dit_attention_fused(qs, k, v, cos, sin, lens, return_lse=True,
+                                           q_rope=(cos[a:b], sin[a:b]))
+    _, whole = attention.dit_attention_fused(q, k, v, cos, sin, lens, return_lse=True)
+    assert torch.equal(lse, whole[:, :, a:b])
+    qb, kb = qs.bfloat16(), k.bfloat16()
+    qo, ko = attention.rope_prepass(qb, kb, cos, sin, (cos[a:b], sin[a:b]))
+    assert torch.equal(qo, attention.rope_scaled_reference(qb, cos[a:b], sin[a:b], 0.125))
+    assert torch.equal(ko, attention.rope_scaled_reference(kb, cos, sin))
+    before = attention.LAUNCHES
+    empty = attention.dit_attention_fused(qb[:, :, :0].contiguous(), kb, kb, cos, sin,
+                                          q_rope=(cos[:0], sin[:0]))
+    assert empty.shape == (2, 4, 0, 64) and attention.LAUNCHES == before
+    with pytest.raises(ValueError, match="query rows"):
+        attention.dit_attention(q, k[:, :, :5].contiguous(), v[:, :, :5].contiguous())
+
+
 @pytest.mark.parametrize("n_kv,counter,other", [
     (None, "LAUNCHES", "DIT_ATTENTION_LAUNCHES"), (2, "DIT_ATTENTION_LAUNCHES", "LAUNCHES")],
     ids=["k1", "k3"])

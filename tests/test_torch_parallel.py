@@ -11,7 +11,9 @@ holds the JAX side on its 8-device CPU mesh):
   own parameters (a Linear ``weight`` is the flax ``kernel`` transposed)
   equal the tree's;
 - ``initialize()`` without a launcher's environment starts nothing;
-- the one sampler option left unported raises, naming its ROADMAP item.
+- ``seq_shard_axis`` (item 3c(ii), ported: ``tests/test_torch_parallel_seq.py``)
+  outside a ``set_mesh`` block raises, as ``shard_axis`` does, in both
+  samplers and in a ``VoiceConverter``'s conversion.
 """
 
 import jax
@@ -21,12 +23,15 @@ import torch
 
 from seedvc_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from seedvc_tpu.parallel.sharding import logical_to_sharding as jax_specs
+from seedvc_tpu_torch.models.bigvgan import BigVGANConfig
 from seedvc_tpu_torch.models.cfm import euler_solve
 from seedvc_tpu_torch.models.cfm_v2 import euler_solve_multicfg
 from seedvc_tpu_torch.models.vc import VCModel
+from seedvc_tpu_torch.models.whisper import WhisperEncoderConfig
 from seedvc_tpu_torch.parallel import distributed, mesh as pmesh, sharding
 from seedvc_tpu_torch.pipelines.convert import VoiceConverter
 from seedvc_tpu_torch.train.trainer_v2 import V2Modules
+from test_torch_pipeline import CONTEXT, PROMPT_CAP, SR, VOC, WHISPER, _audio, _port_cfg
 from test_trainer_v2 import tiny_v2cfg
 from torch_parallel_worker import spawn
 from torch_port_helpers import port_cfg, tiny_train_cfg, v2_port_cfg, v2_trees, vc_tree
@@ -146,12 +151,19 @@ def test_initialize_without_launcher_is_a_noop(monkeypatch):
 
 
 def test_seq_shard_axis_raises_item_3c_ii():
+    """Item 3c(ii) is ported; what raises now is a ``seq_shard_axis`` named
+    outside any ``set_mesh`` block."""
     z = torch.zeros
-    with pytest.raises(NotImplementedError, match=r"item 3c\(ii\)"):
+    with pytest.raises(ValueError, match="outside a set_mesh"):
         euler_solve(None, z(1, 4, 2), z(1, 4, 3), None, z(1, 4, 2), 0, z(1, 2), 1,
                     seq_shard_axis="model")
-    with pytest.raises(NotImplementedError, match=r"item 3c\(ii\)"):
+    with pytest.raises(ValueError, match="outside a set_mesh"):
         euler_solve_multicfg(None, z(1, 4, 2), z(1, 4, 3), None, z(1, 4, 2), 0, z(1, 2),
                              seq_shard_axis="model")
-    with pytest.raises(NotImplementedError, match=r"item 3c\(ii\)"):
-        VoiceConverter(device="cpu", seq_shard_axis="model")
+    vc = VoiceConverter(_port_cfg(), device="cpu", seq_shard_axis="model",
+                        whisper_cfg=WhisperEncoderConfig(**WHISPER),
+                        vocoder_cfg=BigVGANConfig(**VOC), prompt_cap_frames=PROMPT_CAP,
+                        context_frames=CONTEXT)
+    assert vc.seq_shard_axis == "model"
+    with pytest.raises(ValueError, match="outside a set_mesh"):
+        vc.convert(_audio(200, 180.0, 0), SR, _audio(50, 240.0, 1), SR, diffusion_steps=2)

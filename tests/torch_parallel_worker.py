@@ -266,6 +266,96 @@ def case_converter(rank, world, inp):
     return out
 
 
+def case_seq_sampler(rank, world, inp):
+    """``euler_solve`` (v1 models) and ``euler_solve_multicfg`` (v2) of each
+    model of ``inp['models']``, unsharded and at each (mesh shape,
+    shard_axis, seq_shard_axis) of its ``runs``."""
+    import torch
+
+    from seedvc_tpu_torch.models.cfm import CFM, euler_solve
+    from seedvc_tpu_torch.models.cfm_v2 import euler_solve_multicfg
+    from seedvc_tpu_torch.models.dit_v2 import DiTV2
+    from seedvc_tpu_torch.parallel.mesh import make_mesh, set_mesh
+    from seedvc_tpu_torch.weights import load_jax_params
+
+    out = {}
+    for name, m in inp["models"].items():
+        a = _tensors(m["args"])
+        if m["kind"] == "v1":
+            cfm = load_jax_params(CFM(m["cfg"]), m["params"]).eval()
+
+            def run(shard, seq, a=a, cfm=cfm):
+                return euler_solve(cfm.estimate, a["noise"], a["mu"], a["lens"], a["prompt"], 4,
+                                   a["style"], n_timesteps=3, cfg_rate=0.7,
+                                   precompute_fn=cfm.precompute_cond, shard_axis=shard,
+                                   seq_shard_axis=seq)
+        else:
+            dit = load_jax_params(DiTV2(m["cfg"]), m["params"]).eval()
+
+            def run(shard, seq, a=a, dit=dit):
+                return euler_solve_multicfg(dit, a["noise"], a["mu"], a["lens"], a["prompt"], 4,
+                                            a["style"], n_timesteps=3, cfg_rates=(0.6, 0.4),
+                                            shard_axis=shard, seq_shard_axis=seq)
+        out[name] = {None: run(None, None).numpy()}
+        for shape, shard, seq in m["runs"]:
+            with set_mesh(make_mesh(*shape, device_type="cpu")):
+                out[name][(shape, shard, seq)] = run(shard, seq).numpy()
+    return out
+
+
+def case_seq_collectives(rank, world, inp):
+    """``SeqShard.gather`` and ``SeqShard.halo`` of this rank's part of each
+    sequence of ``inp['seqs']`` (time on dim 1 for the gather, last for the
+    halo) on a (1, world) mesh, in f32 and bf16."""
+    import torch
+
+    from seedvc_tpu_torch.parallel.mesh import SeqShard, make_mesh, set_mesh
+
+    out = {}
+    with set_mesh(make_mesh(1, world, device_type="cpu")):
+        for i, (x, pad) in enumerate(inp["seqs"]):
+            for dtype in (torch.float32, torch.bfloat16):
+                whole = torch.from_numpy(x).to(dtype)
+                seq = SeqShard.over("model", whole.shape[1])
+                part = seq.take(whole).contiguous()
+                halos = {mode: seq.halo(part.transpose(1, 2).contiguous(), pad, mode)
+                         for mode in ("reflect", "constant")}
+                out[(i, str(dtype))] = {"gather": seq.gather(part).float().numpy(),
+                                        "rows": (seq.rows.start, seq.rows.stop),
+                                        **{m: h.float().numpy() for m, h in halos.items()}}
+    return out
+
+
+def case_seq_converter(rank, world, inp):
+    """A tiny ``VoiceConverter`` with ``seq_shard_axis='model'`` on a
+    (1, world) mesh and the same converter unsharded, the same noise: each
+    run's wave and the mels its sampler returned."""
+    import numpy as np
+    import torch
+
+    from seedvc_tpu_torch.parallel.mesh import make_mesh, set_mesh
+    from seedvc_tpu_torch.pipelines import convert
+
+    noise = torch.from_numpy(inp["noise"])
+    kw = dict(diffusion_steps=3, cfg_rate=0.7,
+              noise_fn=lambda shape: noise[: shape[1]][None])
+    real, mels = convert.euler_solve, []
+
+    def recorded(*a, **k):
+        mels.append(real(*a, **k).numpy())
+        return torch.from_numpy(mels[-1])
+    convert.euler_solve = recorded
+    out = {}
+    for axis in (None, "model"):
+        vc = convert.VoiceConverter(inp["cfg"], device="cpu", seq_shard_axis=axis, **inp["kw"])
+        mels.clear()
+        with set_mesh(make_mesh(1, world, device_type="cpu")):
+            out[axis] = vc.convert(inp["src"], inp["sr"], inp["ref"], inp["sr"], **kw)[1]
+        out[(axis, "mels")] = list(mels)
+    assert np.isfinite(out["model"]).all()
+    return out
+
+
 def case_bsq(rank, world, inp):
     """``BSQ(pmean_axis='data')`` on this rank's rows: every rank's aux loss,
     and the sum over ranks of each rank's gradient of its aux loss."""
