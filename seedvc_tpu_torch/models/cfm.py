@@ -17,7 +17,9 @@ ranks gather the velocity before the combination. ``seq_shard_axis`` splits
 time over a mesh axis (:class:`~seedvc_tpu_torch.parallel.mesh.SeqShard`):
 each rank runs the estimator on its time rows, the DiT's attention gathers
 keys and values and its convolutions exchange halos, and the velocity is
-gathered over time, then over the stack.
+gathered over time, then over the stack. Each Euler step is a
+``cfm.step`` span of a ``torch.profiler`` trace and each estimator call in
+it a ``dit.estimate`` span.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from torch import nn
 
 from seedvc_tpu_torch.core.config import ModelParams
+from seedvc_tpu_torch.core.profiling import annotate
 from seedvc_tpu_torch.models.dit import DiT
 from seedvc_tpu_torch.parallel.collectives import gather_rows, row_split
 from seedvc_tpu_torch.parallel.mesh import SeqShard, current_mesh, seq_shard_block
@@ -195,15 +198,18 @@ def euler_solve(estimate_fn: Callable, noise: torch.Tensor, mu: torch.Tensor,
 
     est = (est_prompt, est_lens, est_style, est_mu)
     for i in range(n_timesteps):
-        t_cur = float(t_span[i])
-        dt = float(t_span[i + 1] - t_span[i])
-        xx = shard.take(torch.cat([x, x], 0) if use_cfg else x)
-        if seq is not None:
-            xx = seq.take(xx)
-        v = estimate_rows(estimate_fn, seq, shard, xx, t_cur, est, est_args)
-        if use_cfg:
-            v_cond, v_null = v.chunk(2, dim=0)
-            v = (1.0 + cfg_rate) * v_cond - cfg_rate * v_null
-        x = (x.float() + dt * v.float()).to(x.dtype)
-        x = torch.where(in_prompt, torch.zeros_like(x), x)
+        # trace-only spans (no events), so a graph capture may run them
+        with annotate("cfm.step"):
+            t_cur = float(t_span[i])
+            dt = float(t_span[i + 1] - t_span[i])
+            xx = shard.take(torch.cat([x, x], 0) if use_cfg else x)
+            if seq is not None:
+                xx = seq.take(xx)
+            with annotate("dit.estimate"):
+                v = estimate_rows(estimate_fn, seq, shard, xx, t_cur, est, est_args)
+            if use_cfg:
+                v_cond, v_null = v.chunk(2, dim=0)
+                v = (1.0 + cfg_rate) * v_cond - cfg_rate * v_null
+            x = (x.float() + dt * v.float()).to(x.dtype)
+            x = torch.where(in_prompt, torch.zeros_like(x), x)
     return x

@@ -352,23 +352,28 @@ class VoiceConverter:
 
     def _sample_vocode(self, noise, chunk, prompt_cond, total_len, prompt_mel,
                        prompt_len: int, style, n_steps: int, cfg_rate: float,
-                       context: int, draws=None) -> torch.Tensor:
+                       context: int, draws=None, *, timer: StageTimer) -> torch.Tensor:
         """CFM sampling over [prompt ‖ chunk] in one context window, the
-        generated region sliced out and vocoded; returns the f16 wave."""
+        generated region sliced out and vocoded; returns the f16 wave. The
+        two halves are ``timer``'s stages ``sample`` (counting its Euler
+        ``steps``) and ``vocode``, with no synchronise between them."""
         cd = self.compute_dtype
         W = chunk.shape[1]
-        cond_cat = torch.zeros((1, context, chunk.shape[-1]), dtype=cd, device=self.device)
-        cond_cat[:, : prompt_cond.shape[1]] = prompt_cond.to(cd)
-        cond_cat[:, prompt_len: prompt_len + W] = chunk.to(cd)
-        pm = torch.zeros((1, context, self.n_mels), dtype=cd, device=self.device)
-        pm[:, : prompt_mel.shape[1]] = prompt_mel.to(cd)
-        mel_out = euler_solve(self.vc.estimate, noise.to(cd), cond_cat, total_len, pm,
-                              prompt_len, style.to(cd), n_timesteps=n_steps,
-                              cfg_rate=cfg_rate, precompute_fn=self.vc.precompute_cond,
-                              shard_axis=self.cfg_shard_axis,
-                              seq_shard_axis=self.seq_shard_axis)
-        gen = mel_out[:, prompt_len: prompt_len + W].float()
-        return self.vocode(gen, draws).half()
+        with timer("sample"):
+            cond_cat = torch.zeros((1, context, chunk.shape[-1]), dtype=cd, device=self.device)
+            cond_cat[:, : prompt_cond.shape[1]] = prompt_cond.to(cd)
+            cond_cat[:, prompt_len: prompt_len + W] = chunk.to(cd)
+            pm = torch.zeros((1, context, self.n_mels), dtype=cd, device=self.device)
+            pm[:, : prompt_mel.shape[1]] = prompt_mel.to(cd)
+            mel_out = euler_solve(self.vc.estimate, noise.to(cd), cond_cat, total_len, pm,
+                                  prompt_len, style.to(cd), n_timesteps=n_steps,
+                                  cfg_rate=cfg_rate, precompute_fn=self.vc.precompute_cond,
+                                  shard_axis=self.cfg_shard_axis,
+                                  seq_shard_axis=self.seq_shard_axis)
+            timer.count("steps", n_steps)
+        with timer("vocode"):
+            gen = mel_out[:, prompt_len: prompt_len + W].float()
+            return self.vocode(gen, draws).half()
 
     # ------------------------------------------------------------------
     def convert(self, source, source_sr, reference, reference_sr,
@@ -402,8 +407,12 @@ class VoiceConverter:
         ``default_draws``, or ``draws_fn((B, n_samples, H))`` -> (phase
         (B, 1, H), noise) when given. With
         ``profile=True`` every stage ends in a device synchronise, so
-        ``stats['stages']`` attributes device time to stages."""
-        timer = StageTimer()
+        ``stats['stages']`` attributes device time to stages, and the
+        request's stages are recorded as spans: each stage's entry then has
+        its ``device_seconds`` (None without a card). ``sample+vocode``
+        holds the stages ``sample`` (with its Euler ``steps``) and
+        ``vocode``, not synchronised apart."""
+        timer = StageTimer(record=profile, device=self.device)
 
         def sync(x):
             return probe_ready(x) if profile else x
@@ -465,7 +474,7 @@ class VoiceConverter:
                 dev_wave = sync(self._sample_vocode(
                     noise, cond_buf[:, processed: processed + W], prompt_cond_pad,
                     torch.tensor([p_len + w], device=self.device), prompt_mel_cap, p_len,
-                    style, diffusion_steps, cfg_rate, context, draws))
+                    style, diffusion_steps, cfg_rate, context, draws, timer=timer))
             dispatched.append((w, is_last, dev_wave))
             processed += w if is_last else (w - OVERLAP_FRAMES)
 

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import copy
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -48,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from seedvc_tpu_torch.core.profiling import annotate, elapsed_ms
 from seedvc_tpu_torch.dsp.resample import resample, resample_kernel
 from seedvc_tpu_torch.dsp.sola import crossfade_add, sola_offset
 from seedvc_tpu_torch.dsp.vad import is_speech_block
@@ -70,6 +72,11 @@ class StreamConfig:
     max_prompt_time: float = 3.0
     # energy + spectral-flatness VAD gate (dsp/vad.py); <= -1000 disables it
     vad_threshold_db: float = -60.0
+
+
+# the block program's device parts, between consecutive timing events
+DEVICE_PARTS = ("encode_ms", "cfm_ms", "vocode_ms")
+TIMINGS_KEPT = 4096
 
 
 def _launch_counts() -> dict:
@@ -129,9 +136,15 @@ class StreamingConverter:
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._gen: Optional[torch.Generator] = None
         self._vad_hang = 0  # blocks of speech hangover left
-        # per-block wall split of the last converted block:
-        # {"dispatch_ms", "sync_ms", "sola_ms"}; sync includes the device time
+        # per-block wall split of the last converted block: host ms of
+        # "gate_ms", "dispatch_ms", "sync_ms" (includes the device time),
+        # "sola_ms" and "total_ms" (entry to return); the graph's device ms of
+        # "encode_ms", "cfm_ms" and "vocode_ms" (None when run eagerly)
         self.last_timings: Optional[dict] = None
+        # one record a block, the last TIMINGS_KEPT: "gated", "gate_ms",
+        # "total_ms" and, for a converted block, last_timings' other keys
+        self.timings: deque = deque(maxlen=TIMINGS_KEPT)
+        self._marks: tuple = (None,) * 4
         # launches of each kernel in one replay of the captured block (cuda),
         # and the replays since set_reference
         self.graph_launches: Optional[dict] = None
@@ -182,8 +195,9 @@ class StreamingConverter:
 
     def _capture(self):
         """Run the block function once eagerly on a side stream (kernel
-        builds, cuFFT plans, cached tables), capture it as one CUDA graph,
-        then zero the rings the two runs shifted."""
+        builds, cuFFT plans, cached tables), capture it as one CUDA graph
+        with its four timing events (``external=True``: nodes of the graph,
+        recorded by each replay), then zero the rings the two runs shifted."""
         dev = self.vc.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -191,11 +205,12 @@ class StreamingConverter:
             self._step()
         torch.cuda.current_stream(dev).wait_stream(side)
         before = _launch_counts()
+        marks = tuple(torch.cuda.Event(enable_timing=True, external=True) for _ in range(4))
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            self._step()
+            self._step(marks)
         self.graph_launches = {k: v - before[k] for k, v in _launch_counts().items()}
-        self._graph = graph
+        self._graph, self._marks = graph, marks
         self._buf["ring"].zero_()
         self._buf["ring16"].zero_()
         torch.cuda.synchronize(dev)
@@ -209,15 +224,24 @@ class StreamingConverter:
         b["ring16"].copy_(torch.cat([b["ring16"][self.block_16k:], block16]))
 
     @torch.no_grad()
-    def _step(self):
+    def _step(self, marks: Optional[tuple] = None):
         """The block program: rings -> content -> regulate -> CFM -> vocoder
         -> the returned span, written into ``out``. Static shapes, no host
-        reads, so a CUDA graph can capture it."""
+        reads, so a CUDA graph can capture it. ``marks``: four timing events
+        recorded at its start, after the content encoder, after the CFM and
+        at its end (the capture's; see :data:`DEVICE_PARTS`)."""
         vc, b = self.vc, self._buf
         cd = vc.compute_dtype
+
+        def mark(i):
+            if marks is not None:
+                marks[i].record()
+
+        mark(0)
         self._shift_rings()
         padded = F.pad(b["ring16"], (0, self.pad16 - self.window_16k))[None]
         feats = self.encoder(padded if vc.ssl else whisper_log_mel(padded))
+        mark(1)
         s_alt = feats[:, self.drop: self.n_sem]
         cond = vc.vc.regulate(s_alt, b["ylens"], self.dit_frames, x_lens=b["sem_len"])
         cat = torch.cat([b["prompt_cond"], cond], dim=1).to(cd)
@@ -225,70 +249,98 @@ class StreamingConverter:
                               b["prompt_mel"].to(cd), self._prompt_len, b["style"].to(cd),
                               n_timesteps=self.cfg.diffusion_steps, cfg_rate=self.cfg.cfg_rate,
                               precompute_fn=vc.vc.precompute_cond)
+        mark(2)
         gen = mel_out[:, self._prompt_len:].float()
         L = self.dit_frames * vc.hop
         wave = vc.vocode(gen, b["draws"])[0, :L]
         start = L - self.return_samples - self.extra_right
         b["out"].copy_(wave[start: start + self.return_samples])
+        mark(3)
 
     # ------------------------------------------------------------------
     def process_block(self, block: np.ndarray) -> np.ndarray:
-        """One audio block at the model rate in, one converted block out."""
+        """One audio block at the model rate in, one converted block out.
+
+        Its parts are ``torch.profiler`` spans: ``stream.gate`` (the input
+        copy and the voice gate), ``stream.dispatch`` (the noise draw and the
+        replay), ``stream.sync`` (the wait for the output span) and
+        ``stream.sola``. Each block appends its record to :attr:`timings`."""
+        t_in = time.perf_counter()
         if not self._buf:
             raise RuntimeError("call set_reference() first")
         if len(block) != self.block:
             raise ValueError(f"block of {len(block)} samples, expected {self.block}")
         b, cfg = self._buf, self.cfg
-        b["block"].copy_(torch.from_numpy(np.asarray(block, np.float32)))
-
-        if cfg.vad_threshold_db > -1000:
-            # hangover: after speech keep converting 2 more blocks, so a
-            # borderline mid-word block is bridged instead of cut to silence
-            if is_speech_block(block, self.sr, threshold_db=cfg.vad_threshold_db):
-                self._vad_hang = 2
-            elif self._vad_hang > 0:
-                self._vad_hang -= 1
-            if self._vad_hang <= 0:
-                with torch.no_grad():
-                    self._shift_rings()
-                if self.sola_buffer is not None:
-                    # fade the previous tail out into silence
-                    out = np.zeros(self.block + self.crossfade, np.float32)
-                    out = crossfade_add(out, self.sola_buffer)
-                    self.sola_buffer = np.zeros(self.crossfade, np.float32)
-                    return out[: self.block]
-                return np.zeros(self.block, np.float32)
-
+        with annotate("stream.gate"):
+            b["block"].copy_(torch.from_numpy(np.asarray(block, np.float32)))
+            gated = False
+            if cfg.vad_threshold_db > -1000:
+                # hangover: after speech keep converting 2 more blocks, so a
+                # borderline mid-word block is bridged instead of cut to silence
+                if is_speech_block(block, self.sr, threshold_db=cfg.vad_threshold_db):
+                    self._vad_hang = 2
+                elif self._vad_hang > 0:
+                    self._vad_hang -= 1
+                gated = self._vad_hang <= 0
         t0 = time.perf_counter()
-        shape = tuple(b["noise"].shape)
-        noise = (self.noise_fn(shape) if self.noise_fn is not None
-                 else torch.randn(shape, generator=self._gen, device=self.vc.device))
-        b["noise"].copy_(noise)
-        if self._graph is not None:
-            self._graph.replay()
-            self.replays += 1
-        else:
-            self._step()
+        if gated:
+            with torch.no_grad():
+                self._shift_rings()
+            if self.sola_buffer is not None:
+                # fade the previous tail out into silence
+                out = np.zeros(self.block + self.crossfade, np.float32)
+                out = crossfade_add(out, self.sola_buffer)
+                self.sola_buffer = np.zeros(self.crossfade, np.float32)
+                out = out[: self.block]
+            else:
+                out = np.zeros(self.block, np.float32)
+            self._record(t_in, t0, {}, gated=True)
+            return out
+
+        with annotate("stream.dispatch"):
+            shape = tuple(b["noise"].shape)
+            noise = (self.noise_fn(shape) if self.noise_fn is not None
+                     else torch.randn(shape, generator=self._gen, device=self.vc.device))
+            b["noise"].copy_(noise)
+            if self._graph is not None:
+                self._graph.replay()
+                self.replays += 1
+            else:
+                self._step()
         t1 = time.perf_counter()
-        out = b["out"].to("cpu", copy=True).numpy()  # the next block rewrites b["out"]
+        with annotate("stream.sync"):
+            out = b["out"].to("cpu", copy=True).numpy()  # the next block rewrites b["out"]
         t2 = time.perf_counter()
 
         # SOLA align + fade against the previous tail
-        if self.sola_buffer is None:
-            emitted = out[: self.block]
-            self.sola_buffer = out[self.block: self.block + self.crossfade].copy()
-        else:
-            k = sola_offset(out[: self.crossfade + self.sola_search], self.sola_buffer,
-                            self.sola_search)
-            aligned = crossfade_add(np.ascontiguousarray(out[k:]), self.sola_buffer)
-            emitted = aligned[: self.block]
-            self.sola_buffer = aligned[self.block: self.block + self.crossfade].copy()
-            if len(self.sola_buffer) < self.crossfade:
-                self.sola_buffer = np.pad(self.sola_buffer,
-                                          (0, self.crossfade - len(self.sola_buffer)))
-        self.last_timings = {
-            "dispatch_ms": round((t1 - t0) * 1e3, 2),
-            "sync_ms": round((t2 - t1) * 1e3, 2),
-            "sola_ms": round((time.perf_counter() - t2) * 1e3, 2),
-        }
+        with annotate("stream.sola"):
+            if self.sola_buffer is None:
+                emitted = out[: self.block]
+                self.sola_buffer = out[self.block: self.block + self.crossfade].copy()
+            else:
+                k = sola_offset(out[: self.crossfade + self.sola_search], self.sola_buffer,
+                                self.sola_search)
+                aligned = crossfade_add(np.ascontiguousarray(out[k:]), self.sola_buffer)
+                emitted = aligned[: self.block]
+                self.sola_buffer = aligned[self.block: self.block + self.crossfade].copy()
+                if len(self.sola_buffer) < self.crossfade:
+                    self.sola_buffer = np.pad(self.sola_buffer,
+                                              (0, self.crossfade - len(self.sola_buffer)))
+        parts = {"dispatch_ms": round((t1 - t0) * 1e3, 2),
+                 "sync_ms": round((t2 - t1) * 1e3, 2),
+                 "sola_ms": round((time.perf_counter() - t2) * 1e3, 2)}
+        # the replay's events: the output copy above already waited for them
+        for name, a, e in zip(DEVICE_PARTS, self._marks, self._marks[1:]):
+            ms = elapsed_ms(a, e) if self._graph is not None else None
+            parts[name] = None if ms is None else round(ms, 2)
+        self.last_timings = self._record(t_in, t0, parts, gated=False)
         return emitted
+
+    def _record(self, t_in: float, t0: float, parts: dict, gated: bool) -> dict:
+        """Append a block's record to :attr:`timings`: ``parts`` with
+        ``gate_ms`` (entry to the gate's decision) and ``total_ms`` (entry to
+        now); returns ``parts`` so extended."""
+        parts["gate_ms"] = round((t0 - t_in) * 1e3, 2)
+        parts["total_ms"] = round((time.perf_counter() - t_in) * 1e3, 2)
+        self.timings.append({"gated": gated, **parts})
+        return parts

@@ -7,14 +7,17 @@ host work (padding, resampling, the numpy RNG) and its device launches
 (Whisper, CAMPPlus, RMVPE) overlap the train step. An exception in the worker
 is raised in the consumer; abandoning the generator (early stop,
 ``max_steps``) stops the worker. ``depth <= 0`` is the synchronous schedule,
-with no thread.
+with no thread. ``waits``, when given, gets the consumer's wait for each
+item in seconds: on the queue, or for the preparation itself when
+synchronous.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Iterable, Iterator, TypeVar
+import time
+from typing import Callable, Iterable, Iterator, Optional, TypeVar
 
 T = TypeVar("T")
 U = TypeVar("U")
@@ -23,11 +26,17 @@ _SENTINEL = object()
 
 
 def prefetched(iterable: Iterable[T], prepare: Callable[[T], U],
-               depth: int = 2) -> Iterator[U]:
-    """Yield ``prepare(item)`` for each item, computed ``depth`` ahead."""
+               depth: int = 2, waits: Optional[list] = None) -> Iterator[U]:
+    """Yield ``prepare(item)`` for each item, computed ``depth`` ahead;
+    append each item's wait in seconds to ``waits`` when given."""
     if depth <= 0:
+        t = time.perf_counter()
         for item in iterable:
-            yield prepare(item)
+            prepared = prepare(item)
+            if waits is not None:
+                waits.append(time.perf_counter() - t)
+            yield prepared
+            t = time.perf_counter()
         return
 
     q: "queue.Queue[object]" = queue.Queue(maxsize=depth)
@@ -59,11 +68,14 @@ def prefetched(iterable: Iterable[T], prepare: Callable[[T], U],
     thread.start()
     try:
         while True:
+            t = time.perf_counter()
             item = q.get()
             if item is _SENTINEL:
                 if failure:
                     raise failure[0]
                 return
+            if waits is not None:
+                waits.append(time.perf_counter() - t)
             yield item
     finally:
         stop.set()

@@ -12,7 +12,11 @@ lengths stay f32 / int; the layers then compute in the types the JAX
 package's promotion gives (``nn.layers.Dense``).
 
 Metrics are device tensors (``loss``, ``grad_norm`` of the unclipped
-gradients), so a step reads nothing back from the device.
+gradients), so a step reads nothing back from the device, and ``span``: the
+step's :class:`~seedvc_tpu_torch.core.profiling.Span` (``train.step``, its
+host wall, and on cuda a pair of timing events at its first and last launch,
+read once they have completed). Inside it the ``torch.profiler`` spans
+``train.forward``, ``train.backward``, ``train.optimizer`` and ``train.ema``.
 
 The JAX step is one SPMD program over a (data, model) mesh, the
 parallelism a layout that XLA's partitioner turns into collectives. Here
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from seedvc_tpu_torch.core.profiling import Span, annotate
 from seedvc_tpu_torch.models.vc import TrainDraws, VCModel, draw_train
 from seedvc_tpu_torch.parallel.collectives import pmean
 from seedvc_tpu_torch.parallel.mesh import AXES, Mesh, data_rows, replicate, set_mesh, shard_batch
@@ -202,30 +207,30 @@ def make_train_step(model: VCModel, optimizer: Optimizer, *, teacher_params=None
         teacher.requires_grad_(False).eval().to(device)
 
     def step_fn(state: TrainState, batch: dict, key):
-        args, kw = _model_inputs(batch, compute_dtype)
         mels = batch["mels"]
-        draws = _draws_to(draws_fn(key, tuple(mels.shape), mels.device), mels.device)
-        model.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            loss, out = model(*args, draws, **kw)
-            if teacher is not None:
-                with torch.no_grad():
-                    _, t_out = teacher(*args, draws, **kw)
-                loss = loss + distill_weight * torch.mean((out - t_out) ** 2)
+        span = Span("train.step", device=mels.device)
+        with annotate("train.forward"):
+            args, kw = _model_inputs(batch, compute_dtype)
+            draws = _draws_to(draws_fn(key, tuple(mels.shape), mels.device), mels.device)
+            model.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                loss, out = model(*args, draws, **kw)
+                if teacher is not None:
+                    with torch.no_grad():
+                        _, t_out = teacher(*args, draws, **kw)
+                    loss = loss + distill_weight * torch.mean((out - t_out) ** 2)
+        with annotate("train.backward"):
             loss.backward()
-        grads = {n: p.grad for n, p in state.params.items()}
-        gnorm = global_norm(grads.values())
-        updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
-        apply_updates(state.params, updates)
+        with annotate("train.optimizer"):
+            grads = {n: p.grad for n, p in state.params.items()}
+            gnorm = global_norm(grads.values())
+            updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+            apply_updates(state.params, updates)
         ema = state.ema_params
         if weight_ema_decay > 0 and ema is not None:
-            with torch.no_grad():
-                names = list(ema)
-                e = [ema[n] for n in names]
-                torch._foreach_mul_(e, weight_ema_decay)
-                torch._foreach_add_(e, [state.params[n].detach() for n in names],
-                                    alpha=1 - weight_ema_decay)
-        metrics = {"loss": loss.detach(), "grad_norm": gnorm}
+            with annotate("train.ema"):
+                update_ema(ema, state.params, weight_ema_decay)
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "span": span.close()}
         return TrainState(state.params, opt_state, state.step + 1, ema), metrics
 
     return step_fn
@@ -311,29 +316,34 @@ def make_sharded_train_step(model: VCModel, optimizer: Optimizer, mesh: Mesh, *,
 
     def step_local(state: TrainState, batch: dict, key):
         layout = state.layout
-        args, kw = _model_inputs(batch, compute_dtype)
         mels = batch["mels"]
-        B, T, C = mels.shape
-        draws = _draws_to(draws_fn(key, (B * n_data, T, C), mels.device), mels.device)
-        draws = draw_rows(draws, mesh, B * n_data)
-        model.zero_grad(set_to_none=True)
-        with torch.enable_grad(), set_mesh(mesh, AXES.data):
-            loss, out = model(*args, draws, **kw)
-            if teacher is not None:
-                with torch.no_grad():
-                    _, t_out = teacher(*args, draws, **kw)
-                loss = loss + distill_weight * torch.mean((out - t_out) ** 2)
-            loss = pmean(loss, g_data)
+        span = Span("train.step", device=mels.device)
+        with annotate("train.forward"):
+            args, kw = _model_inputs(batch, compute_dtype)
+            B, T, C = mels.shape
+            draws = _draws_to(draws_fn(key, (B * n_data, T, C), mels.device), mels.device)
+            draws = draw_rows(draws, mesh, B * n_data)
+            model.zero_grad(set_to_none=True)
+            with torch.enable_grad(), set_mesh(mesh, AXES.data):
+                loss, out = model(*args, draws, **kw)
+                if teacher is not None:
+                    with torch.no_grad():
+                        _, t_out = teacher(*args, draws, **kw)
+                    loss = loss + distill_weight * torch.mean((out - t_out) ** 2)
+                loss = pmean(loss, g_data)
+        with annotate("train.backward"), torch.enable_grad(), set_mesh(mesh, AXES.data):
             loss.backward()
-        names = list(state.params)
-        grads = {n: state.params[n].grad for n in names}
-        average_gradients(grads, layout)
-        gnorm = global_norm(grads.values(), layout, names)
-        updates, opt_state = optimizer.update(grads, state.opt_state, state.params, layout)
-        apply_updates(state.params, updates)
+        with annotate("train.optimizer"):
+            names = list(state.params)
+            grads = {n: state.params[n].grad for n in names}
+            average_gradients(grads, layout)
+            gnorm = global_norm(grads.values(), layout, names)
+            updates, opt_state = optimizer.update(grads, state.opt_state, state.params, layout)
+            apply_updates(state.params, updates)
         if weight_ema_decay > 0 and state.ema_params is not None:
-            update_ema(state.ema_params, state.params, weight_ema_decay)
-        metrics = {"loss": loss.detach(), "grad_norm": gnorm}
+            with annotate("train.ema"):
+                update_ema(state.ema_params, state.params, weight_ema_decay)
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm, "span": span.close()}
         return (TrainState(state.params, opt_state, state.step + 1, state.ema_params, layout),
                 metrics)
 

@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from seedvc_tpu_torch.core.config import SeedVCConfig
+from seedvc_tpu_torch.core.profiling import annotate
 from seedvc_tpu_torch.dsp.fbank import kaldi_fbank
 from seedvc_tpu_torch.dsp.mel import MelFrontend
 from seedvc_tpu_torch.dsp.resample import resample, resample_kernel, warp_rate
@@ -339,9 +340,11 @@ class Trainer:
         self.plateau_count = 0
         self.best_val_loss = float("inf")
         self.val_patience = 0
-        # one record a step: step, mel frames T, host seconds of its prepare,
-        # host time at its end, loss and grad norm (device tensors, read
-        # by no one here) and the attention launches it made
+        # one record a step: step, mel frames T, host seconds of its prepare
+        # (prep_s, on the prefetch thread), the loop's wait for it (wait_s),
+        # host time at its end, the step's Span (span.host_s; span.device_s()
+        # once its end event has completed), loss and grad norm (device
+        # tensors, read by no one here) and the attention launches it made
         self.history: list[dict] = []
         if tcfg.run_dir:
             os.makedirs(tcfg.run_dir, exist_ok=True)
@@ -399,45 +402,51 @@ class Trainer:
             step = self.state.step
         B = batch.waves.shape[0]
         rows = data_rows(self.mesh, B)
-        mel_lens = (batch.wave_lengths // self.hop).astype(np.int32)
-        bucket = -(-int(mel_lens.max()) // tb.mel_bucket) * tb.mel_bucket
-        waves = np.zeros((B, bucket * self.hop), np.float32)
-        n = min(waves.shape[1], batch.waves.shape[1])
-        waves[:, :n] = batch.waves[:, :n]
-        waves_d = self._put(waves[rows])
-        mel_lens_d = self._put(mel_lens[rows])
-        mels = padded_mel(self.mel_fn, waves_d, mel_lens_d)
+        with annotate("prep.host"):
+            mel_lens = (batch.wave_lengths // self.hop).astype(np.int32)
+            bucket = -(-int(mel_lens.max()) // tb.mel_bucket) * tb.mel_bucket
+            waves = np.zeros((B, bucket * self.hop), np.float32)
+            n = min(waves.shape[1], batch.waves.shape[1])
+            waves[:, :n] = batch.waves[:, :n]
+            waves_d = self._put(waves[rows])
+            mel_lens_d = self._put(mel_lens[rows])
+            mels = padded_mel(self.mel_fn, waves_d, mel_lens_d)
 
-        # one 1 s-bucketed 16 kHz batch for every consumer
-        w16_T = min(-(-batch.waves_16k.shape[1] // 16000) * 16000, 30 * 16000)
-        w16b = np.zeros((B, w16_T), np.float32)
-        nb = min(w16_T, batch.waves_16k.shape[1])
-        w16b[:, :nb] = batch.waves_16k[:, :nb]
-        eff_16k = np.minimum(batch.wave_16k_lengths, w16_T)
-        frame_lens = np.maximum((eff_16k - 400) // 160 + 1, 1).astype(np.int32)
-        w16 = self._put(w16b[rows])
-        if self.openvoice is None:
-            # the warp takes 1/rate: out[i] = wave[i * r] compresses by r
-            alt = warp_rate(w16, np.float32(1.0 / rng.uniform(tb.perturb_min, tb.perturb_max)))
-        else:
-            # the converted wave at its own length; Whisper zero-pads it to 30 s
-            alt = self._perturb_openvoice(waves_d, rng, step, B, rows)[:, :WHISPER_CHUNK]
+            # one 1 s-bucketed 16 kHz batch for every consumer
+            w16_T = min(-(-batch.waves_16k.shape[1] // 16000) * 16000, 30 * 16000)
+            w16b = np.zeros((B, w16_T), np.float32)
+            nb = min(w16_T, batch.waves_16k.shape[1])
+            w16b[:, :nb] = batch.waves_16k[:, :nb]
+            eff_16k = np.minimum(batch.wave_16k_lengths, w16_T)
+            frame_lens = np.maximum((eff_16k - 400) // 160 + 1, 1).astype(np.int32)
+            w16 = self._put(w16b[rows])
+            if self.openvoice is None:
+                # the warp takes 1/rate: out[i] = wave[i * r] compresses by r
+                alt = warp_rate(w16, np.float32(1.0 / rng.uniform(tb.perturb_min,
+                                                                  tb.perturb_max)))
+            else:
+                # the converted wave at its own length; Whisper zero-pads it to 30 s
+                alt = self._perturb_openvoice(waves_d, rng, step, B, rows)[:, :WHISPER_CHUNK]
         Bl = w16.shape[0]
 
         ids = batch.ids[rows] if (cache and tb.feat_cache_bytes > 0) else None
         if ids is not None and all(int(i) in self._feat_cache for i in ids):
             cached = [self._feat_cache[int(i)] for i in ids]
-            s_ori = torch.stack([c[0] for c in cached])
-            style = torch.stack([c[1] for c in cached])
-            s_alt = self._whisper(alt)
+            with annotate("prep.style"):
+                s_ori = torch.stack([c[0] for c in cached])
+                style = torch.stack([c[1] for c in cached])
+            with annotate("prep.encode"):
+                s_alt = self._whisper(alt)
         else:
             # one encoder call for both; zero-padding them to one length leaves
             # the features as they were, since Whisper pads every row to 30 s
             T = max(w16.shape[1], alt.shape[1])
-            s = self._whisper(torch.cat([F.pad(w16, (0, T - w16.shape[1])),
-                                         F.pad(alt, (0, T - alt.shape[1]))]))
+            with annotate("prep.encode"):
+                s = self._whisper(torch.cat([F.pad(w16, (0, T - w16.shape[1])),
+                                             F.pad(alt, (0, T - alt.shape[1]))]))
             s_ori, s_alt = s[:Bl], s[Bl:]
-            style = batch_style(self.campplus, w16, self._put(frame_lens[rows]))
+            with annotate("prep.style"):
+                style = batch_style(self.campplus, w16, self._put(frame_lens[rows]))
             if ids is not None:
                 for b, i in enumerate(ids):
                     i = int(i)
@@ -562,8 +571,10 @@ class Trainer:
                 feats = self.prepare_batch(batch, np.random.default_rng((tb.seed, s)), step=s)
                 return feats, time.perf_counter() - t
 
-            for feats, prep_s in prefetched(dataset.batches(shuffle=True, epoch=epoch), _prep,
-                                            depth=tb.prefetch):
+            waits: list = []
+            for feats, prep_s in prefetched(
+                    dataset.batches(shuffle=True, epoch=epoch), _prep, depth=tb.prefetch,
+                    waits=waits):
                 before = (attention.LAUNCHES, attention.BWD_LAUNCHES,
                           attention.DIT_ATTENTION_LAUNCHES)
                 self.state, metrics = self.step_fn(self.state, feats, (tb.seed, step),
@@ -574,7 +585,8 @@ class Trainer:
                 loss = metrics["loss"]
                 self.history.append({
                     "step": step, "T": int(feats["mels"].shape[1]), "prep_s": prep_s,
-                    "end": time.perf_counter(), "loss": loss, "grad_norm": metrics["grad_norm"],
+                    "wait_s": waits[-1], "end": time.perf_counter(), "span": metrics["span"],
+                    "loss": loss, "grad_norm": metrics["grad_norm"],
                     **{k: a - b for k, a, b in zip(("k1", "k1b", "k3"), after, before)}})
                 self._ema_dev = (loss if self._ema_dev is None
                                  else d * self._ema_dev + (1 - d) * loss)

@@ -89,7 +89,8 @@ def _port_step(params, teacher, batch, draws):
                            draws_fn=lambda *_: draws)
     state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()}, 0)
     grads = {n: p.grad for n, p in model.named_parameters()}
-    return {**{k: float(v) for k, v in m.items()}, "params": _flat(to_jax_params(model)),
+    return {**{k: float(m[k]) for k in ("loss", "grad_norm")},
+            "params": _flat(to_jax_params(model)),
             "ema": _flat(to_jax_params(model, state.ema_params)),
             "grads": _flat(to_jax_params(model, grads))}
 

@@ -2,8 +2,9 @@
 the CPU: stage accounting, named spans in a ``torch.profiler`` run, and the
 device wait; and beside the JAX package's ``core/profiling.py``: a disabled
 ``StageTimer`` records nothing, ``total()`` is the sum of the stages'
-seconds, and ``trace(logdir)`` writes a trace under ``logdir`` (``None``
-writes nothing)."""
+seconds; the JAX package's ``trace(logdir)`` writes a trace under ``logdir``
+(``None`` writes nothing), which the port does without. The span recorder
+is tests/test_torch_spans.py's."""
 
 import os
 
@@ -91,11 +92,13 @@ def _files(d):
 
 
 def test_trace_writes_a_trace_as_jax(tmp_path):
-    for mod, sub in ((profiling, "port"), (jprofiling, "jax")):
-        with mod.trace(None):
+    """The JAX package's ``trace(logdir)``; the port has no exporter of its
+    own (a ``torch.profiler`` session reads its spans)."""
+    assert not hasattr(profiling, "trace")
+    with jprofiling.trace(None):
+        torch.ones(4) @ torch.ones(4)
+    with jprofiling.trace(str(tmp_path / "jax")):
+        with jprofiling.annotate("stage"):
             torch.ones(4) @ torch.ones(4)
-        with mod.trace(str(tmp_path / sub)):
-            with mod.annotate("stage"):
-                torch.ones(4) @ torch.ones(4)
-        assert _files(tmp_path / sub), sub
-    assert sorted(os.listdir(tmp_path)) == ["jax", "port"]
+    assert _files(tmp_path / "jax")
+    assert os.listdir(tmp_path) == ["jax"]

@@ -171,7 +171,8 @@ def test_streaming_matches_jax(monkeypatch):
         np.testing.assert_allclose(p, j, atol=2e-4, err_msg=f"block {i}")
     assert np.abs(p_out[1]).max() > 1e-3 and np.abs(p_out[4]).max() > 0
     assert not p_out[5].any() and not p_out[6].any()
-    assert set(pst.last_timings) == {"dispatch_ms", "sync_ms", "sola_ms"}
+    assert set(pst.last_timings) == {"dispatch_ms", "sync_ms", "sola_ms", "gate_ms", "total_ms",
+                                     "encode_ms", "cfm_ms", "vocode_ms"}
     assert pst.graph_launches is None and pst.replays == 0  # on the CPU: eager blocks
 
 
@@ -243,6 +244,7 @@ def test_stream_bench_on_cpu(monkeypatch, capsys):
                              "--block-time", "0.1"])
     text = capsys.readouterr().out
     assert len(res["block_ms"]) == 4 and res["graph_launches"] is None and res["replays"] == 0
-    assert all(set(t) == {"dispatch_ms", "sync_ms", "sola_ms"} for t in res["timings"])
+    assert all(set(t) == {"dispatch_ms", "sync_ms", "sola_ms", "gate_ms", "total_ms",
+                          "encode_ms", "cfm_ms", "vocode_ms"} for t in res["timings"])
     assert "steady-state per-block" in text and "occupancy" in text
     assert text.count("block ") >= 4
