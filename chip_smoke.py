@@ -4099,10 +4099,12 @@ def mg_train(rank: int, problems: list) -> dict:
 @contextlib.contextmanager
 def sampler_mels():
     """Every mel that the converters' samplers return inside the block, on
-    the host (the list yielded)."""
+    the host (the list yielded): the eager loops and the v1 converter's
+    graphed sampler, which an unsharded conversion on cuda takes."""
+    from seedvc_tpu_torch.models.cfm import EulerGraph
     from seedvc_tpu_torch.pipelines import convert, convert_v2
 
-    real = convert.euler_solve, convert_v2.euler_solve_multicfg
+    real = convert.euler_solve, convert_v2.euler_solve_multicfg, EulerGraph.__call__
     mels: list = []
 
     def kept(fn):
@@ -4112,10 +4114,11 @@ def sampler_mels():
             return out
         return run
     convert.euler_solve, convert_v2.euler_solve_multicfg = kept(real[0]), kept(real[1])
+    EulerGraph.__call__ = kept(real[2])
     try:
         yield mels
     finally:
-        convert.euler_solve, convert_v2.euler_solve_multicfg = real
+        convert.euler_solve, convert_v2.euler_solve_multicfg, EulerGraph.__call__ = real
 
 
 def mg_sharded_run(rank: int, what: str, vc, model, mesh, call, base, expect: dict,
@@ -4143,7 +4146,12 @@ def mg_sharded_run(rank: int, what: str, vc, model, mesh, call, base, expect: di
         h.remove()
     base, base_mels = base
     err, snr = (float(x) for x in compare_waves(f"multi-GPU {what}", wave, base))
-    mel_err = max(float((a - b).abs().max()) for a, b in zip(mels, base_mels))
+    if mels and len(mels) == len(base_mels):
+        mel_err = max(float((a - b).abs().max()) for a, b in zip(mels, base_mels))
+    else:
+        mel_err = float("nan")
+        problems.append(f"{what}: {len(mels)} sampler mels against the unsharded run's "
+                        f"{len(base_mels)}")
     log(f"[rank {rank}] multi-GPU {what}: {len(wave) / 22050:.2f} s of audio in {wall:.3f} s "
         f"wall (the ranks share one card); against the unsharded wave max abs {err:.2e} (tol "
         f"{MG_WAVE_TOL:g}), SNR {snr:.1f} dB, the sampler's mels max abs {mel_err:.2e}; "

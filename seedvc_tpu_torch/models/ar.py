@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from seedvc_tpu_torch.nn.layers import RMSNorm, rope_cache
-from seedvc_tpu_torch.ops import anti_alias, attention
+from seedvc_tpu_torch.ops import launches
 from seedvc_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
 from seedvc_tpu_torch.parallel.sharding import TensorParallel, TPSplit
 
@@ -279,11 +279,6 @@ def token_scores(logits: torch.Tensor, penal_mask: torch.Tensor, q: torch.Tensor
     return torch.softmax(logits / temp, dim=-1) / q
 
 
-def _launch_counts() -> dict:
-    return {"k1": attention.LAUNCHES, "k2": anti_alias.LAUNCHES,
-            "k3": attention.DIT_ATTENTION_LAUNCHES}
-
-
 class ARGenerator:
     """The JAX ``make_generate_fn`` counterpart: ``generate(cond_emb,
     cond_lens, prompt_tokens, prompt_lens, ...) -> (tokens (B, max_new)
@@ -440,11 +435,11 @@ class ARGenerator:
                 step()
             torch.cuda.current_stream(dev).wait_stream(side)
             n_steps = 1
-            before = _launch_counts()
+            before = launches.counts()
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
                 step()
-            self.graph_launches = {k: v - before[k] for k, v in _launch_counts().items()}
+            self.graph_launches = {k: v - before[k] for k, v in launches.counts().items()}
         while n_steps < max_new - 1:
             if n_steps % CHECK_EVERY == 0 and n_steps and bool(s["done"].all()):
                 break

@@ -20,11 +20,17 @@ keys and values and its convolutions exchange halos, and the velocity is
 gathered over time, then over the stack. Each Euler step is a
 ``cfm.step`` span of a ``torch.profiler`` trace and each estimator call in
 it a ``dit.estimate`` span.
+
+One step's math is :func:`euler_step`: :func:`euler_solve` calls it in a
+Python loop, and :class:`EulerGraph` captures it once per sampler shape as
+a CUDA graph that it replays every step (one device, no mesh axis).
 """
 
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
+from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
@@ -33,6 +39,7 @@ from torch import nn
 from seedvc_tpu_torch.core.config import ModelParams
 from seedvc_tpu_torch.core.profiling import annotate
 from seedvc_tpu_torch.models.dit import DiT
+from seedvc_tpu_torch.ops import launches
 from seedvc_tpu_torch.parallel.collectives import gather_rows, row_split
 from seedvc_tpu_torch.parallel.mesh import SeqShard, current_mesh, seq_shard_block
 
@@ -65,14 +72,16 @@ def time_shard(axis: Optional[str], T: int) -> Optional[SeqShard]:
 
 
 def estimate_rows(estimate_fn: Callable, seq: Optional[SeqShard], shard: StackShard,
-                  xx: torch.Tensor, t_cur: float, est: tuple, est_args: tuple) -> torch.Tensor:
+                  xx: torch.Tensor, t, est: tuple, est_args: tuple) -> torch.Tensor:
     """One estimator call on this rank's stack rows and time rows of ``xx``
     (its time rows already taken; ``est`` = (prompt, lens, style, mu), this
-    rank's rows), the velocity gathered over time, then over the stack."""
+    rank's rows) at time ``t`` (a float, or a 0-d tensor in mu's dtype), the
+    velocity gathered over time, then over the stack."""
     n_local = xx.shape[0]
     prompt, lens, style, mu = est
     if n_local:
-        tt = torch.full((n_local,), t_cur, dtype=mu.dtype, device=mu.device)
+        tt = (t.expand(n_local) if isinstance(t, torch.Tensor)
+              else torch.full((n_local,), t, dtype=mu.dtype, device=mu.device))
         with seq_shard_block(seq):
             v = estimate_fn(xx, prompt, lens, tt, style, mu, *est_args)
     else:  # more ranks than rows: this one only takes part in the gathers
@@ -139,6 +148,69 @@ def cosine_t_span(n_timesteps: int) -> torch.Tensor:
     return t - (torch.cos(math.pi / 2 * t) - 1 + t)
 
 
+def time_span(n_timesteps: int, t_scheduler: str = "linear") -> torch.Tensor:
+    """The sampler's (n + 1,) f32 times on the CPU: ``linspace(0, 1, n + 1)``
+    for ``linear``, :func:`cosine_t_span` for ``cosine``."""
+    if t_scheduler not in ("linear", "cosine"):
+        raise ValueError(f"unknown t_scheduler {t_scheduler!r}")
+    return (cosine_t_span(n_timesteps) if t_scheduler == "cosine"
+            else torch.linspace(0.0, 1.0, n_timesteps + 1))
+
+
+def sampler_inputs(noise, mu, x_lens, prompt, prompt_len: int, style, cfg_rate: float,
+                   temperature: float = 1.0) -> tuple:
+    """x at t = 0 (the noise scaled, zero in the prompt), the (1, T, 1)
+    prompt mask and the estimator's inputs (prompt, lens, style, mu), the
+    null batch stacked under the conditional one when ``cfg_rate > 0``."""
+    T = mu.shape[1]
+    noise = noise * temperature
+    in_prompt = (torch.arange(T, device=mu.device) < prompt_len)[None, :, None]
+    prompt_x = torch.where(in_prompt, prompt, torch.zeros_like(prompt))
+    x = torch.where(in_prompt, torch.zeros_like(noise), noise)
+    if cfg_rate <= 0:
+        return x, in_prompt, (prompt_x, x_lens, style, mu)
+    est_prompt = torch.cat([prompt_x, torch.zeros_like(prompt_x)], 0)
+    est_style = torch.cat([style, torch.zeros_like(style)], 0)
+    est_mu = torch.cat([mu, torch.zeros_like(mu)], 0)
+    est_lens = None if x_lens is None else torch.cat([x_lens, x_lens], 0)
+    return x, in_prompt, (est_prompt, est_lens, est_style, est_mu)
+
+
+def precompute_args(precompute_fn: Optional[Callable], est: tuple, n_mels: int,
+                    seq: Optional[SeqShard] = None) -> tuple:
+    """``(static_cond,)`` from ``precompute_fn`` on the estimator's inputs
+    ``est`` (this rank's rows), or () without one or without rows."""
+    prompt, lens, style, mu = est
+    if precompute_fn is None or not mu.shape[0]:
+        return ()
+    x_shape = (mu.shape[0], mu.shape[1], n_mels)
+    with seq_shard_block(seq):
+        return (precompute_fn(torch.zeros(x_shape, dtype=mu.dtype, device=mu.device),
+                              prompt, lens, style, mu),)
+
+
+def euler_step(estimate_fn: Callable, x: torch.Tensor, t, dt, est: tuple, est_args: tuple,
+               in_prompt: torch.Tensor, cfg_rate: float, shard: StackShard,
+               seq: Optional[SeqShard] = None) -> torch.Tensor:
+    """One Euler step: the estimator on the CFG stack (this rank's rows),
+    ``(1+r)·cond − r·uncond``, the f32 update ``x + dt·v`` and the prompt
+    re-zeroed; returns the new x. ``t`` and ``dt`` are Python floats (the
+    eager loop of :func:`euler_solve`) or 0-d device tensors, ``t`` in the
+    estimator's dtype and ``dt`` in f32 (the static inputs of
+    :class:`EulerGraph`): the same numbers either way."""
+    use_cfg = cfg_rate > 0
+    xx = shard.take(torch.cat([x, x], 0) if use_cfg else x)
+    if seq is not None:
+        xx = seq.take(xx)
+    with annotate("dit.estimate"):
+        v = estimate_rows(estimate_fn, seq, shard, xx, t, est, est_args)
+    if use_cfg:
+        v_cond, v_null = v.chunk(2, dim=0)
+        v = (1.0 + cfg_rate) * v_cond - cfg_rate * v_null
+    x = (x.float() + dt * v.float()).to(x.dtype)
+    return torch.where(in_prompt, torch.zeros_like(x), x)
+
+
 @torch.no_grad()
 def euler_solve(estimate_fn: Callable, noise: torch.Tensor, mu: torch.Tensor,
                 x_lens: Optional[torch.Tensor], prompt: torch.Tensor, prompt_len: int,
@@ -162,54 +234,143 @@ def euler_solve(estimate_fn: Callable, noise: torch.Tensor, mu: torch.Tensor,
     positions, and ``precompute_fn`` runs on them.
     Returns the generated mel (B, T, n_mels); the prompt region holds zeros.
     """
-    if t_scheduler not in ("linear", "cosine"):
-        raise ValueError(f"unknown t_scheduler {t_scheduler!r}")
-    B, T, _ = mu.shape
-    seq = time_shard(seq_shard_axis, T)
-    t_span = (cosine_t_span(n_timesteps) if t_scheduler == "cosine"
-              else torch.linspace(0.0, 1.0, n_timesteps + 1))
-    noise = noise * temperature
-    in_prompt = (torch.arange(T, device=mu.device) < prompt_len)[None, :, None]
-    prompt_x = torch.where(in_prompt, prompt, torch.zeros_like(prompt))
-    x = torch.where(in_prompt, torch.zeros_like(noise), noise)
-
-    use_cfg = cfg_rate > 0
-    if use_cfg:
-        est_prompt = torch.cat([prompt_x, torch.zeros_like(prompt_x)], 0)
-        est_style = torch.cat([style, torch.zeros_like(style)], 0)
-        est_mu = torch.cat([mu, torch.zeros_like(mu)], 0)
-        est_lens = None if x_lens is None else torch.cat([x_lens, x_lens], 0)
-    else:
-        est_prompt, est_style, est_mu, est_lens = prompt_x, style, mu, x_lens
-    n_stack = est_mu.shape[0]
-    shard = StackShard(shard_axis, n_stack)
-    est_prompt, est_style, est_mu, est_lens = (shard.take(t) for t in (
-        est_prompt, est_style, est_mu, est_lens))
+    t_span = time_span(n_timesteps, t_scheduler)
+    seq = time_shard(seq_shard_axis, mu.shape[1])
+    x, in_prompt, est = sampler_inputs(noise, mu, x_lens, prompt, prompt_len, style, cfg_rate,
+                                       temperature)
+    shard = StackShard(shard_axis, est[3].shape[0])
+    prompt_x, lens, style_x, mu_x = (shard.take(t) for t in est)
     if seq is not None:
-        est_prompt, est_mu = seq.take(est_prompt), seq.take(est_mu)
-    n_local = est_mu.shape[0]
-
-    est_args = ()
-    if precompute_fn is not None and n_local:
-        x_shape = (n_local, est_mu.shape[1], noise.shape[-1])
-        with seq_shard_block(seq):
-            est_args = (precompute_fn(torch.zeros(x_shape, dtype=mu.dtype, device=mu.device),
-                                      est_prompt, est_lens, est_style, est_mu),)
-
-    est = (est_prompt, est_lens, est_style, est_mu)
+        prompt_x, mu_x = seq.take(prompt_x), seq.take(mu_x)
+    est = (prompt_x, lens, style_x, mu_x)
+    est_args = precompute_args(precompute_fn, est, noise.shape[-1], seq)
     for i in range(n_timesteps):
         # trace-only spans (no events), so a graph capture may run them
         with annotate("cfm.step"):
-            t_cur = float(t_span[i])
-            dt = float(t_span[i + 1] - t_span[i])
-            xx = shard.take(torch.cat([x, x], 0) if use_cfg else x)
-            if seq is not None:
-                xx = seq.take(xx)
-            with annotate("dit.estimate"):
-                v = estimate_rows(estimate_fn, seq, shard, xx, t_cur, est, est_args)
-            if use_cfg:
-                v_cond, v_null = v.chunk(2, dim=0)
-                v = (1.0 + cfg_rate) * v_cond - cfg_rate * v_null
-            x = (x.float() + dt * v.float()).to(x.dtype)
-            x = torch.where(in_prompt, torch.zeros_like(x), x)
+            x = euler_step(estimate_fn, x, float(t_span[i]), float(t_span[i + 1] - t_span[i]),
+                           est, est_args, in_prompt, cfg_rate, shard, seq)
     return x
+
+
+@dataclass
+class StepGraph:
+    """One captured Euler step: its static buffers (the state ``x``, updated
+    in place, ``t``, ``dt`` and the sampler's inputs by name), its replay,
+    and what one replay launches of each kernel (as ``ops/launches.py``
+    counts them)."""
+    bufs: dict
+    replay: Callable[[], None]
+    launches: dict
+
+
+MAX_GRAPHS = 8  # a 30 s window's five contexts at one cfg_rate, and room
+
+
+class EulerGraph:
+    """:func:`euler_solve` on one device and no mesh axis, each Euler step
+    replayed from a CUDA graph: ``sampler(noise, mu, x_lens, prompt,
+    prompt_len, style, n_timesteps, cfg_rate)`` returns what
+    ``euler_solve(estimate_fn, ..., precompute_fn=precompute_fn)`` returns,
+    bit for bit (the same kernels in the same order).
+
+    A call copies x at t = 0, the prompt mask, the CFG stack and the
+    conditioning (``precompute_fn`` runs eagerly, once a call) into static
+    buffers, then for each step copies t_i and dt_i from a device table of
+    the schedule and replays the step, which updates x in place. A sampler
+    shape's first call runs its first step eagerly on a side stream (kernel
+    builds, cuBLAS and cuDNN plans, the RoPE tables), then captures the step
+    as one CUDA graph with a memory pool of its own, and replays the rest.
+    The returned mel is a copy, which no later replay overwrites.
+
+    A graph is keyed by the shapes and dtypes of its inputs and
+    ``cfg_rate``; the prompt length is data (the mask). The ``MAX_GRAPHS``
+    most recently used are kept. The kernel counters count what the device
+    ran (``ops/launches.py``): the capture, which runs nothing, adds
+    nothing, and each replay what the captured step launches."""
+
+    def __init__(self, estimate_fn: Callable, precompute_fn: Optional[Callable] = None):
+        self.estimate_fn = estimate_fn
+        self.precompute_fn = precompute_fn
+        self.graphs: OrderedDict[tuple, StepGraph] = OrderedDict()  # oldest use first
+        self._tables: dict = {}
+
+    @torch.no_grad()
+    def __call__(self, noise: torch.Tensor, mu: torch.Tensor, x_lens: Optional[torch.Tensor],
+                 prompt: torch.Tensor, prompt_len: int, style: torch.Tensor, n_timesteps: int,
+                 cfg_rate: float = 0.7, temperature: float = 1.0,
+                 t_scheduler: str = "linear") -> torch.Tensor:
+        t_tab, dt_tab = self._schedule(n_timesteps, t_scheduler, mu.dtype, mu.device)
+        x, in_prompt, est = sampler_inputs(noise, mu, x_lens, prompt, prompt_len, style,
+                                           cfg_rate, temperature)
+        if not n_timesteps:
+            return x
+        inputs = dict(zip(("x", "in_prompt", "prompt", "lens", "style", "mu"),
+                          (x, in_prompt, *est)))
+        for args in precompute_args(self.precompute_fn, est, noise.shape[-1]):
+            inputs.update((f"static.{k}", v) for k, v in args.items())
+        key = graph_key(inputs, cfg_rate)
+        step, first = self.graphs.pop(key, None), 0
+        if step is None:
+            bufs = self.buffers(inputs, t_tab[0], dt_tab[0])
+            with annotate("cfm.step"):
+                step, first = self._capture(bufs, cfg_rate), 1
+            while len(self.graphs) >= MAX_GRAPHS:
+                self.graphs.popitem(last=False)
+        else:
+            for name, v in inputs.items():
+                if v is not None:
+                    step.bufs[name].copy_(v)
+        self.graphs[key] = step
+        for i in range(first, n_timesteps):
+            with annotate("cfm.step"):
+                step.bufs["t"].copy_(t_tab[i])
+                step.bufs["dt"].copy_(dt_tab[i])
+                step.replay()
+        launches.replayed(step.launches, n_timesteps - first)
+        return step.bufs["x"].clone()
+
+    def _schedule(self, n_timesteps: int, t_scheduler: str, dtype, device) -> tuple:
+        """The device tables of t_i (in ``dtype``) and dt_i (f32), made once
+        each: a host-to-device copy waits for the stream."""
+        key = (n_timesteps, t_scheduler, dtype, device)
+        if key not in self._tables:
+            span = time_span(n_timesteps, t_scheduler)
+            self._tables[key] = (span[:-1].to(dtype).to(device),
+                                 (span[1:] - span[:-1]).to(device))
+        return self._tables[key]
+
+    def buffers(self, inputs: dict, t: torch.Tensor, dt: torch.Tensor) -> dict:
+        """Static buffers holding ``inputs`` and the first step's ``t`` and ``dt``."""
+        bufs = {k: None if v is None else v.clone() for k, v in inputs.items()}
+        bufs["t"], bufs["dt"] = t.clone(), dt.clone()
+        return bufs
+
+    def run(self, bufs: dict, cfg_rate: float) -> None:
+        """One Euler step on the static buffers, the state updated in place."""
+        est = (bufs["prompt"], bufs["lens"], bufs["style"], bufs["mu"])
+        static = {k[len("static."):]: v for k, v in bufs.items() if k.startswith("static.")}
+        x = euler_step(self.estimate_fn, bufs["x"], bufs["t"], bufs["dt"], est,
+                       (static,) if static else (), bufs["in_prompt"], cfg_rate,
+                       StackShard(None, bufs["mu"].shape[0]))
+        bufs["x"].copy_(x)
+
+    def _capture(self, bufs: dict, cfg_rate: float) -> StepGraph:
+        """Run the first step on ``bufs`` eagerly on a side stream (it builds
+        and caches what the step uses), then capture the step as a graph."""
+        dev = bufs["mu"].device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.run(bufs, cfg_rate)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with launches.captured() as launched, torch.cuda.graph(graph):
+            self.run(bufs, cfg_rate)
+        return StepGraph(bufs, graph.replay, launched)
+
+
+def graph_key(inputs: dict, cfg_rate: float) -> tuple:
+    """An :class:`EulerGraph` key: ``cfg_rate`` and each input's name,
+    shape, dtype and device (None for an absent one)."""
+    return (float(cfg_rate), *((k, None if v is None else (tuple(v.shape), v.dtype, v.device))
+                               for k, v in inputs.items()))

@@ -37,7 +37,7 @@ from seedvc_tpu_torch.dsp.resample import resample_host
 from seedvc_tpu_torch.dsp.whisper_mel import whisper_log_mel
 from seedvc_tpu_torch.models.bigvgan import BIGVGAN_22K_80, BIGVGAN_44K_128, BigVGAN
 from seedvc_tpu_torch.models.campplus import CAMPPlus
-from seedvc_tpu_torch.models.cfm import euler_solve
+from seedvc_tpu_torch.models.cfm import EulerGraph, euler_solve
 from seedvc_tpu_torch.models.hifigan import HiFTConfig, HiFTGenerator
 from seedvc_tpu_torch.models.rmvpe import RMVPE, RMVPE_E2E
 from seedvc_tpu_torch.models.ssl import XLSR_300M_L12, SSLEncoder
@@ -127,6 +127,12 @@ class VoiceConverter:
     (each rank runs the DiT on its time rows; composes with
     ``cfg_shard_axis`` on the other axis); the encoders, the regulator and
     the vocoder run whole on every rank, which returns the whole wave.
+
+    On cuda the sampler replays each Euler step from a CUDA graph
+    (:class:`~seedvc_tpu_torch.models.cfm.EulerGraph`, one capture per
+    sampler shape), with neither shard axis set (a sharded step holds
+    collectives) and outside another capture; elsewhere it runs the same
+    steps eagerly.
     """
 
     def __init__(self, cfg: Optional[SeedVCConfig] = None, *,
@@ -141,6 +147,7 @@ class VoiceConverter:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VoiceConverter: no CUDA device; pass device='cpu' "
                                "to run on the CPU")
+        self._use_graph = self.device.type == "cuda"  # tests set it for an A/B
         self.cfg = cfg or get_preset("whisper_small_wavenet")
         mp = self.cfg.model_params
         self.cfg_shard_axis = cfg_shard_axis
@@ -199,6 +206,7 @@ class VoiceConverter:
         # regulator (vc.length_regulator) stays f32
         self.whisper.to(compute_dtype)
         self.vc.cfm.to(compute_dtype)
+        self.sampler = EulerGraph(self.vc.estimate, self.vc.precompute_cond)
 
     # ------------------------------------------------------------------
     def _whisper_fn(self, wave_16k: torch.Tensor) -> torch.Tensor:
@@ -292,9 +300,10 @@ class VoiceConverter:
         shape, but the first conversion on the card pays for what later ones
         reuse: the build of the kernels (``ops/build.py`` runs ``nvcc`` at
         first use), the cuDNN and cuBLAS handles and the plans they pick per
-        shape, the allocator's pool, and the device tables (RoPE, filters)
-        the modules cache. A server warms at start-up so that its first
-        request does not pay for them."""
+        shape, the allocator's pool, the device tables (RoPE, filters) the
+        modules cache, and the sampler's CUDA graph of each context (at this
+        ``cfg_rate``; any step count replays it). A server warms at start-up
+        so that its first request does not pay for them."""
         warmed, seen = [], set()
         for src_s, ref_s in specs:
             target_len = max(int(src_s * self.sr) // self.hop, 1)
@@ -343,6 +352,12 @@ class VoiceConverter:
             shifted[voiced_alt] = shifted[voiced_alt] * 2 ** (pitch_shift / 12)
         return shifted.astype(np.float32), f0_ori.astype(np.float32)
 
+    def _graphed(self) -> bool:
+        """Whether the sampler replays its steps from CUDA graphs: on cuda
+        with no shard axis and no capture underway."""
+        return (self._use_graph and self.cfg_shard_axis is None and self.seq_shard_axis is None
+                and not torch.cuda.is_current_stream_capturing())
+
     def vocode(self, mel: torch.Tensor, draws=None) -> torch.Tensor:
         """f32 mel (B, T, n_mels) -> wave (B, T * hop); ``draws``: HiFT's
         random draws (see ``models/hifigan.py``), None for BigVGAN."""
@@ -356,7 +371,8 @@ class VoiceConverter:
         """CFM sampling over [prompt ‖ chunk] in one context window, the
         generated region sliced out and vocoded; returns the f16 wave. The
         two halves are ``timer``'s stages ``sample`` (counting its Euler
-        ``steps``) and ``vocode``, with no synchronise between them."""
+        ``steps``, and as ``graphed_steps`` those replayed from a CUDA
+        graph) and ``vocode``, with no synchronise between them."""
         cd = self.compute_dtype
         W = chunk.shape[1]
         with timer("sample"):
@@ -365,12 +381,17 @@ class VoiceConverter:
             cond_cat[:, prompt_len: prompt_len + W] = chunk.to(cd)
             pm = torch.zeros((1, context, self.n_mels), dtype=cd, device=self.device)
             pm[:, : prompt_mel.shape[1]] = prompt_mel.to(cd)
-            mel_out = euler_solve(self.vc.estimate, noise.to(cd), cond_cat, total_len, pm,
-                                  prompt_len, style.to(cd), n_timesteps=n_steps,
-                                  cfg_rate=cfg_rate, precompute_fn=self.vc.precompute_cond,
-                                  shard_axis=self.cfg_shard_axis,
-                                  seq_shard_axis=self.seq_shard_axis)
+            args = (noise.to(cd), cond_cat, total_len, pm, prompt_len, style.to(cd))
+            graphed = self._graphed()
+            if graphed:
+                mel_out = self.sampler(*args, n_timesteps=n_steps, cfg_rate=cfg_rate)
+            else:
+                mel_out = euler_solve(self.vc.estimate, *args, n_timesteps=n_steps,
+                                      cfg_rate=cfg_rate, precompute_fn=self.vc.precompute_cond,
+                                      shard_axis=self.cfg_shard_axis,
+                                      seq_shard_axis=self.seq_shard_axis)
             timer.count("steps", n_steps)
+            timer.count("graphed_steps", n_steps if graphed else 0)
         with timer("vocode"):
             gen = mel_out[:, prompt_len: prompt_len + W].float()
             return self.vocode(gen, draws).half()

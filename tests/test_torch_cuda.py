@@ -163,6 +163,168 @@ def test_attention_kernel_replays_in_a_cuda_graph(dtype):
                                    atol=0, rtol=0)
 
 
+@pytest.fixture(scope="module")
+def full_cfm():
+    """``whisper_small_wavenet``'s CFM at full width (DiT 512 wide, 13
+    layers, WaveNet head), bf16 on the card; its zero-initialised output
+    layers drawn, so the velocity is not 0."""
+    from seedvc_tpu_torch.core.config import get_preset
+    from seedvc_tpu_torch.models.cfm import CFM
+
+    if not torch.cuda.is_available():  # module scope: before the autouse skip
+        pytest.skip("needs a CUDA device")
+    torch.manual_seed(0)
+    model = CFM(get_preset("whisper_small_wavenet").model_params).eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.abs().sum():
+                p.normal_(0, 0.02)
+    return model.requires_grad_(False).cuda().to(torch.bfloat16)
+
+
+def _sampler_args(T, seed, prompt_len, n_valid):
+    """A conversion chunk's sampler inputs at context T: noise, mu, lens,
+    prompt, prompt_len, style (B = 1, so the CFG stack has 2 rows)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)  # noqa: E731
+    return (r(1, T, 80), r(1, T, 512), torch.tensor([n_valid], device="cuda"), r(1, T, 80),
+            prompt_len, r(1, 192))
+
+
+def _eager_and_graphed(model, sampler, args, steps=25):
+    """(eager mel, graphed mel, K1 launches of each call)."""
+    from seedvc_tpu_torch.models.cfm import euler_solve
+
+    n0 = attention.LAUNCHES
+    want = euler_solve(model.estimate, *args, n_timesteps=steps, cfg_rate=0.7,
+                       precompute_fn=model.precompute_cond)
+    n1 = attention.LAUNCHES
+    got = sampler(*args, n_timesteps=steps, cfg_rate=0.7)
+    torch.cuda.synchronize()
+    return want, got, (n1 - n0, attention.LAUNCHES - n1)
+
+
+def test_euler_graph_matches_eager_at_full_width(full_cfm):
+    """The graphed sampler (one CUDA graph an Euler step) against the eager
+    loop at ``whisper_small_wavenet``'s DiT, a (2, 2048) CFG stack, 25 steps,
+    lens set: bit for bit (the same kernels on the same inputs, in the same
+    order), the capturing call and a replaying one with a new prompt length."""
+    from seedvc_tpu_torch.models.cfm import EulerGraph
+
+    sampler = EulerGraph(full_cfm.estimate, full_cfm.precompute_cond)
+    for seed, prompt_len, n_valid in ((1, 512, 1966), (2, 300, 2048)):
+        want, got, _ = _eager_and_graphed(full_cfm, sampler,
+                                          _sampler_args(2048, seed, prompt_len, n_valid))
+        assert (got.float() - want.float()).abs().max().item() == 0.0
+        assert not got[:, prompt_len:].isnan().any() and got[:, :prompt_len].abs().max() == 0
+    assert len(sampler.graphs) == 1
+    step = next(iter(sampler.graphs.values()))
+    assert step.launches == {"k1": 13, "k2": 0, "k3": 0}  # K1 once a layer, no K3, no K2
+
+
+def test_euler_graph_replays_two_contexts_in_turn(full_cfm):
+    """Two contexts (2048, 1536) captured and replayed in turn, each call
+    still equal to the eager loop; a third use of each captures nothing."""
+    from seedvc_tpu_torch.models.cfm import EulerGraph
+
+    sampler = EulerGraph(full_cfm.estimate, full_cfm.precompute_cond)
+    for seed, T in ((3, 2048), (4, 1536), (5, 2048), (6, 1536)):
+        want, got, _ = _eager_and_graphed(full_cfm, sampler, _sampler_args(T, seed, 400, T - 90))
+        assert (got.float() - want.float()).abs().max().item() == 0.0
+        assert len(sampler.graphs) == (1 if seed == 3 else 2)
+    graphs = dict(sampler.graphs)
+    _eager_and_graphed(full_cfm, sampler, _sampler_args(2048, 7, 400, 1000), steps=3)
+    assert all(sampler.graphs[k] is v for k, v in graphs.items())
+
+
+def test_euler_graph_launch_counters_count_what_ran(full_cfm):
+    """``attention.LAUNCHES`` advances by exactly steps × depth over a
+    graphed call, the capturing one included (its first step runs eagerly,
+    the capture counts nothing), as over the eager loop; K2 and K3 not at all."""
+    from seedvc_tpu_torch.models.cfm import EulerGraph
+
+    sampler = EulerGraph(full_cfm.estimate, full_cfm.precompute_cond)
+    others = (attention.DIT_ATTENTION_LAUNCHES, anti_alias.LAUNCHES)
+    for steps in (2, 25, 1):
+        _, _, (eager, graphed) = _eager_and_graphed(
+            full_cfm, sampler, _sampler_args(1024, steps, 256, 1000), steps=steps)
+        assert eager == graphed == steps * 13
+    assert (attention.DIT_ATTENTION_LAUNCHES, anti_alias.LAUNCHES) == others
+
+
+def test_voice_converter_graph_matches_eager_conversion():
+    """A 2-chunk conversion at full width (``whisper_small_wavenet``, random
+    weights; context 1024): its wave with the graphed sampler equals the
+    eager one's, every step counts as ``graphed_steps``, and K1 ran steps ×
+    13 a chunk by the counter."""
+    from seedvc_tpu_torch.pipelines.convert import VoiceConverter
+
+    vc = VoiceConverter(context_frames=1024, prompt_cap_frames=256, seed=3)
+    assert vc._use_graph
+    sr = vc.sr
+    t = np.arange(12 * sr) / sr
+    src = (0.3 * np.sin(2 * np.pi * 150 * t)).astype(np.float32)
+    ref = (0.3 * np.sin(2 * np.pi * 230 * t[: 4 * sr])).astype(np.float32)
+    out = {}
+    for graph in (False, True, False, True):
+        vc._use_graph = graph
+        n0 = attention.LAUNCHES
+        _, wave, stats = vc.convert(src, sr, ref, sr, diffusion_steps=10, seed=1)
+        sample = stats["stages"]["sample"]
+        assert stats["chunks"] == 2 and sample["steps"] == 20
+        assert sample["graphed_steps"] == (20 if graph else 0)
+        assert attention.LAUNCHES - n0 == 20 * 13
+        out.setdefault(graph, []).append(wave)
+    assert np.array_equal(out[True][0], out[False][0]) and np.abs(out[True][0]).max() > 0
+    assert np.array_equal(out[True][1], out[False][1])
+    assert len(vc.sampler.graphs) == 1
+
+
+def _kernel_launches(prof) -> dict:
+    """K1's and K2's launches among a ``torch.profiler`` session's device
+    operations, CUDA graph replays included (by K1's core kernel, which K3
+    shares, so "k1" counts K3 too)."""
+    names = {"k1": "attn_core_kernel", "k2": "anti_alias_snake_kernel"}
+    out = {k: 0 for k in names}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name == "CUDA" and not e.is_user_annotation():
+            for k, name in names.items():
+                out[k] += name in e.name()
+    return out
+
+
+def test_voice_converter_launch_counters_match_the_trace():
+    """The kernel counters against the device's own record: over a graphed
+    2-chunk conversion (the one that captures, then one that only replays),
+    K1's and K2's counters advance by the K1 cores and K2 kernels that a
+    ``torch.profiler`` trace of the conversion shows ran (K1 steps × 13)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from seedvc_tpu_torch.ops import launches
+    from seedvc_tpu_torch.pipelines.convert import VoiceConverter
+
+    vc = VoiceConverter(context_frames=1024, prompt_cap_frames=256, seed=4)
+    sr = vc.sr
+    t = np.arange(12 * sr) / sr
+    src = (0.3 * np.sin(2 * np.pi * 170 * t)).astype(np.float32)
+    ref = (0.3 * np.sin(2 * np.pi * 210 * t[: 4 * sr])).astype(np.float32)
+    vc._use_graph = False
+    vc.convert(src, sr, ref, sr, diffusion_steps=2, seed=1)  # kernel builds, off the trace
+    vc._use_graph = True
+    for call in ("capture", "replay"):
+        n0 = launches.counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, _, stats = vc.convert(src, sr, ref, sr, diffusion_steps=10, seed=1)
+            torch.cuda.synchronize()
+        counted = {k: v - n0[k] for k, v in launches.counts().items()}
+        traced = _kernel_launches(prof)
+        assert stats["chunks"] == 2 and stats["stages"]["sample"]["graphed_steps"] == 20, call
+        assert counted["k3"] == 0, call
+        assert traced == {"k1": counted["k1"], "k2": counted["k2"]}, (call, traced, counted)
+        assert counted["k1"] == 20 * 13 and counted["k2"] > 0, call
+    assert len(vc.sampler.graphs) == 1
+
+
 @pytest.mark.parametrize("T", [2048, 777, 1])
 def test_rope_prepass_matches_twin_exactly(T):
     """K1's pre-pass (roped q times 2^-3, roped k, bf16) equals its plain
