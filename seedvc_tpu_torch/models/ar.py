@@ -12,7 +12,8 @@ rows are left-padded inside one packed prefill so every row's last token sits
 on the same cache slot, then each decode step writes all rows at one kv slot
 (``min_key`` keeps pad slots out), samples with a repetition penalty, EOS
 suppression, top-p and temperature (the knobs are runtime arguments), and
-stops when every row has emitted EOS or after ``max_new_tokens``. The
+stops when every row has emitted EOS, or reached its own token cap when
+one is given, or after ``max_new_tokens``. The
 multinomial draw is the exponential race ``argmax(probs / q)``, and the
 draws ``q`` are an argument. On cuda the decode step is captured once as a
 CUDA graph and replayed once a token; the host reads ``all(done)`` every
@@ -22,6 +23,7 @@ nothing, so the result is the JAX early exit's.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -291,10 +293,12 @@ class ARGenerator:
     ``graph``: capture the decode step as a CUDA graph (default: on cuda);
     ``graph=False`` runs the same step eagerly. After a call, ``graph_launches``
     holds the kernel wrappers' launches in one replay (the AR runs none),
-    ``replays`` the replays, ``decode_steps`` the decode steps run (the
-    first-token prefill not included) and ``decode_s`` the decode's wall
-    seconds, ending in the device's result; the call's static buffers and
-    ``graph`` stay alive until the next call."""
+    ``replays`` the replays, ``captures`` the graphs captured (one a call on
+    cuda), ``decode_steps`` the decode steps run (the first-token prefill
+    not included) and ``decode_s`` the decode's wall seconds, ending in the
+    device's result; with ``keep_logits``, ``logits`` holds each step's f32
+    logits (row 0 the prefill's, row s decode step s's); the call's static
+    buffers and ``graph`` stay alive until the next call."""
 
     def __init__(self, model: ARTransformer, max_new_tokens: int = 1024, *,
                  temperature: float = 0.7, top_p: float = 0.7,
@@ -315,8 +319,10 @@ class ARGenerator:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.graph_launches: Optional[dict] = None
         self.replays = 0
+        self.captures = 0
         self.decode_steps = 0
         self.decode_s = 0.0
+        self.logits: Optional[torch.Tensor] = None
         self._state: dict = {}
 
     def default_draws(self, shape, device, seed: int) -> torch.Tensor:
@@ -330,12 +336,23 @@ class ARGenerator:
     def generate(self, cond_emb: torch.Tensor, cond_lens, prompt_tokens: torch.Tensor,
                  prompt_lens, *, temperature=None, top_p=None, repetition_penalty=None,
                  draws: Optional[torch.Tensor] = None, draws_fn: Optional[Callable] = None,
-                 seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+                 seed: int = 0, max_tokens=None, keep_logits: bool = False,
+                 timer=None) -> tuple[torch.Tensor, torch.Tensor]:
         """cond_emb: (B, C_max, D) regulated narrow-token embeddings, padded;
         cond_lens: int or (B,) true lengths; prompt_tokens: (B, P_max) wide
         tokens, padded; prompt_lens: int or (B,). ``draws`` (max_new, B,
         vocab) f32, or ``draws_fn(shape)``, or :meth:`default_draws` from
-        ``seed``: row 0 draws the first token, row s decode step s."""
+        ``seed``: row 0 draws the first token, row s decode step s.
+
+        ``max_tokens``: int or (B,) caps; a row whose emitted tokens reach its
+        cap is done, inside the captured step, as an EOS makes it (None: no
+        cap). ``keep_logits``: keep each step's f32 logits in
+        :attr:`logits` (one copy a step). ``timer``: a
+        :class:`~seedvc_tpu_torch.core.profiling.StageTimer` whose stages
+        ``ar.prefill`` and ``ar.decode`` this call opens; ``ar.decode``
+        counts ``steps``, ``rows``, ``tokens`` (emitted, summed over the
+        rows), ``replays`` and ``captures``, and ends after the device
+        synchronise the call makes anyway."""
         model, cfg, max_new = self.model, self.model.cfg, self.max_new_tokens
         dev = self.device
         dtype = model.output.weight.dtype
@@ -349,52 +366,61 @@ class ARGenerator:
         cond_emb = cond_emb.to(dev, dtype)
         cond_lens = torch.as_tensor(cond_lens, device=dev).long().broadcast_to((B,))
         prompt_lens = torch.as_tensor(prompt_lens, device=dev).long().broadcast_to((B,))
+        stage = timer if timer is not None else (lambda name: contextlib.nullcontext())
         shape = (max_new, B, V)
         if draws is None:
             draws = draws_fn(shape) if draws_fn is not None else self.default_draws(
                 shape, dev, seed)
         draws = draws.to(dev, torch.float32)
 
-        # packed prefill, left-padded per row: [pad... ‖ sep ‖ cond ‖ sep ‖ prompt]
-        L_pre = 2 + C_max + P_max
-        off = (L_pre - (2 + cond_lens + prompt_lens))[:, None]
-        idx = torch.arange(L_pre, device=dev)[None, :]
-        rel = idx - off
-        second_sep = (cond_lens + 1)[:, None]
-        is_sep = (rel == 0) | (rel == second_sep)
-        in_cond = (rel > 0) & (rel < second_sep)
-        cond_g = torch.clamp(rel - 1, 0, C_max - 1)
-        tok_g = torch.clamp(rel - second_sep - 1, 0, P_max - 1)
-        tok_emb = model.embed_tokens(prompt_tokens.to(dev).long())
-        d = cfg.dim
-        emb = torch.where(
-            is_sep[..., None], model.sep_token_emb.to(dtype)[None, None, :],
-            torch.where(in_cond[..., None],
-                        torch.gather(cond_emb, 1, cond_g[..., None].expand(-1, -1, d)),
-                        torch.gather(tok_emb, 1, tok_g[..., None].expand(-1, -1, d))))
-        # RoPE positions restart at the second sep; pad positions are 0
-        pos = torch.where(rel < second_sep, torch.clamp(rel, min=0), rel - second_sep)
-        # causal from each row's start; a pad query attends to itself only
-        q_idx = idx[:, :, None]
-        keys = idx[:, None, :]
-        mask = (keys <= q_idx) & ((keys >= off[..., None]) | (keys == q_idx))
-        kc, vc = model.new_caches(B, dev, dtype)
-        logits = model.prefill(emb, pos, mask[:, None], kc, vc)
+        with stage("ar.prefill"):
+            # packed prefill, left-padded per row: [pad... ‖ sep ‖ cond ‖ sep ‖ prompt]
+            L_pre = 2 + C_max + P_max
+            off = (L_pre - (2 + cond_lens + prompt_lens))[:, None]
+            idx = torch.arange(L_pre, device=dev)[None, :]
+            rel = idx - off
+            second_sep = (cond_lens + 1)[:, None]
+            is_sep = (rel == 0) | (rel == second_sep)
+            in_cond = (rel > 0) & (rel < second_sep)
+            cond_g = torch.clamp(rel - 1, 0, C_max - 1)
+            tok_g = torch.clamp(rel - second_sep - 1, 0, P_max - 1)
+            tok_emb = model.embed_tokens(prompt_tokens.to(dev).long())
+            d = cfg.dim
+            emb = torch.where(
+                is_sep[..., None], model.sep_token_emb.to(dtype)[None, None, :],
+                torch.where(in_cond[..., None],
+                            torch.gather(cond_emb, 1, cond_g[..., None].expand(-1, -1, d)),
+                            torch.gather(tok_emb, 1, tok_g[..., None].expand(-1, -1, d))))
+            # RoPE positions restart at the second sep; pad positions are 0
+            pos = torch.where(rel < second_sep, torch.clamp(rel, min=0), rel - second_sep)
+            # causal from each row's start; a pad query attends to itself only
+            q_idx = idx[:, :, None]
+            keys = idx[:, None, :]
+            mask = (keys <= q_idx) & ((keys >= off[..., None]) | (keys == q_idx))
+            kc, vc = model.new_caches(B, dev, dtype)
+            logits = model.prefill(emb, pos, mask[:, None], kc, vc)
 
-        vocab = torch.arange(V, device=dev)
-        first = sample_token(logits, torch.zeros((B, V), dtype=torch.bool, device=dev),
-                             draws[0], suppress_eos=True, eos=eos, **knobs)
-        tokens = torch.zeros((B, max_new), dtype=torch.long, device=dev)
-        tokens[:, 0] = first
-        s = {"step": torch.ones((), dtype=torch.long, device=dev),
-             "steps": torch.ones(B, dtype=torch.long, device=dev),
-             "kv_pos": torch.full((), L_pre, dtype=torch.long, device=dev),
-             "input_pos": prompt_lens + 1, "last": first, "tokens": tokens,
-             "presence": vocab[None, :] == first[:, None],
-             "done": torch.zeros(B, dtype=torch.bool, device=dev),
-             "kc": kc, "vc": vc, "min_key": off[:, 0], "draws": draws, "vocab": vocab,
-             **knobs}
-        self._state = s
+            vocab = torch.arange(V, device=dev)
+            first = sample_token(logits, torch.zeros((B, V), dtype=torch.bool, device=dev),
+                                 draws[0], suppress_eos=True, eos=eos, **knobs)
+            tokens = torch.zeros((B, max_new), dtype=torch.long, device=dev)
+            tokens[:, 0] = first
+            steps = torch.ones(B, dtype=torch.long, device=dev)
+            cap = (torch.full((B,), max_new, dtype=torch.long, device=dev) if max_tokens is None
+                   else torch.as_tensor(max_tokens, device=dev).long().broadcast_to((B,)).clone())
+            self.logits = None
+            if keep_logits:
+                self.logits = torch.zeros(shape, dtype=torch.float32, device=dev)
+                self.logits[0] = logits.float()
+            s = {"step": torch.ones((), dtype=torch.long, device=dev),
+                 "steps": steps, "cap": cap,
+                 "kv_pos": torch.full((), L_pre, dtype=torch.long, device=dev),
+                 "input_pos": prompt_lens + 1, "last": first, "tokens": tokens,
+                 "presence": vocab[None, :] == first[:, None],
+                 "done": steps >= cap,
+                 "kc": kc, "vc": vc, "min_key": off[:, 0], "draws": draws, "vocab": vocab,
+                 "logits": self.logits, **knobs}
+            self._state = s
 
         def step():
             """One decode step over the static buffers of ``s``, in place;
@@ -403,7 +429,10 @@ class ARGenerator:
                                    s["kv_pos"], s["kc"], s["vc"], s["min_key"])
             penal = (s["vocab"][None, :] == s["tokens"][:, :1] if self.penalty_scope == "first"
                      else s["presence"])
-            q = s["draws"].index_select(0, torch.clamp(s["step"], max=max_new - 1).reshape(1))[0]
+            row = torch.clamp(s["step"], max=max_new - 1).reshape(1)
+            if s["logits"] is not None:
+                s["logits"].index_copy_(0, row, lg.float()[None])
+            q = s["draws"].index_select(0, row)[0]
             tok = sample_token(lg, penal, q, temperature=s["temperature"], top_p=s["top_p"],
                                repetition_penalty=s["repetition_penalty"],
                                suppress_eos=s["step"] < 10, eos=eos)
@@ -420,38 +449,45 @@ class ARGenerator:
             s["input_pos"].add_(1)
             s["step"].add_(1)
             s["last"].copy_(torch.where(active, tok, s["last"]))
-            s["done"].logical_or_(is_eos)
+            s["done"].logical_or_(is_eos | (s["steps"] >= s["cap"]))
 
         use_graph = dev.type == "cuda" if self.use_graph is None else self.use_graph
-        self.graph, self.graph_launches, self.replays = None, None, 0
+        self.graph, self.graph_launches, self.replays, self.captures = None, None, 0, 0
         n_steps = 0
         t0 = time.perf_counter()
-        if max_new > 1 and use_graph:
-            # the first decode step runs eagerly on a side stream (it warms
-            # cuBLAS and the allocator); capturing runs nothing
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                step()
-            torch.cuda.current_stream(dev).wait_stream(side)
-            n_steps = 1
-            before = launches.counts()
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                step()
-            self.graph_launches = {k: v - before[k] for k, v in launches.counts().items()}
-        while n_steps < max_new - 1:
-            if n_steps % CHECK_EVERY == 0 and n_steps and bool(s["done"].all()):
-                break
-            if self.graph is not None:
-                self.graph.replay()
-                self.replays += 1
-            else:
-                step()
-            n_steps += 1
-        out_tokens, out_steps = s["tokens"].clone(), s["steps"].clone()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with stage("ar.decode"):
+            if max_new > 1 and use_graph:
+                # the first decode step runs eagerly on a side stream (it warms
+                # cuBLAS and the allocator); capturing runs nothing
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    step()
+                torch.cuda.current_stream(dev).wait_stream(side)
+                n_steps = 1
+                before = launches.counts()
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph):
+                    step()
+                self.captures = 1
+                self.graph_launches = {k: v - before[k] for k, v in launches.counts().items()}
+            while n_steps < max_new - 1:
+                if n_steps % CHECK_EVERY == 0 and n_steps and bool(s["done"].all()):
+                    break
+                if self.graph is not None:
+                    self.graph.replay()
+                    self.replays += 1
+                else:
+                    step()
+                n_steps += 1
+            out_tokens, out_steps = s["tokens"].clone(), s["steps"].clone()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            if timer is not None:
+                for key, n in (("steps", n_steps), ("rows", B),
+                               ("tokens", int(out_steps.sum())), ("replays", self.replays),
+                               ("captures", self.captures)):
+                    timer.count(key, n)
         self.decode_s = time.perf_counter() - t0
         self.decode_steps = n_steps
         return out_tokens, out_steps

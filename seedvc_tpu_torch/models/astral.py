@@ -39,3 +39,9 @@ class AstralQuantizer(nn.Module):
     def forward(self, ssl_features: torch.Tensor, training: bool = False):
         """(B, T, input_dim) -> (quantized (B, T, dim), indices (B, T), aux_loss)."""
         return self.quantizer(self.encoder(ssl_features), training=training)
+
+    def codes(self, ssl_features: torch.Tensor):
+        """(indices (B, T), the normalised projection (B, T, bits) whose signs
+        they are): the tokens without the quantized vector's projection."""
+        h = self.quantizer.project(self.encoder(ssl_features))
+        return self.quantizer.indices(h), h

@@ -20,6 +20,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from seedvc_tpu_torch.core.profiling import annotate
 from seedvc_tpu_torch.models.cfm import StackShard, cosine_t_span, estimate_rows, time_shard
 from seedvc_tpu_torch.parallel.mesh import seq_shard_block
 
@@ -49,7 +50,8 @@ def euler_solve_multicfg(estimate_fn: Callable, noise: torch.Tensor, mu: torch.T
                          cfg_rates: Sequence[float] = (0.5, 0.5), random_voice: bool = False,
                          precompute_fn: Optional[Callable] = None,
                          shard_axis: Optional[str] = None,
-                         seq_shard_axis: Optional[str] = None) -> torch.Tensor:
+                         seq_shard_axis: Optional[str] = None,
+                         keep: Optional[tuple] = None) -> torch.Tensor:
     """``estimate_fn(x, prompt_x, x_lens, t, style, mu[, static_cond]) -> v``.
 
     noise: (B, T, n_mels) initial noise in mu's dtype (scaled by
@@ -59,8 +61,12 @@ def euler_solve_multicfg(estimate_fn: Callable, noise: torch.Tensor, mu: torch.T
     the loop. ``shard_axis``: split the stack over that axis of the
     ``set_mesh`` mesh (an uneven split too: 3 branches over 2 ranks are 2 and
     1 rows); every rank returns the whole result. ``seq_shard_axis``: split
-    time over that axis, as the v1 sampler's. Returns the generated mel;
-    the prompt region holds zeros."""
+    time over that axis, as the v1 sampler's. ``keep``: two buffers
+    (n_timesteps, B, T, n_mels) whose row i step i fills with the state it
+    estimated at and its combined estimate (two copies a step, into memory
+    allocated once: holding each step's own tensors instead makes the
+    allocator ask the device for more every step). Returns the generated
+    mel; the prompt region holds zeros."""
     B, T, _ = mu.shape
     seq = time_shard(seq_shard_axis, T)
     z = noise * temperature
@@ -90,15 +96,21 @@ def euler_solve_multicfg(estimate_fn: Callable, noise: torch.Tensor, mu: torch.T
     est = (est_prompt, est_lens, est_style, est_mu)
     t_span = cosine_t_span(n_timesteps)
     for i in range(n_timesteps):
-        t_cur = float(t_span[i])
-        dt = float(t_span[i + 1] - t_span[i])
-        xx = shard.take(torch.cat([x] * n_br, 0))
-        if seq is not None:
-            xx = seq.take(xx)
-        v = estimate_rows(estimate_fn, seq, shard, xx, t_cur, est, est_args)
-        v = torch.tensordot(w, v.reshape(n_br, B, *v.shape[1:]), dims=1)
-        x = (x.float() + dt * v.float()).to(x.dtype)
-        x = torch.where(in_prompt, torch.zeros_like(x), x)
+        # trace-only spans (no events), as the v1 sampler's
+        with annotate("cfm.step"):
+            t_cur = float(t_span[i])
+            dt = float(t_span[i + 1] - t_span[i])
+            xx = shard.take(torch.cat([x] * n_br, 0))
+            if seq is not None:
+                xx = seq.take(xx)
+            with annotate("dit.estimate"):
+                v = estimate_rows(estimate_fn, seq, shard, xx, t_cur, est, est_args)
+            v = torch.tensordot(w, v.reshape(n_br, B, *v.shape[1:]), dims=1)
+            if keep is not None:
+                keep[0][i].copy_(x)
+                keep[1][i].copy_(v)
+            x = (x.float() + dt * v.float()).to(x.dtype)
+            x = torch.where(in_prompt, torch.zeros_like(x), x)
     return x
 
 

@@ -64,14 +64,22 @@ class BSQ(nn.Module):
     def _maybe_l2norm(self, t: torch.Tensor) -> torch.Tensor:
         return l2norm(t) * self.codebook_scale if self.spherical else t
 
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        """The normalised projection whose signs are the bits."""
+        return self._maybe_l2norm(self.project_in(x))
+
+    def indices(self, h: torch.Tensor) -> torch.Tensor:
+        """The bits of ``h``'s signs packed big-endian into (B, T) int64."""
+        mask = 2 ** torch.arange(self.codebook_dim - 1, -1, -1, device=h.device)
+        return ((h > 0).long() * mask).sum(-1)
+
     def forward(self, x: torch.Tensor, training: bool = False):
         """x: (B, T, dim) -> (quantized (B, T, dim), indices (B, T) int64,
         aux_loss (), 0 unless ``training``)."""
-        h = self._maybe_l2norm(self.project_in(x))
+        h = self.project(x)
         scale = torch.full_like(h, self.codebook_scale)
         quantized = torch.where(h > 0, scale, -scale)
-        mask = 2 ** torch.arange(self.codebook_dim - 1, -1, -1, device=x.device)
-        indices = ((quantized > 0).long() * mask).sum(-1)
+        indices = self.indices(h)
         q_out = self._maybe_l2norm(quantized)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if training:
@@ -123,3 +131,13 @@ def duration_reduction(tokens: np.ndarray) -> tuple[np.ndarray, int]:
     keep = np.concatenate([[True], tokens[1:] != tokens[:-1]])
     out = tokens[keep]
     return out, len(out)
+
+
+def run_lengths(tokens: np.ndarray) -> np.ndarray:
+    """The length of each run of identical tokens, in order: the duration of
+    each token :func:`duration_reduction` keeps."""
+    tokens = np.asarray(tokens)
+    if tokens.size == 0:
+        return np.zeros(0, np.int64)
+    starts = np.flatnonzero(np.concatenate([[True], tokens[1:] != tokens[:-1]]))
+    return np.diff(np.append(starts, tokens.size)).astype(np.int64)

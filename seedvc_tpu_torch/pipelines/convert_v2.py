@@ -11,13 +11,21 @@ tokens (port of ``seedvc_tpu/pipelines/convert_v2.py``).
   reference's as a prefix, in chunks sized so prefix + chunk <= 1500 tokens,
   all decoded by ONE batched AR ``generate`` into wide tokens; the output's
   mel length follows the AR's token ratio (accent conversion may stretch or
-  shrink the utterance); ``anonymization_only`` decodes with an empty prefix
-  and prompt and samples in the ``random_voice`` CFG mode;
+  shrink the utterance); ``cap_to_source`` caps each row at the 50 Hz length
+  of its own source span (the durations of its reduced tokens summed), so
+  the output lasts about as long as the source, as a trained model's does;
+  ``anonymization_only`` decodes with an empty prefix and prompt and samples
+  in the ``random_voice`` CFG mode;
 - the CFM runs in chunks of one context window (``plan_chunks`` with
   ``align_offset=2`` for the two prefix tokens) joined by a 16-frame
   cosine² crossfade; each chunk's initial noise comes from a generator seeded
   with ``seed``, or from ``noise_fn(shape)``, and the AR's exponential draws
-  from its own default, or from ``draws_fn(shape)``.
+  from its own default, or from ``draws_fn(shape)``;
+- ``keep_intermediates`` keeps what the conversion computed on its way, for
+  a comparison with a reference: HuBERT's features and both quantizers'
+  normalised projections (the continuous numbers whose signs are the
+  tokens), the AR's rows and each decode step's f32 logits, and each Euler
+  step's state and combined estimate.
 
 ``device`` defaults to ``cuda`` and raises when there is none. On cuda the
 content encoder, both quantizers, the DiT and the AR run in bfloat16 (the
@@ -49,7 +57,7 @@ from seedvc_tpu_torch.models.cfm_v2 import euler_solve_multicfg
 from seedvc_tpu_torch.models.dit_v2 import DiTV2, DiTV2Config
 from seedvc_tpu_torch.models.regulator import InterpolateRegulator
 from seedvc_tpu_torch.models.ssl import HUBERT_LARGE_L18, SSLConfig, SSLEncoder
-from seedvc_tpu_torch.nn.bsq import duration_reduction
+from seedvc_tpu_torch.nn.bsq import duration_reduction, run_lengths
 from seedvc_tpu_torch.pipelines.convert import (OVERLAP_FRAMES, campplus_style, join_chunk,
                                                 plan_chunks)
 from seedvc_tpu_torch.weights import load_jax_params
@@ -83,7 +91,8 @@ class VoiceConverterV2:
     a CUDA graph a token on cuda). ``cfg_shard_axis`` splits the sampler's
     CFG stack (up to three branches, unevenly too) over that axis of the
     ``set_mesh`` mesh, as the v1 converter's; ``seq_shard_axis`` splits its
-    time axis, as the v1 converter's."""
+    time axis, as the v1 converter's. ``vocoder_cfg``: BigVGAN's geometry
+    (default ``BIGVGAN_22K_80``)."""
 
     PARAM_NAMES = ("ssl", "narrow", "wide", "campplus", "cfm_reg", "ar_reg",
                    "dit", "ar", "vocoder")
@@ -91,7 +100,7 @@ class VoiceConverterV2:
     def __init__(self, cfg: V2Config = V2Config(), *, params: Optional[dict] = None,
                  seed: int = 0, cfg_shard_axis: Optional[str] = None,
                  seq_shard_axis: Optional[str] = None,
-                 compute_dtype: Optional[torch.dtype] = None, device=None):
+                 compute_dtype: Optional[torch.dtype] = None, vocoder_cfg=None, device=None):
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VoiceConverterV2: no CUDA device; pass device='cpu' "
@@ -124,7 +133,7 @@ class VoiceConverterV2:
                     content_codebook_size=cfg.narrow.codebook_size, sampling_ratios=())),
                 "dit": DiTV2(cfg.dit),
                 "ar": ARTransformer(cfg.ar),
-                "vocoder": BigVGAN(BIGVGAN_22K_80),
+                "vocoder": BigVGAN(vocoder_cfg or BIGVGAN_22K_80),
             }
         for name, module in modules.items():
             if params.get(name) is not None:
@@ -138,17 +147,23 @@ class VoiceConverterV2:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def content_tokens(self, wave_16k: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    def content_tokens(self, wave_16k: np.ndarray,
+                       keep: Optional[dict] = None) -> tuple[np.ndarray, np.ndarray]:
         """(narrow, wide) indices (1, len // 320) of a 16 kHz wave, from one
-        SSL pass over the wave zero-padded to a 5 s bucket (>= 8000 samples)."""
+        SSL pass over the wave zero-padded to a 5 s bucket (>= 8000 samples).
+        ``keep`` receives the device tensors ``features`` (the bucket's
+        frames, d_model) and the ``narrow`` and ``wide`` normalised
+        projections (len // 320, bits)."""
         T = len(wave_16k)
         bucket = 5 * 16000
         padded = np.zeros(-(-max(T, 8000) // bucket) * bucket, np.float32)
         padded[:T] = wave_16k
         feats = self.ssl(torch.from_numpy(padded[None]).to(self.device, self.compute_dtype))
         n = T // 320
-        return (self.narrow(feats)[1][:, :n].cpu().numpy(),
-                self.wide(feats)[1][:, :n].cpu().numpy())
+        (narrow, h_n), (wide, h_w) = self.narrow.codes(feats), self.wide.codes(feats)
+        if keep is not None:
+            keep.update(features=feats[0], narrow=h_n[0, :n], wide=h_w[0, :n])
+        return narrow[:, :n].cpu().numpy(), wide[:, :n].cpu().numpy()
 
     def compute_style(self, wave_16k: np.ndarray) -> torch.Tensor:
         return campplus_style(self.campplus, wave_16k, self.device)
@@ -173,12 +188,18 @@ class VoiceConverterV2:
 
     @torch.no_grad()
     def _ar_tokens(self, src_n, tgt_n, src_w, tgt_w, anonymization_only: bool, seed: int,
-                   draws_fn, **knobs) -> tuple[np.ndarray, int]:
+                   draws_fn, *, cap_to_source: bool = False, keep: bool = False,
+                   timer: Optional[StageTimer] = None,
+                   **knobs) -> tuple[np.ndarray, int, Optional[dict]]:
         """Wide tokens (1, N) from the AR: the duration-reduced source narrow
         tokens in chunks behind the reference's (none when anonymising), all
-        chunks decoded as one batch; and the batch size."""
+        chunks decoded as one batch; the batch size; and with ``keep`` the
+        decode's rows: ``tokens`` (B, max_new), ``n_tokens`` (B,),
+        ``caps`` (B,) or None, ``cond_lens`` (B,), ``prompt_len`` and the
+        device ``logits`` (steps + 1, B, vocab) f32."""
         tgt_red, _ = duration_reduction(tgt_n[0])
         src_red, _ = duration_reduction(src_n[0])
+        src_dur = run_lengths(src_n[0])
         if anonymization_only:
             prefix, prompt_w = src_red[:0], src_w[:, :0]
         else:
@@ -199,40 +220,61 @@ class VoiceConverterV2:
         P_max = -(-max(prompt_w.shape[1], 8) // 64) * 64
         prompt_tok = np.zeros((B, P_max), np.int64)
         prompt_tok[:, : prompt_w.shape[1]] = prompt_w
-        tokens, n_tok = self.generator.generate(
+        caps = None
+        if cap_to_source:
+            caps = np.array([int(src_dur[s: s + max_chunk].sum())
+                             for s in range(0, max(len(src_red), 1), max_chunk)], np.int64)
+        g = self.generator
+        tokens, n_tok = g.generate(
             cond_emb, torch.from_numpy(cond_lens), torch.from_numpy(prompt_tok),
-            prompt_w.shape[1], draws_fn=draws_fn, seed=seed, **knobs)
+            prompt_w.shape[1], draws_fn=draws_fn, seed=seed,
+            max_tokens=None if caps is None else torch.from_numpy(caps),
+            keep_logits=keep, timer=timer, **knobs)
         tokens, n_tok = tokens.cpu().numpy(), n_tok.cpu().numpy()
-        return np.concatenate([tokens[b, : int(n_tok[b])] for b in range(B)])[None], B
+        rows = None
+        if keep:
+            rows = {"tokens": tokens, "n_tokens": n_tok, "caps": caps, "cond_lens": cond_lens,
+                    "prompt_len": int(prompt_w.shape[1]),
+                    "logits": g.logits[: g.decode_steps + 1]}
+        wide = np.concatenate([tokens[b, : int(n_tok[b])] for b in range(B)])[None]
+        return wide, B, rows
 
     @torch.no_grad()
     def _sample_vocode(self, noise, chunk, prompt_cond, total_len, prompt_mel, prompt_len: int,
                        style, n_steps: int, rates, random_voice: bool,
-                       context: int) -> torch.Tensor:
+                       context: int, *, timer: StageTimer,
+                       keep: Optional[tuple] = None) -> torch.Tensor:
         """Multi-condition CFG sampling over [prompt ‖ chunk] in one context
-        window, the generated region vocoded; returns the f16 wave."""
+        window, the generated region vocoded; returns the f16 wave. The two
+        halves are ``timer``'s stages ``sample`` (counting its Euler
+        ``steps``) and ``vocode``, with no synchronise between them.
+        ``keep``: buffers for the sampler's state and estimate of each step
+        (``euler_solve_multicfg``)."""
         cd = self.compute_dtype
         W = chunk.shape[1]
-        cond = torch.zeros((1, context, chunk.shape[-1]), dtype=cd, device=self.device)
-        cond[:, : prompt_cond.shape[1]] = prompt_cond.to(cd)
-        cond[:, prompt_len: prompt_len + W] = chunk.to(cd)
-        pm = torch.zeros((1, context, self.n_mels), dtype=cd, device=self.device)
-        pm[:, : prompt_mel.shape[1]] = prompt_mel.to(cd)
+        with timer("sample"):
+            cond = torch.zeros((1, context, chunk.shape[-1]), dtype=cd, device=self.device)
+            cond[:, : prompt_cond.shape[1]] = prompt_cond.to(cd)
+            cond[:, prompt_len: prompt_len + W] = chunk.to(cd)
+            pm = torch.zeros((1, context, self.n_mels), dtype=cd, device=self.device)
+            pm[:, : prompt_mel.shape[1]] = prompt_mel.to(cd)
 
-        def estimate(x, px, lens, t, s, m, sc=None):
-            return self.dit(x, px, lens, t, s, m, static_cond=sc)
+            def estimate(x, px, lens, t, s, m, sc=None):
+                return self.dit(x, px, lens, t, s, m, static_cond=sc)
 
-        def precompute(x, px, lens, s, m):
-            return self.dit(x, px, lens, torch.zeros(x.shape[0], device=x.device), s, m,
-                            return_static=True)
+            def precompute(x, px, lens, s, m):
+                return self.dit(x, px, lens, torch.zeros(x.shape[0], device=x.device), s, m,
+                                return_static=True)
 
-        mel_out = euler_solve_multicfg(estimate, noise.to(cd), cond, total_len, pm, prompt_len,
-                                       style.to(cd), n_timesteps=n_steps, cfg_rates=rates,
-                                       random_voice=random_voice, precompute_fn=precompute,
-                                       shard_axis=self.cfg_shard_axis,
-                                       seq_shard_axis=self.seq_shard_axis)
-        gen = mel_out[:, prompt_len: prompt_len + W].float()
-        return self.vocoder(gen).half()
+            mel_out = euler_solve_multicfg(
+                estimate, noise.to(cd), cond, total_len, pm, prompt_len, style.to(cd),
+                n_timesteps=n_steps, cfg_rates=rates, random_voice=random_voice,
+                precompute_fn=precompute, shard_axis=self.cfg_shard_axis,
+                seq_shard_axis=self.seq_shard_axis, keep=keep)
+            timer.count("steps", n_steps)
+        with timer("vocode"):
+            gen = mel_out[:, prompt_len: prompt_len + W].float()
+            return self.vocoder(gen).half()
 
     # ------------------------------------------------------------------
     def convert_voice(self, source, source_sr, reference, reference_sr,
@@ -260,6 +302,7 @@ class VoiceConverterV2:
             similarity_cfg_rate: float = 0.7, top_p: float = 0.7, temperature: float = 0.7,
             repetition_penalty: float = 1.5, seed: int = 0,
             noise_fn: Optional[Callable] = None, draws_fn: Optional[Callable] = None,
+            cap_to_source: bool = False, keep_intermediates: bool = False,
             profile: bool = False):
         """Generator yielding ``(sr, wave_chunk, stats)`` per crossfaded
         chunk. ``stats``: ``rtf``, ``wall_seconds``, ``wide_tokens``,
@@ -268,9 +311,21 @@ class VoiceConverterV2:
         ``replays`` and ``ar_seconds`` of that decode, ``target_len``,
         ``plan`` (prompt cap, context, W), ``chunks`` and ``stages`` (wall
         seconds by stage; with ``profile=True`` each stage ends in a device
-        synchronise)."""
+        synchronise, and each is a recorded span with device time on cuda:
+        ``ar`` holds ``ar.prefill`` and ``ar.decode`` with its counters,
+        ``sample+vocode`` holds ``sample`` (its Euler ``steps``) and
+        ``vocode``).
+
+        ``cap_to_source``: each AR row stops at the 50 Hz length of its source
+        span at the latest. ``keep_intermediates``: ``stats["kept"]`` holds
+        ``source`` and ``reference`` (see :meth:`content_tokens`), ``tokens``
+        (the source's and reference's narrow and wide tokens and the AR's
+        wide tokens), ``ar_rows`` (see :meth:`_ar_tokens`; None without the
+        AR) and ``chunks``: per CFM chunk its ``p_len``, ``w``, and the
+        sampler's ``states`` and combined ``estimates`` of each Euler step,
+        device tensors (steps, 1, context, n_mels)."""
         cfg, dev = self.cfg, self.device
-        timer = StageTimer()
+        timer = StageTimer(record=profile, device=dev)
 
         def sync(x):
             return probe_ready(x) if profile else x
@@ -287,9 +342,12 @@ class VoiceConverterV2:
         ref = ref[: cfg.prompt_cap_frames * cfg.hop]
         ref16 = ref16[: int(len(ref) / cfg.sr * 16000)]
 
+        kept = ({"source": {}, "reference": {}, "chunks": []} if keep_intermediates
+                else None)
         with timer("content"):
-            src_n, src_w = self.content_tokens(src16)
-            tgt_n, tgt_w = self.content_tokens(ref16)
+            src_n, src_w = self.content_tokens(src16, None if kept is None else kept["source"])
+            tgt_n, tgt_w = self.content_tokens(ref16,
+                                               None if kept is None else kept["reference"])
         with timer("mel+style"):
             mel2 = self.mel_fn(torch.from_numpy(ref[None]).to(dev))
             style = sync(self.compute_style(ref16))
@@ -298,10 +356,12 @@ class VoiceConverterV2:
             prompt_cond = sync(self._regulate_tokens(self.cfm_reg, tgt_w, p_len))
 
         ar_batch, ar = 0, {"decode_steps": 0, "replays": 0, "ar_seconds": 0.0}
+        ar_rows = None
         if convert_style or anonymization_only:
             with timer("ar"):
-                wide_tokens, ar_batch = self._ar_tokens(
+                wide_tokens, ar_batch, ar_rows = self._ar_tokens(
                     src_n, tgt_n, src_w, tgt_w, anonymization_only, seed, draws_fn,
+                    cap_to_source=cap_to_source, keep=keep_intermediates, timer=timer,
                     temperature=temperature, top_p=top_p, repetition_penalty=repetition_penalty)
             g = self.generator
             ar = {"decode_steps": g.decode_steps, "replays": g.replays, "ar_seconds": g.decode_s}
@@ -333,13 +393,26 @@ class VoiceConverterV2:
             is_last = processed + W >= target_len
             noise = (noise_fn(noise_shape).to(dev) if noise_fn is not None
                      else torch.randn(noise_shape, generator=gen, device=dev))
+            steps = None
+            if kept is not None:
+                steps = torch.empty((2, diffusion_steps, *noise_shape), dtype=self.compute_dtype,
+                                    device=dev)
+                kept["chunks"].append({"p_len": p_len, "w": w, "states": steps[0],
+                                       "estimates": steps[1]})
             with timer("sample+vocode"):
                 dispatched.append((w, is_last, sync(self._sample_vocode(
                     noise, cond_buf[:, processed: processed + W], prompt_cond_pad,
                     torch.tensor([p_len + w], device=dev), prompt_mel_cap, p_len, style,
-                    diffusion_steps, rates, bool(anonymization_only), context))))
+                    diffusion_steps, rates, bool(anonymization_only), context, timer=timer,
+                    keep=None if steps is None else (steps[0], steps[1])))))
             processed += w if is_last else (w - OVERLAP_FRAMES)
 
+        extra = {}
+        if kept is not None:
+            kept.update(ar_rows=ar_rows, tokens={
+                "src_narrow": src_n, "src_wide": src_w, "ref_narrow": tgt_n, "ref_wide": tgt_w,
+                "wide": wide_tokens})
+            extra = {"kept": kept}
         prev_tail: Optional[np.ndarray] = None
         overlap_wave = OVERLAP_FRAMES * cfg.hop
         emitted = 0
@@ -353,7 +426,7 @@ class VoiceConverterV2:
                 "rtf": dt / max(emitted / cfg.sr, 1e-9), "wall_seconds": dt,
                 "wide_tokens": int(wide_tokens.shape[1]), "narrow_tokens": int(src_n.shape[1]),
                 "ar_batch": ar_batch, **ar, "target_len": target_len, "plan": plan,
-                "chunks": n, "stages": timer.report()}
+                "chunks": n, "stages": timer.report(), **extra}
 
     def warm(self, specs, *, diffusion_steps: int = 30, intelligibility_cfg_rate: float = 0.7,
              similarity_cfg_rate: float = 0.7, warm_ar: bool = False,

@@ -140,6 +140,37 @@ def test_ar_decode_graph_replay_matches_eager(dtype):
     assert out[False][2].replays == 0
 
 
+def test_ar_decode_graph_cap_and_kept_logits_match_eager():
+    """Per-row caps act inside the captured step: the replayed decode stops
+    each row where the eager one does, and the logits it keeps are the eager
+    step's; a profiler-free timer records the decode's counters."""
+    from seedvc_tpu_torch.core.profiling import StageTimer
+    from seedvc_tpu_torch.models.ar import CHECK_EVERY, ARConfig, ARGenerator, ARTransformer
+
+    torch.manual_seed(0)
+    model = ARTransformer(ARConfig(n_layer=4)).eval().cuda().to(torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cond = torch.randn((2, 256, 768), generator=g, device="cuda")
+    prompt = torch.randint(0, 2048, (2, 64), generator=g, device="cuda")
+    out = {}
+    for graph in (True, False):
+        gen = ARGenerator(model, 160, graph=graph)
+        timer = StageTimer(record=True, device="cuda")
+        tokens, n = gen.generate(cond, torch.tensor([256, 100]), prompt, torch.tensor([40, 9]),
+                                 seed=3, max_tokens=torch.tensor([17, 70]), keep_logits=True,
+                                 timer=timer)
+        out[graph] = tokens.cpu(), n.cpu(), gen.logits.cpu(), timer.report()["ar.decode"], gen
+    (tg, ng, lg, rg, gen), (te, ne, le, re, _) = out[True], out[False]
+    assert torch.equal(tg, te) and torch.equal(ng, ne) and (ng <= torch.tensor([17, 70])).all()
+    # every row done by step 69: the decode stops at a read of all(done)
+    steps = gen.decode_steps
+    assert steps < 159 and steps % CHECK_EVERY == 0
+    assert torch.equal(lg[: steps + 1], le[: steps + 1])
+    assert rg["steps"] == steps and rg["tokens"] == int(ng.sum()) and rg["captures"] == 1
+    assert rg["replays"] == steps - 1 and re["replays"] == re["captures"] == 0
+    assert rg["device_seconds"] > 0
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_attention_kernel_replays_in_a_cuda_graph(dtype):
     """K1 captured in a CUDA graph (as the streaming block program captures

@@ -1,0 +1,41 @@
+"""ASTRAL content quantizer, the port's module code frozen: SSL features ->
+ConvNeXtV2 stage -> BSQ tokens. The HuBERT trunk (``models/ssl.py``, 18
+layers) runs once outside and feeds both quantizers: "narrow" (codebook 32,
+the AR's source) and "wide" (codebook 2048, the CFM's condition). Inference
+only: the training half of BSQ is not part of this copy."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from vcbench.ref.nn.bsq import BSQ
+from vcbench.ref.nn.convnext import ConvNeXtV2Stage
+
+
+@dataclass(frozen=True)
+class AstralConfig:
+    dim: int = 512
+    intermediate_dim: int = 1536
+    num_blocks: int = 12
+    input_dim: int = 1024
+    codebook_size: int = 2048
+
+
+ASTRAL_NARROW = AstralConfig(codebook_size=32)
+ASTRAL_WIDE = AstralConfig(codebook_size=2048)
+
+
+class AstralQuantizer(nn.Module):
+    def __init__(self, cfg: AstralConfig = ASTRAL_WIDE):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = ConvNeXtV2Stage(dim=cfg.dim, intermediate_dim=cfg.intermediate_dim,
+                                       num_blocks=cfg.num_blocks, input_dim=cfg.input_dim)
+        self.quantizer = BSQ(cfg.dim, cfg.codebook_size)
+
+    def forward(self, ssl_features: torch.Tensor):
+        """(B, T, input_dim) -> (quantized (B, T, dim), indices (B, T))."""
+        return self.quantizer(self.encoder(ssl_features))
