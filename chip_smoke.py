@@ -110,8 +110,15 @@ failure exits non-zero:
    chunk at T = 2560: 390 K1, 109 K2, 0 K3); ``convert_voice`` on the same
    clip with the AR decoded by graph replay, eagerly, and by graph again
    (token counts, decode steps, replays, ms a token, plan; chunks x 390 K1
-   and chunks x 109 K2); ``python -m seedvc_tpu_torch.apps.infer_v2`` on
-   written wavs (its wav's length and finiteness);
+   and chunks x 109 K2; each AR decode kernel counted by its wrapper: 12
+   (the head 1) times the steps run eagerly, and one capture); ``python -m
+   seedvc_tpu_torch.apps.infer_v2`` on written wavs (its wav's length and
+   finiteness); (c) the AR decode chain's kernels (``ops/ar_decode.py``) at
+   ``ARConfig()`` in bf16, at 1 and 3 rows and (attention) 1,000 and 4,000
+   keys: each against its twin and timed beside its twin, ``F.linear`` of
+   its products and its bound by bytes (rows of the kernels line, their
+   launches from (b)'s graphed conversion), then one decode step replayed
+   from a CUDA graph, the chain (61 kernels) against the plain step;
 10. training (v1 fine-tuning): (a) a reduced ``whisper_small_wavenet``
    (DiT 128 wide, 2 heads of 64, depth 3) on the same weights, batch and
    ``TrainDraws``, cuda (K1 forward, K1ᵇ backward) against cpu (twins): the
@@ -953,19 +960,44 @@ def synthetic_audio(seconds: float, sr: int, f0: float, seed: int) -> np.ndarray
 
 
 def reset_counts():
-    from seedvc_tpu_torch.ops import anti_alias, attention
+    from seedvc_tpu_torch.ops import anti_alias, ar_decode, attention
 
     attention.LAUNCHES = 0
     attention.DIT_ATTENTION_LAUNCHES = 0
     attention.BWD_LAUNCHES = 0
     anti_alias.LAUNCHES = 0
+    ar_decode.reset_counts()
 
 
 def read_counts() -> dict:
-    from seedvc_tpu_torch.ops import anti_alias, attention
+    """K1, K2, K3, and each AR decode kernel that launched (``ar_<kernel>``):
+    a path that runs no AR compares as ``{"k1", "k2", "k3"}`` and fails its
+    check if it launches one."""
+    from seedvc_tpu_torch.ops import anti_alias, ar_decode, attention
 
     return {"k1": attention.LAUNCHES, "k2": anti_alias.LAUNCHES,
-            "k3": attention.DIT_ATTENTION_LAUNCHES}
+            "k3": attention.DIT_ATTENTION_LAUNCHES,
+            **{f"ar_{k}": n for k, n in ar_decode.KERNEL_LAUNCHES.items() if n}}
+
+
+def check_ar_counts(what: str, counts: dict, gen, n_layer: int, steps: int) -> dict:
+    """The AR decode kernels' counts of one ``ARGenerator.generate`` of
+    ``steps`` decode steps: every step run eagerly launches each layer's
+    kernel once a layer and the head once, a capture counts what one replay
+    launches, a replay calls no wrapper. Returns each kernel's launches on
+    the device (the counted ones, less the capture's, plus the replays')."""
+    from seedvc_tpu_torch.ops import ar_decode
+
+    per_step = {k: 1 if k == "head" else n_layer for k in ar_decode.KERNELS}
+    counted = {k: counts.get(f"ar_{k}", 0) for k in ar_decode.KERNELS}
+    wrapped = steps - gen.replays + gen.captures  # steps run eagerly, and the capture
+    if counted != {k: n * wrapped for k, n in per_step.items()}:
+        fail(f"{what}: AR decode kernel launches {counted}, expected {per_step} times "
+             f"{wrapped} ({steps} steps, {gen.replays} replays, {gen.captures} captures)")
+    if gen.captures and gen.fused_launches != sum(per_step.values()):
+        fail(f"{what}: {gen.fused_launches} decode kernels a replay, expected "
+             f"{sum(per_step.values())}")
+    return {k: counted[k] + per_step[k] * (gen.replays - gen.captures) for k in counted}
 
 
 SMALL_TOL = 2e-3  # f16 output wave: one f16 step near 1.0 is 4.9e-4
@@ -1297,8 +1329,11 @@ def phase_rmvpe_full():
 
 
 def check_counts(what: str, counts: dict, expect: dict):
-    if counts != expect:
-        fail(f"{what}: launch counts {counts}, expected {expect}")
+    """Every count against ``expect``; the AR decode kernels' only where
+    ``expect`` names them (``check_ar_counts`` holds them on the v2 paths)."""
+    got = {k: n for k, n in counts.items() if not k.startswith("ar_") or k in expect}
+    if got != expect:
+        fail(f"{what}: launch counts {got}, expected {expect}")
 
 
 def phase_svc(card: str, profile: bool = False) -> dict:
@@ -1409,7 +1444,9 @@ def phase_microbench() -> dict:
     for name, fn in mb.ALL.items():
         reset_counts()
         out = fn()
-        got = {**read_counts(), "k1b": attention.BWD_LAUNCHES}
+        # the AR decode kernels are held on the v2 paths (check_ar_counts)
+        got = {k: n for k, n in {**read_counts(), "k1b": attention.BWD_LAUNCHES}.items()
+               if not k.startswith("ar_")}
         calls = sum(r["calls"] for r in (out if isinstance(out, list) else [out]))
         expect = {k: MB_LAUNCHES.get(name, {}).get(k, 0) * calls for k in got}
         log(f"  microbench {name}: {calls} calls, launches {got}")
@@ -1806,9 +1843,10 @@ def v2_small_converter(device: str):
     """A reduced V2Config in f32: HuBERT 128 wide (2 layers, 64 conv
     channels, the positional conv at its real kernel and groups), ASTRAL
     quantizers 64 wide (2 blocks; codebooks 32 and 2048), the DiT at full
-    width (512, 8 heads of 64) cut to depth 3, the AR 256 wide (2 layers, 4
-    query heads of 64 over 2 KV heads, vocab 2049, max_seq 4096), a small
-    BigVGAN; prompt cap 128, context 766."""
+    width (512, 8 heads of 64) cut to depth 3, the AR 256 wide (2 layers, 12
+    query heads of 64 over 2 KV heads as ``ARConfig()``'s, which the decode
+    kernels take; vocab 2049, max_seq 4096), a small BigVGAN; prompt cap 128,
+    context 766."""
     import torch
 
     from seedvc_tpu_torch.models.ar import ARConfig
@@ -1821,7 +1859,7 @@ def v2_small_converter(device: str):
     astral = dict(dim=64, intermediate_dim=128, num_blocks=2, input_dim=128)
     cfg = convert_v2.V2Config(
         dit=DiTV2Config(depth=SMALL_DEPTH),
-        ar=ARConfig(dim=256, n_layer=2, n_head=4, n_local_heads=2, head_dim=64,
+        ar=ARConfig(dim=256, n_layer=2, n_head=12, n_local_heads=2, head_dim=64,
                     intermediate_size=512),
         ssl=SSLConfig(conv_dim=64, d_model=128, n_layers=2, n_heads=8, ffn_dim=256),
         narrow=AstralConfig(codebook_size=32, **astral),
@@ -1950,6 +1988,11 @@ def phase_v2_small():
         if device == "cuda" and v_stats["replays"] != v_stats["decode_steps"] - 1:
             fail(f"v2 small: {v_stats['replays']} replays for {v_stats['decode_steps']} "
                  "decode steps (the first runs eagerly)")
+        if device == "cuda":
+            check_ar_counts("v2 small voice on cuda", v_counts, vc.generator,
+                            vc.cfg.ar.n_layer, v_stats["decode_steps"])
+        elif any(n for k, n in {**t_counts, **v_counts}.items() if k.startswith("ar_")):
+            fail(f"v2 small on cpu: AR decode kernels launched ({v_counts})")
         runs[device] = dict(vc=vc, bits=bits, timbre=timbre, voice=voice, ar=ar_out,
                             scores=scores, stats=v_stats)
 
@@ -2101,7 +2144,10 @@ def phase_v2_full(card: str, profile: bool = False) -> dict:
             fail(f"v2 voice: {len(wave)} samples (expected {stats['target_len'] * hop}) or "
                  "non-finite audio")
         check_plan(f"v2 voice ({mode})", stats, counts)
-        voice[mode] = dict(ms_per_token=ms_tok, stats=stats, wall_s=wall)
+        on_device = check_ar_counts(f"v2 voice ({mode})", counts, vc.generator, c.ar.n_layer,
+                                    stats["decode_steps"])
+        voice[mode] = dict(ms_per_token=ms_tok, stats=stats, wall_s=wall, counts=counts,
+                           ar_on_device=on_device, replays=vc.generator.replays)
     vc.generator.use_graph = None
     g = voice["graph"]["stats"]
     if g["replays"] != g["decode_steps"] - 1:
@@ -2132,6 +2178,205 @@ def phase_v2_full(card: str, profile: bool = False) -> dict:
             fail(f"infer_v2 wrote {out_sr} Hz, {len(wave)} samples, expected {sr} Hz and "
                  f"{stats['target_len'] * hop} finite samples")
     return result
+
+
+# ---------------------------------------------------------------------------
+# The v2 AR decode chain (ops/ar_decode.py, csrc/ar_decode.cu) at ARConfig()
+# in bf16: each kernel against its plain twin and F.linear, and one decode
+# step replayed from a CUDA graph, the chain against the plain step.
+AR_ROWS = (1, 3)  # the v2_voice cell decodes 1-3 rows
+AR_KEYS = (1000, 4000)  # about a 20 s source's keys, and near the cache's end
+AR_SOURCE = "seedvc_tpu_torch/csrc/ar_decode.cu"
+AR_REPLACES = "no Pallas kernel: seedvc_tpu/models/ar.py::ARTransformer.decode_step (XLA)"
+AR_PATH = "v2 convert_voice (V2Config()), the AR decode from its CUDA graph"
+# against the twin: a few bf16 roundings of the largest output (the sums' order differs)
+AR_TOL = 2 ** -6
+
+
+def ar_kernel_cases(model, B: int, keys: int):
+    """{kernel: (call, twin call, output, bytes)} at layer 0's weights, B rows,
+    ``keys`` valid slots a row (min_key 0, kv_pos keys - 1)."""
+    import torch
+
+    from seedvc_tpu_torch.ops import ar_decode as ad
+
+    c, blk, dt = model.cfg, model.layers_0, model.output.weight.dtype
+    g = torch.Generator(device="cuda").manual_seed(70 + B)
+    kc, vc = (torch.randn((B, c.n_local_heads, c.max_seq_len, c.head_dim), generator=g,
+                          device="cuda").to(dt) for _ in range(2))
+    x = torch.randn((B, c.dim), generator=g, device="cuda").to(dt)
+    s = ad.new_scratch(B, c, "cuda", dt)
+    s.q.copy_(torch.randn(s.q.shape, generator=g, device="cuda") * 3)
+    s.attn.normal_(generator=g)
+    s.hidden.normal_(generator=g)
+    kv, mk = torch.tensor(keys - 1, device="cuda"), torch.zeros(B, dtype=torch.long,
+                                                                device="cuda")
+    pos, table = torch.full((B,), keys - 1, device="cuda"), model.rope_table("cuda")
+    el, att, eps = 2, blk.attention, c.norm_eps
+    n_w = lambda *ws: sum(w.numel() for w in ws) * el  # noqa: E731
+    kv_bytes = 2 * B * c.n_local_heads * keys * c.head_dim * el
+    out = {}
+    for name, args, res, nbytes in (
+            ("attn_in", (x, blk.attention_norm.weight, att.wqkv.weight, table, pos, kv, s.q,
+                         kc, vc, eps), 6, n_w(att.wqkv.weight) + 2 * B * c.dim * el),
+            ("attention", (s.q, kc, vc, kv, mk, s.attn, s.part, s.counters), 5,
+             kv_bytes + 2 * s.q.numel() * el),
+            ("attn_out", (s.attn, att.wo.weight, x, s.x), 3, n_w(att.wo.weight)
+             + 3 * B * c.dim * el),
+            ("ffn_in", (x, blk.ffn_norm.weight, blk.feed_forward_w1.weight,
+                        blk.feed_forward_w3.weight, s.hidden, eps), 4,
+             n_w(blk.feed_forward_w1.weight, blk.feed_forward_w3.weight)
+             + B * (c.dim + c.intermediate_size) * el),
+            ("ffn_out", (s.hidden, blk.feed_forward_w2.weight, s.x), 2,
+             n_w(blk.feed_forward_w2.weight) + B * (c.intermediate_size + 2 * c.dim) * el),
+            ("head", (x, model.norm.weight, model.output.weight, s.logits, eps), 3,
+             n_w(model.output.weight) + B * c.dim * el + s.logits.numel() * 4)):
+        out[name] = (args, res, nbytes)
+    return out
+
+
+def ar_library_ms(model, B: int, name: str) -> float | None:
+    """F.linear of the kernel's product(s) alone at B rows: the library's
+    yardstick (None for attention, which no library call computes alike)."""
+    import torch
+    import torch.nn.functional as F
+
+    from seedvc_tpu_torch.core.profiling import cuda_time_ms
+
+    blk, dt = model.layers_0, model.output.weight.dtype
+    ws = {"attn_in": (blk.attention.wqkv.weight,), "attn_out": (blk.attention.wo.weight,),
+          "ffn_in": (blk.feed_forward_w1.weight, blk.feed_forward_w3.weight),
+          "ffn_out": (blk.feed_forward_w2.weight,), "head": (model.output.weight,)}.get(name)
+    if ws is None:
+        return None
+    xs = [torch.randn((B, w.shape[1]), device="cuda").to(dt) for w in ws]
+    return cuda_time_ms(lambda: [F.linear(x, w) for x, w in zip(xs, ws)], iters=50)
+
+
+def ar_step_graphs(model, B: int, keys: int) -> dict:
+    """ms of one decode step replayed from a CUDA graph: the chain
+    (``decode_chain``) and the plain step (``decode_step_reference``), at B
+    rows with ``keys`` valid slots; the chain's launches by its counter, and
+    each graph's device kernels by the profiler (whose sessions can drop a
+    few edge records once many kernels ran in the process)."""
+    import torch
+
+    from seedvc_tpu_torch.core.profiling import cuda_time_ms
+    from seedvc_tpu_torch.ops import ar_decode as ad
+
+    c, dt = model.cfg, model.output.weight.dtype
+    kc, vc = model.new_caches(B, "cuda", dt)
+    kc.normal_()
+    vc.normal_()
+    x = torch.randn((B, 1, c.dim), device="cuda").to(dt)
+    pos, kv = torch.full((B,), keys - 1, device="cuda"), torch.tensor(keys - 1, device="cuda")
+    mk = torch.zeros(B, dtype=torch.long, device="cuda")
+    s = ad.new_scratch(B, c, "cuda", dt)
+    steps = {"chain": lambda: model.decode_chain(x, pos, kv, kc, vc, mk, s),
+             "plain": lambda: model.decode_step_reference(x, pos, kv, kc, vc, mk)}
+    out = {}
+    for name, step in steps.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = ad.LAUNCHES
+        with torch.cuda.graph(graph):
+            step()
+        out[name + "_launches"] = ad.LAUNCHES - before
+        out[name] = cuda_time_ms(graph.replay, iters=50)
+        out[name + "_kernels"] = device_kernels(graph.replay)
+    return out
+
+
+def phase_ar_decode(card: str, v2: dict) -> dict:
+    """The decode chain's kernels at ARConfig() bf16 (random weights, the
+    wqkv 3x wider as in the benchmark): each against its twin and timed
+    (kernel, twin, F.linear of its products, the bound by bytes), at 1 and 3
+    rows, attention at 1,000 and 4,000 keys; then one decode step from a
+    CUDA graph, the chain against the plain step; then ARGenerator's whole
+    captured step (at most 130 kernels a replay, 61 of them the chain's).
+    Each row's ``launches`` is what ran on the device in ``phase_v2_full``'s
+    warm graphed voice conversion, from the wrappers' counts there
+    (``check_ar_counts``); ``per_step`` is the eager conversion's count over
+    its decode steps."""
+    import torch
+
+    from seedvc_tpu_torch.core.profiling import cuda_time_ms
+    from seedvc_tpu_torch.models.ar import ARConfig, ARGenerator, ARTransformer
+    from seedvc_tpu_torch.ops import ar_decode as ad
+
+    torch.manual_seed(0)
+    model = ARTransformer(ARConfig()).eval()
+    with torch.no_grad():
+        for i in range(model.cfg.n_layer):
+            getattr(model, f"layers_{i}").attention.wqkv.weight.mul_(3.0)
+    model = model.cuda().to(torch.bfloat16)
+    rows, steps = [], {}
+    graphed, eager = v2["voice"]["graph"], v2["voice"]["eager"]
+    eager_steps = eager["stats"]["decode_steps"]
+    with torch.no_grad():
+        for B in AR_ROWS:
+            for keys in AR_KEYS:
+                for name, (args, res, nbytes) in ar_kernel_cases(model, B, keys).items():
+                    if name != "attention" and keys != AR_KEYS[0]:
+                        continue  # the products do not depend on the keys
+                    kern = getattr(ad, name)
+                    twin = getattr(ad, name + "_reference")
+                    got = [a.clone() if torch.is_tensor(a) else a for a in args]
+                    ref = [a.clone() if torch.is_tensor(a) else a for a in args]
+                    kern(*got)
+                    twin(*ref)
+                    torch.cuda.synchronize()
+                    err = float((got[res].float() - ref[res].float()).abs().max())
+                    scale = float(ref[res].float().abs().max())
+                    ms = cuda_time_ms(lambda: kern(*args), iters=50)
+                    plain = cuda_time_ms(lambda: twin(*args), iters=10)
+                    lib = ar_library_ms(model, B, name)
+                    b_ms = nbytes / PEAK_BYTES * 1e3
+                    what = f"B {B}" + (f", {keys} keys" if name == "attention" else "")
+                    log(f"AR {name} ({what}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                        f"F.linear {'-' if lib is None else f'{lib:.4f}'} ms, bound "
+                        f"{b_ms:.4f} ms (bytes, {b_ms / ms:.1%}), max |err| {err:.3g} of "
+                        f"{scale:.3g}")
+                    rows.append({"name": f"ar_{name}", "route": "cuda", "path": AR_PATH,
+                                 "source": AR_SOURCE, "replaces": AR_REPLACES,
+                                 "shape": what + " bf16, ARConfig()",
+                                 "launches": graphed["ar_on_device"][name],
+                                 "wrapper_count": graphed["counts"].get(f"ar_{name}", 0),
+                                 "per_step": eager["counts"].get(f"ar_{name}", 0)
+                                 / eager_steps,
+                                 "replays": graphed["replays"],
+                                 "max_abs_err": err, "tol": AR_TOL * max(scale, 1.0),
+                                 "ms": ms,
+                                 "plain_ms": plain, "bound_ms": b_ms, "bound_by": "bytes",
+                                 "library_ms": lib})
+                    if not err <= AR_TOL * max(scale, 1.0):
+                        fail(f"AR {name} ({what}): max |err| {err} against the twin")
+                steps[(B, keys)] = t = ar_step_graphs(model, B, keys)
+                log(f"AR decode step from a CUDA graph, B {B}, {keys} keys: chain "
+                    f"{t['chain']:.4f} ms ({t['chain_launches']} launches, "
+                    f"{t['chain_kernels']} kernels traced), plain {t['plain']:.4f} ms "
+                    f"({t['plain_kernels']} kernels traced), on {card}")
+                if t["chain_launches"] != 5 * model.cfg.n_layer + 1:
+                    fail(f"AR decode chain: {t['chain_launches']} launches a step, expected "
+                         f"{5 * model.cfg.n_layer + 1}")
+        # the whole captured step of ARGenerator: the chain, sampling and bookkeeping
+        gen = ARGenerator(model, 40)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        gen.generate(torch.randn((2, 256, model.cfg.dim), generator=g, device="cuda"),
+                     torch.tensor([256, 100]),
+                     torch.randint(0, 2048, (2, 64), generator=g, device="cuda"),
+                     torch.tensor([40, 9]), seed=3)
+        n_kernels = device_kernels(gen.graph.replay)
+        replay_ms = cuda_time_ms(gen.graph.replay, iters=20)
+    log(f"AR generate (2 rows): one replay of its decode step runs {n_kernels} device kernels "
+        f"({gen.fused_launches} of the chain), {replay_ms:.4f} ms, on {card}")
+    if n_kernels > 130 or gen.fused_launches != 5 * model.cfg.n_layer + 1:
+        fail(f"AR generate: {n_kernels} kernels a replay, {gen.fused_launches} of the chain")
+    return {"rows": rows, "steps": steps, "replay_kernels": n_kernels, "replay_ms": replay_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -4656,6 +4901,7 @@ def main(argv=None) -> int:
     rt = phase_rt_full(card, args.profile)
     phase_v2_small()
     v2 = phase_v2_full(card, args.profile)
+    ar = phase_ar_decode(card, v2)
     train = phase_train(card, args.profile)
     v2t = phase_train_v2(card, args.profile)
     phase_openvoice_train(card)
@@ -4664,6 +4910,7 @@ def main(argv=None) -> int:
     ckpt = phase_checkpoints(card, full, v2)
     mg = phase_multi_gpu(card, train)
     line = phase_kernel_line(errs, full, svc, mb_counts, rt, v2, ev, web, ckpt)
+    line["kernels"] += ar["rows"]
     line["kernels"] += mg_rows(mg, errs, card)
     line["kernels"] += train_rows(train["train f32"]["T"], card, "v1 fine-tuning (apps.train, f32)")
     line["kernels"] += train_rows(v2t["T"], card, "v2 fine-tuning (apps.train_v2, f32)",

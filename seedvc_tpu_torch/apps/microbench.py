@@ -280,17 +280,20 @@ def bench_ar_decode(B=1, n_tokens=128, max_seq=4096, device="cuda", cfg=None):
     eagerly is timed beside it (``eager_ms_per_token``). ``gb_per_s`` counts
     the weights and the whole KV cache read once a token."""
     from seedvc_tpu_torch.models.ar import ARConfig, ARTransformer
+    from seedvc_tpu_torch.ops import ar_decode
 
     dev = _device(device)
     cfg = dataclasses.replace(cfg or ARConfig(), max_seq_len=max_seq)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     model = _build(lambda: ARTransformer(cfg), dev, dtype)
     kc, vc = model.new_caches(B, dev, dtype)
+    scratch = ar_decode.new_scratch(B, cfg, dev, dtype) if dev.type == "cuda" else None
     pos = torch.zeros((), dtype=torch.long, device=dev)
     tok = torch.zeros(B, dtype=torch.long, device=dev)
 
     def step():
-        logits = model.decode_step(model.embed_tokens(tok[:, None]), pos.expand(B), pos, kc, vc)
+        logits = model.decode_step(model.embed_tokens(tok[:, None]), pos.expand(B), pos, kc, vc,
+                                   scratch=scratch)
         tok.copy_(torch.argmax(logits, dim=-1))
         pos.add_(1)
 

@@ -19,6 +19,13 @@ draws ``q`` are an argument. On cuda the decode step is captured once as a
 CUDA graph and replayed once a token; the host reads ``all(done)`` every
 ``CHECK_EVERY`` replays, and the steps after every row is done write
 nothing, so the result is the JAX early exit's.
+
+On cuda the decode step's transformer is :meth:`ARTransformer.decode_chain`,
+five hand-written kernels a layer and one for the head
+(``ops/ar_decode.py``); on the CPU it is the plain
+:meth:`ARTransformer.decode_step_reference`, the kernels' twin. Prefill and
+the full-sequence forward (training) stay plain PyTorch: their products have
+hundreds to thousands of rows, not the decode's one to a few.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from seedvc_tpu_torch.nn.layers import RMSNorm, rope_cache
-from seedvc_tpu_torch.ops import launches
+from seedvc_tpu_torch.ops import ar_decode, launches
 from seedvc_tpu_torch.parallel.collectives import copy_to_group, reduce_from_group
 from seedvc_tpu_torch.parallel.sharding import TensorParallel, TPSplit
 
@@ -188,17 +195,21 @@ class ARTransformer(nn.Module):
         self.fsdp_whole = ("sep_token_emb",)  # read by callers, outside forward
         self._rope: dict = {}
 
-    def rope(self, input_pos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """(B, S) positions -> :func:`rope_rows` of their (B, S, hd // 2, 2)
-        cos/sin, the positions clamped to the table as the JAX gather clamps;
-        the table is made once per device."""
+    def rope_table(self, device) -> torch.Tensor:
+        """(max_seq_len, hd // 2, 2) f32 cos/sin, made once per device."""
         c = self.cfg
-        table = self._rope.get(input_pos.device)
+        table = self._rope.get(device)
         if table is None:
             table = torch.from_numpy(rope_cache(c.max_seq_len, c.head_dim, c.rope_base)).to(
-                input_pos.device)
-            self._rope[input_pos.device] = table
-        return rope_rows(table[torch.clamp(input_pos, max=c.max_seq_len - 1)])
+                device)
+            self._rope[device] = table
+        return table
+
+    def rope(self, input_pos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B, S) positions -> :func:`rope_rows` of their (B, S, hd // 2, 2)
+        cos/sin, the positions clamped to the table as the JAX gather clamps."""
+        table = self.rope_table(input_pos.device)
+        return rope_rows(table[torch.clamp(input_pos, max=self.cfg.max_seq_len - 1)])
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embeddings(tokens)
@@ -230,10 +241,53 @@ class ARTransformer(nn.Module):
             x = blk(x, rope, masked, k_caches[i], v_caches[i])
         return self.output(self.norm(x[:, -1]))
 
-    def decode_step(self, x_emb, input_pos, kv_pos, k_caches, v_caches, min_key=None):
+    def decode_step(self, x_emb, input_pos, kv_pos, k_caches, v_caches, min_key=None,
+                    scratch=None):
         """One token: x_emb (B, 1, D); input_pos (B,); kv_pos a 0-d device
         tensor, the slot every row writes. Keys <= kv_pos are valid, and with
-        ``min_key`` (B,) only those >= it. Returns logits (B, vocab)."""
+        ``min_key`` (B,) only those >= it. Returns logits (B, vocab): on cuda
+        :meth:`decode_chain`'s f32 logits, written into ``scratch`` (an
+        ``ops.ar_decode.Scratch`` for B rows, required there), on the CPU
+        :meth:`decode_step_reference`'s."""
+        if x_emb.device.type == "cuda":
+            if scratch is None:
+                raise ValueError("ARTransformer.decode_step: on cuda the decode kernels write "
+                                 "into a scratch (ops.ar_decode.new_scratch)")
+            return self.decode_chain(x_emb, input_pos, kv_pos, k_caches, v_caches, min_key,
+                                     scratch)
+        return self.decode_step_reference(x_emb, input_pos, kv_pos, k_caches, v_caches, min_key)
+
+    def decode_chain(self, x_emb, input_pos, kv_pos, k_caches, v_caches, min_key, scratch):
+        """The decode step as ``ops.ar_decode``'s kernels: five a layer and
+        the head, reading the modules' parameters in place and writing into
+        ``scratch``. A tensor-parallel module raises: its caches hold every
+        head, its weights only this rank's."""
+        if any(blk.attention.tp_group is not None for blk in self._layers()):
+            raise RuntimeError("ARTransformer.decode_chain: the decode kernels take a whole "
+                               "model, not a tensor-parallel part")
+        c = self.cfg
+        B = x_emb.shape[0]
+        table = self.rope_table(x_emb.device)
+        x = x_emb.reshape(B, c.dim)
+        for i, blk in enumerate(self._layers()):
+            att = blk.attention
+            ar_decode.attn_in(x, blk.attention_norm.weight, att.wqkv.weight, table, input_pos,
+                              kv_pos, scratch.q, k_caches[i], v_caches[i], c.norm_eps)
+            ar_decode.attention(scratch.q, k_caches[i], v_caches[i], kv_pos, min_key,
+                                scratch.attn, scratch.part, scratch.counters)
+            ar_decode.attn_out(scratch.attn, att.wo.weight, x, scratch.x)
+            x = scratch.x
+            ar_decode.ffn_in(x, blk.ffn_norm.weight, blk.feed_forward_w1.weight,
+                             blk.feed_forward_w3.weight, scratch.hidden, c.norm_eps)
+            ar_decode.ffn_out(scratch.hidden, blk.feed_forward_w2.weight, x)
+        ar_decode.head(x, self.norm.weight, self.output.weight, scratch.logits, c.norm_eps)
+        return scratch.logits
+
+    def decode_step_reference(self, x_emb, input_pos, kv_pos, k_caches, v_caches,
+                              min_key=None):
+        """The plain decode step, the blocks' own forward over a masked
+        cache: the CPU's step and the twin of :meth:`decode_chain`. Logits
+        (B, vocab) in the model's type."""
         rope = self.rope(input_pos[:, None])
         keys = torch.arange(self.cfg.max_seq_len, device=x_emb.device)[None, :]
         masked = keys > kv_pos
@@ -292,8 +346,9 @@ class ARGenerator:
     token emitted so far.
     ``graph``: capture the decode step as a CUDA graph (default: on cuda);
     ``graph=False`` runs the same step eagerly. After a call, ``graph_launches``
-    holds the kernel wrappers' launches in one replay (the AR runs none),
-    ``replays`` the replays, ``captures`` the graphs captured (one a call on
+    holds the K1/K2/K3 wrappers' launches in one replay (the AR runs none),
+    ``fused_launches`` the decode kernels' (``ops.ar_decode.LAUNCHES``) in one
+    replay, ``replays`` the replays, ``captures`` the graphs captured (one a call on
     cuda), ``decode_steps`` the decode steps run (the first-token prefill
     not included) and ``decode_s`` the decode's wall seconds, ending in the
     device's result; with ``keep_logits``, ``logits`` holds each step's f32
@@ -318,6 +373,7 @@ class ARGenerator:
         self.use_graph = graph
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.graph_launches: Optional[dict] = None
+        self.fused_launches: Optional[int] = None
         self.replays = 0
         self.captures = 0
         self.decode_steps = 0
@@ -419,14 +475,17 @@ class ARGenerator:
                  "presence": vocab[None, :] == first[:, None],
                  "done": steps >= cap,
                  "kc": kc, "vc": vc, "min_key": off[:, 0], "draws": draws, "vocab": vocab,
-                 "logits": self.logits, **knobs}
+                 "logits": self.logits, **knobs,
+                 "scratch": (ar_decode.new_scratch(B, cfg, dev, dtype) if dev.type == "cuda"
+                             else None)}
             self._state = s
 
         def step():
             """One decode step over the static buffers of ``s``, in place;
             reads nothing back to the host, so a CUDA graph can hold it."""
             lg = model.decode_step(model.embed_tokens(s["last"][:, None]), s["input_pos"],
-                                   s["kv_pos"], s["kc"], s["vc"], s["min_key"])
+                                   s["kv_pos"], s["kc"], s["vc"], s["min_key"],
+                                   scratch=s["scratch"])
             penal = (s["vocab"][None, :] == s["tokens"][:, :1] if self.penalty_scope == "first"
                      else s["presence"])
             row = torch.clamp(s["step"], max=max_new - 1).reshape(1)
@@ -453,24 +512,26 @@ class ARGenerator:
 
         use_graph = dev.type == "cuda" if self.use_graph is None else self.use_graph
         self.graph, self.graph_launches, self.replays, self.captures = None, None, 0, 0
+        self.fused_launches = None
         n_steps = 0
         t0 = time.perf_counter()
         with stage("ar.decode"):
             if max_new > 1 and use_graph:
                 # the first decode step runs eagerly on a side stream (it warms
-                # cuBLAS and the allocator); capturing runs nothing
+                # the kernels and the allocator); capturing runs nothing
                 side = torch.cuda.Stream(dev)
                 side.wait_stream(torch.cuda.current_stream(dev))
                 with torch.cuda.stream(side):
                     step()
                 torch.cuda.current_stream(dev).wait_stream(side)
                 n_steps = 1
-                before = launches.counts()
+                before, fused_before = launches.counts(), ar_decode.LAUNCHES
                 self.graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(self.graph):
                     step()
                 self.captures = 1
                 self.graph_launches = {k: v - before[k] for k, v in launches.counts().items()}
+                self.fused_launches = ar_decode.LAUNCHES - fused_before
             while n_steps < max_new - 1:
                 if n_steps % CHECK_EVERY == 0 and n_steps and bool(s["done"].all()):
                     break

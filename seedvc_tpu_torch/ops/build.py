@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {"attention": "attention.cu", "attention_bwd": "attention_bwd.cu",
-           "anti_alias": "anti_alias.cu"}
+           "anti_alias": "anti_alias.cu", "ar_decode": "ar_decode.cu"}
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -14,7 +14,9 @@ wrapper called. Two rules are in use:
 - The stream's block program (``pipelines/streaming.py``) and the AR
   decoder (``models/ar.py``) leave the capture's count in and expose
   ``graph_launches`` (what one replay launches, by :func:`counts` before and
-  after the capture) and ``replays`` for their readers to combine.
+  after the capture) and ``replays`` for their readers to combine; the AR
+  decoder counts its own kernels (``ops/ar_decode.py``'s ``LAUNCHES``) the
+  same way, as ``fused_launches``.
 """
 
 from __future__ import annotations
