@@ -8,10 +8,11 @@ over [prompt_len, x_len) only and reduced in f32. The time ``t``, the noise
 ``z`` and the classifier-free dropout mask are arguments.
 
 Inference: fixed-step Euler over a linear ``t_span = linspace(0, 1, n+1)``
-(or v2's cosine schedule); classifier-free guidance stacks the conditional
-batch with a null batch (zeroed prompt/style/mu) and combines
-``(1+r)·cond − r·uncond``; the prompt region of x is re-zeroed every step.
-The initial noise is an argument. ``shard_axis`` splits the CFG-stacked
+(or v2's cosine schedule); classifier-free guidance stacks the branches of
+:func:`cfg_branches` (v1: the conditional batch over a null batch of zeroed
+prompt/style/mu) and combines their estimates with Python-float weights
+(v1: ``(1+r)·cond − r·uncond``); the prompt region of x is re-zeroed every
+step. The initial noise is an argument. ``shard_axis`` splits the CFG-stacked
 batch over a mesh axis: each rank runs the estimator on its rows and the
 ranks gather the velocity before the combination. ``seq_shard_axis`` splits
 time over a mesh axis (:class:`~seedvc_tpu_torch.parallel.mesh.SeqShard`):
@@ -21,17 +22,19 @@ gathered over time, then over the stack. Each Euler step is a
 ``cfm.step`` span of a ``torch.profiler`` trace and each estimator call in
 it a ``dit.estimate`` span.
 
-One step's math is :func:`euler_step`: :func:`euler_solve` calls it in a
-Python loop, and :class:`EulerGraph` captures it once per sampler shape as
-a CUDA graph that it replays every step (one device, no mesh axis).
+One step's math is :func:`euler_step`: :func:`euler_solve` (and v2's
+``models/cfm_v2.py::euler_solve_multicfg``) calls it in one Python loop,
+and :class:`EulerGraph` captures it once per sampler shape as a CUDA graph
+that it replays every step (one device, no mesh axis).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -157,23 +160,45 @@ def time_span(n_timesteps: int, t_scheduler: str = "linear") -> torch.Tensor:
             else torch.linspace(0.0, 1.0, n_timesteps + 1))
 
 
-def sampler_inputs(noise, mu, x_lens, prompt, prompt_len: int, style, cfg_rate: float,
+def cfg_branches(prompt_x, style, mu, cfg_rates: Sequence[float], random_voice: bool):
+    """[(prompt, style, mu) per branch], weights: the five layouts of the CFG
+    stack for (r0, r1) = (intelligibility, similarity); v1's is (r, 0)."""
+    r0, r1 = float(cfg_rates[0]), float(cfg_rates[1])
+    if not random_voice and r0 == 0 and r1 == 0:
+        return [(prompt_x, style, mu)], (1.0,)
+    zp, zs, zm = torch.zeros_like(prompt_x), torch.zeros_like(style), torch.zeros_like(mu)
+    if random_voice:  # [text-only / unconditional]
+        return [(zp, zs, mu), (zp, zs, zm)], (1.0 + r0, -r0)
+    if r0 == 0:  # [full / text-only]
+        return [(prompt_x, style, mu), (zp, zs, mu)], (1.0 + r1, -r1)
+    if r1 == 0:  # [full / unconditional]
+        return [(prompt_x, style, mu), (zp, zs, zm)], (1.0 + r0, -r0)
+    # [full / text-only / unconditional]
+    return ([(prompt_x, style, mu), (zp, zs, mu), (zp, zs, zm)], (1.0 + r0 + r1, -r1, -r0))
+
+
+def _v1_branches(cfg_rate: float) -> Callable:
+    """``(1+r)·cond − r·uncond`` for r > 0, ``cond`` alone for r <= 0."""
+    return functools.partial(cfg_branches, cfg_rates=(max(cfg_rate, 0.0), 0.0),
+                             random_voice=False)
+
+
+def sampler_inputs(noise, mu, x_lens, prompt, prompt_len: int, style, branches: Callable,
                    temperature: float = 1.0) -> tuple:
     """x at t = 0 (the noise scaled, zero in the prompt), the (1, T, 1)
-    prompt mask and the estimator's inputs (prompt, lens, style, mu), the
-    null batch stacked under the conditional one when ``cfg_rate > 0``."""
+    prompt mask, the estimator's inputs (prompt, lens, style, mu), the
+    branches of ``branches(prompt_x, style, mu)`` stacked, and their weights."""
     T = mu.shape[1]
     noise = noise * temperature
     in_prompt = (torch.arange(T, device=mu.device) < prompt_len)[None, :, None]
     prompt_x = torch.where(in_prompt, prompt, torch.zeros_like(prompt))
     x = torch.where(in_prompt, torch.zeros_like(noise), noise)
-    if cfg_rate <= 0:
-        return x, in_prompt, (prompt_x, x_lens, style, mu)
-    est_prompt = torch.cat([prompt_x, torch.zeros_like(prompt_x)], 0)
-    est_style = torch.cat([style, torch.zeros_like(style)], 0)
-    est_mu = torch.cat([mu, torch.zeros_like(mu)], 0)
-    est_lens = None if x_lens is None else torch.cat([x_lens, x_lens], 0)
-    return x, in_prompt, (est_prompt, est_lens, est_style, est_mu)
+    rows, weights = branches(prompt_x, style, mu)
+    if len(rows) == 1:
+        return x, in_prompt, (prompt_x, x_lens, style, mu), weights
+    est_prompt, est_style, est_mu = (torch.cat([b[i] for b in rows], 0) for i in range(3))
+    est_lens = None if x_lens is None else torch.cat([x_lens] * len(rows), 0)
+    return x, in_prompt, (est_prompt, est_lens, est_style, est_mu), weights
 
 
 def precompute_args(precompute_fn: Optional[Callable], est: tuple, n_mels: int,
@@ -190,25 +215,57 @@ def precompute_args(precompute_fn: Optional[Callable], est: tuple, n_mels: int,
 
 
 def euler_step(estimate_fn: Callable, x: torch.Tensor, t, dt, est: tuple, est_args: tuple,
-               in_prompt: torch.Tensor, cfg_rate: float, shard: StackShard,
-               seq: Optional[SeqShard] = None) -> torch.Tensor:
+               in_prompt: torch.Tensor, weights: tuple, shard: StackShard,
+               seq: Optional[SeqShard] = None, keep: Optional[tuple] = None) -> torch.Tensor:
     """One Euler step: the estimator on the CFG stack (this rank's rows),
-    ``(1+r)·cond − r·uncond``, the f32 update ``x + dt·v`` and the prompt
-    re-zeroed; returns the new x. ``t`` and ``dt`` are Python floats (the
-    eager loop of :func:`euler_solve`) or 0-d device tensors, ``t`` in the
-    estimator's dtype and ``dt`` in f32 (the static inputs of
-    :class:`EulerGraph`): the same numbers either way."""
-    use_cfg = cfg_rate > 0
-    xx = shard.take(torch.cat([x, x], 0) if use_cfg else x)
+    ``w0·v0 + w1·v1 (+ w2·v2)`` with the Python-float ``weights``, the f32
+    update ``x + dt·v`` and the prompt re-zeroed; returns the new x. ``t``
+    and ``dt`` are Python floats (the eager loop of :func:`euler_solve`) or
+    0-d device tensors, ``t`` in the estimator's dtype and ``dt`` in f32 (the
+    static inputs of :class:`EulerGraph`): the same numbers either way.
+    ``keep``: buffers for the state and the combined estimate."""
+    n_br = len(weights)
+    xx = shard.take(torch.cat([x] * n_br, 0) if n_br > 1 else x)
     if seq is not None:
         xx = seq.take(xx)
     with annotate("dit.estimate"):
         v = estimate_rows(estimate_fn, seq, shard, xx, t, est, est_args)
-    if use_cfg:
-        v_cond, v_null = v.chunk(2, dim=0)
-        v = (1.0 + cfg_rate) * v_cond - cfg_rate * v_null
+    if n_br > 1:
+        parts = v.chunk(n_br, dim=0)
+        v = weights[0] * parts[0]
+        for w, part in zip(weights[1:], parts[1:]):
+            v = v + w * part
+    if keep is not None:
+        keep[0].copy_(x)
+        keep[1].copy_(v)
     x = (x.float() + dt * v.float()).to(x.dtype)
     return torch.where(in_prompt, torch.zeros_like(x), x)
+
+
+def _euler_loop(estimate_fn: Callable, noise: torch.Tensor, mu: torch.Tensor,
+                x_lens: Optional[torch.Tensor], prompt: torch.Tensor, prompt_len, style,
+                n_timesteps: int, branches: Callable, precompute_fn: Optional[Callable],
+                temperature: float, t_scheduler: str, shard_axis: Optional[str],
+                seq_shard_axis: Optional[str], keep: Optional[tuple] = None) -> torch.Tensor:
+    """The eager loop of :func:`euler_solve` and v2's ``euler_solve_multicfg``;
+    ``keep``: two (n_timesteps, B, T, n_mels) buffers, row i step i's."""
+    t_span = time_span(n_timesteps, t_scheduler)
+    seq = time_shard(seq_shard_axis, mu.shape[1])
+    x, in_prompt, est, weights = sampler_inputs(noise, mu, x_lens, prompt, prompt_len, style,
+                                                branches, temperature)
+    shard = StackShard(shard_axis, est[3].shape[0])
+    prompt_x, lens, style_x, mu_x = (shard.take(t) for t in est)
+    if seq is not None:
+        prompt_x, mu_x = seq.take(prompt_x), seq.take(mu_x)
+    est = (prompt_x, lens, style_x, mu_x)
+    est_args = precompute_args(precompute_fn, est, noise.shape[-1], seq)
+    for i in range(n_timesteps):
+        # trace-only spans (no events), so a graph capture may run them
+        with annotate("cfm.step"):
+            x = euler_step(estimate_fn, x, float(t_span[i]), float(t_span[i + 1] - t_span[i]),
+                           est, est_args, in_prompt, weights, shard, seq,
+                           None if keep is None else (keep[0][i], keep[1][i]))
+    return x
 
 
 @torch.no_grad()
@@ -234,22 +291,9 @@ def euler_solve(estimate_fn: Callable, noise: torch.Tensor, mu: torch.Tensor,
     positions, and ``precompute_fn`` runs on them.
     Returns the generated mel (B, T, n_mels); the prompt region holds zeros.
     """
-    t_span = time_span(n_timesteps, t_scheduler)
-    seq = time_shard(seq_shard_axis, mu.shape[1])
-    x, in_prompt, est = sampler_inputs(noise, mu, x_lens, prompt, prompt_len, style, cfg_rate,
-                                       temperature)
-    shard = StackShard(shard_axis, est[3].shape[0])
-    prompt_x, lens, style_x, mu_x = (shard.take(t) for t in est)
-    if seq is not None:
-        prompt_x, mu_x = seq.take(prompt_x), seq.take(mu_x)
-    est = (prompt_x, lens, style_x, mu_x)
-    est_args = precompute_args(precompute_fn, est, noise.shape[-1], seq)
-    for i in range(n_timesteps):
-        # trace-only spans (no events), so a graph capture may run them
-        with annotate("cfm.step"):
-            x = euler_step(estimate_fn, x, float(t_span[i]), float(t_span[i + 1] - t_span[i]),
-                           est, est_args, in_prompt, cfg_rate, shard, seq)
-    return x
+    return _euler_loop(estimate_fn, noise, mu, x_lens, prompt, prompt_len, style, n_timesteps,
+                       _v1_branches(cfg_rate), precompute_fn, temperature, t_scheduler,
+                       shard_axis, seq_shard_axis)
 
 
 @dataclass
@@ -263,7 +307,7 @@ class StepGraph:
     launches: dict
 
 
-MAX_GRAPHS = 8  # a 30 s window's five contexts at one cfg_rate, and room
+MAX_GRAPHS = 8  # a 30 s window's five contexts at one CFG layout, and room
 
 
 class EulerGraph:
@@ -282,11 +326,11 @@ class EulerGraph:
     as one CUDA graph with a memory pool of its own, and replays the rest.
     The returned mel is a copy, which no later replay overwrites.
 
-    A graph is keyed by the shapes and dtypes of its inputs and
-    ``cfg_rate``; the prompt length is data (the mask). The ``MAX_GRAPHS``
-    most recently used are kept. The kernel counters count what the device
-    ran (``ops/launches.py``): the capture, which runs nothing, adds
-    nothing, and each replay what the captured step launches."""
+    A graph is keyed by the shapes and dtypes of its inputs and the CFG
+    weights ``cfg_rate`` gives; the prompt length is data (the mask). The
+    ``MAX_GRAPHS`` most recently used are kept. The kernel counters count
+    what the device ran (``ops/launches.py``): the capture, which runs
+    nothing, adds nothing, and each replay what the captured step launches."""
 
     def __init__(self, estimate_fn: Callable, precompute_fn: Optional[Callable] = None):
         self.estimate_fn = estimate_fn
@@ -300,20 +344,20 @@ class EulerGraph:
                  cfg_rate: float = 0.7, temperature: float = 1.0,
                  t_scheduler: str = "linear") -> torch.Tensor:
         t_tab, dt_tab = self._schedule(n_timesteps, t_scheduler, mu.dtype, mu.device)
-        x, in_prompt, est = sampler_inputs(noise, mu, x_lens, prompt, prompt_len, style,
-                                           cfg_rate, temperature)
+        x, in_prompt, est, weights = sampler_inputs(noise, mu, x_lens, prompt, prompt_len,
+                                                    style, _v1_branches(cfg_rate), temperature)
         if not n_timesteps:
             return x
         inputs = dict(zip(("x", "in_prompt", "prompt", "lens", "style", "mu"),
                           (x, in_prompt, *est)))
         for args in precompute_args(self.precompute_fn, est, noise.shape[-1]):
             inputs.update((f"static.{k}", v) for k, v in args.items())
-        key = graph_key(inputs, cfg_rate)
+        key = graph_key(inputs, weights)
         step, first = self.graphs.pop(key, None), 0
         if step is None:
             bufs = self.buffers(inputs, t_tab[0], dt_tab[0])
             with annotate("cfm.step"):
-                step, first = self._capture(bufs, cfg_rate), 1
+                step, first = self._capture(bufs, weights), 1
             while len(self.graphs) >= MAX_GRAPHS:
                 self.graphs.popitem(last=False)
         else:
@@ -345,32 +389,33 @@ class EulerGraph:
         bufs["t"], bufs["dt"] = t.clone(), dt.clone()
         return bufs
 
-    def run(self, bufs: dict, cfg_rate: float) -> None:
-        """One Euler step on the static buffers, the state updated in place."""
+    def run(self, bufs: dict, weights: tuple) -> None:
+        """One Euler step on the static buffers, the state updated in place;
+        ``weights``: the CFG branches' (:func:`euler_step`)."""
         est = (bufs["prompt"], bufs["lens"], bufs["style"], bufs["mu"])
         static = {k[len("static."):]: v for k, v in bufs.items() if k.startswith("static.")}
         x = euler_step(self.estimate_fn, bufs["x"], bufs["t"], bufs["dt"], est,
-                       (static,) if static else (), bufs["in_prompt"], cfg_rate,
+                       (static,) if static else (), bufs["in_prompt"], weights,
                        StackShard(None, bufs["mu"].shape[0]))
         bufs["x"].copy_(x)
 
-    def _capture(self, bufs: dict, cfg_rate: float) -> StepGraph:
+    def _capture(self, bufs: dict, weights: tuple) -> StepGraph:
         """Run the first step on ``bufs`` eagerly on a side stream (it builds
         and caches what the step uses), then capture the step as a graph."""
         dev = bufs["mu"].device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self.run(bufs, cfg_rate)
+            self.run(bufs, weights)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with launches.captured() as launched, torch.cuda.graph(graph):
-            self.run(bufs, cfg_rate)
+            self.run(bufs, weights)
         return StepGraph(bufs, graph.replay, launched)
 
 
-def graph_key(inputs: dict, cfg_rate: float) -> tuple:
-    """An :class:`EulerGraph` key: ``cfg_rate`` and each input's name,
-    shape, dtype and device (None for an absent one)."""
-    return (float(cfg_rate), *((k, None if v is None else (tuple(v.shape), v.dtype, v.device))
-                               for k, v in inputs.items()))
+def graph_key(inputs: dict, weights: tuple) -> tuple:
+    """An :class:`EulerGraph` key: the CFG ``weights`` and each input's
+    name, shape, dtype and device (None for an absent one)."""
+    return (weights, *((k, None if v is None else (tuple(v.shape), v.dtype, v.device))
+                       for k, v in inputs.items()))

@@ -5,9 +5,10 @@ the training loss (port of ``seedvc_tpu/models/cfm_v2.py``).
 branches [full / text-only / unconditional] and combines them with weights
 ``(1 + r0 + r1, -r1, -r0)``, where (r0, r1) = (intelligibility, similarity);
 with either rate 0 the stack has two branches, with both none, and
-``random_voice`` (anonymisation) stacks [text-only / unconditional]. The
-Euler update runs in f32 and is cast back; the prompt region is re-zeroed
-every step. The initial noise is an argument.
+``random_voice`` (anonymisation) stacks [text-only / unconditional]
+(``models/cfm.py::cfg_branches``). The sampler is v1's Euler loop: the
+update runs in f32 and is cast back; the prompt region is re-zeroed every
+step. The initial noise is an argument.
 
 :func:`cfm_v2_loss` is the OT-CFM loss with the prompt region given as the
 condition, zeroed in the noisy input and left out of the loss; ``t`` and the
@@ -16,31 +17,14 @@ noise are arguments (the trainer draws them).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Sequence
 
 import torch
 
-from seedvc_tpu_torch.core.profiling import annotate
-from seedvc_tpu_torch.models.cfm import StackShard, cosine_t_span, estimate_rows, time_shard
-from seedvc_tpu_torch.parallel.mesh import seq_shard_block
+from seedvc_tpu_torch.models.cfm import _euler_loop, cfg_branches, cosine_t_span  # noqa: F401
 
 SIGMA_MIN = 1e-6
-
-
-def cfg_branches(prompt_x, style, mu, cfg_rates: Sequence[float], random_voice: bool):
-    """[(prompt, style, mu) per branch], weights: the five layouts."""
-    r0, r1 = float(cfg_rates[0]), float(cfg_rates[1])
-    zp, zs, zm = torch.zeros_like(prompt_x), torch.zeros_like(style), torch.zeros_like(mu)
-    if random_voice:  # [text-only / unconditional]
-        return [(zp, zs, mu), (zp, zs, zm)], (1.0 + r0, -r0)
-    if r0 == 0 and r1 == 0:
-        return [(prompt_x, style, mu)], (1.0,)
-    if r0 == 0:  # [full / text-only]
-        return [(prompt_x, style, mu), (zp, zs, mu)], (1.0 + r1, -r1)
-    if r1 == 0:  # [full / unconditional]
-        return [(prompt_x, style, mu), (zp, zs, zm)], (1.0 + r0, -r0)
-    # [full / text-only / unconditional]
-    return ([(prompt_x, style, mu), (zp, zs, mu), (zp, zs, zm)], (1.0 + r0 + r1, -r1, -r0))
 
 
 @torch.no_grad()
@@ -54,6 +38,8 @@ def euler_solve_multicfg(estimate_fn: Callable, noise: torch.Tensor, mu: torch.T
                          keep: Optional[tuple] = None) -> torch.Tensor:
     """``estimate_fn(x, prompt_x, x_lens, t, style, mu[, static_cond]) -> v``.
 
+    v1's sampler (``models/cfm.py``) over the cosine schedule and the CFG
+    layout :func:`cfg_branches` gives ``cfg_rates`` and ``random_voice``.
     noise: (B, T, n_mels) initial noise in mu's dtype (scaled by
     ``temperature`` here); mu: (B, T, D); x_lens: (B,) or None; prompt:
     (B, T, n_mels); prompt_len: int. ``precompute_fn(x, prompt_x, x_lens,
@@ -67,51 +53,11 @@ def euler_solve_multicfg(estimate_fn: Callable, noise: torch.Tensor, mu: torch.T
     allocated once: holding each step's own tensors instead makes the
     allocator ask the device for more every step). Returns the generated
     mel; the prompt region holds zeros."""
-    B, T, _ = mu.shape
-    seq = time_shard(seq_shard_axis, T)
-    z = noise * temperature
-    in_prompt = (torch.arange(T, device=mu.device) < prompt_len)[None, :, None]
-    prompt_x = torch.where(in_prompt, prompt, torch.zeros_like(prompt))
-    x = torch.where(in_prompt, torch.zeros_like(z), z)
-
-    branches, weights = cfg_branches(prompt_x, style, mu, cfg_rates, random_voice)
-    n_br = len(branches)
-    est_prompt, est_style, est_mu = (torch.cat([b[i] for b in branches], 0) for i in range(3))
-    est_lens = None if x_lens is None else torch.cat([x_lens] * n_br, 0)
-    w = torch.tensor(weights, dtype=mu.dtype, device=mu.device)
-    shard = StackShard(shard_axis, n_br * B)
-    est_prompt, est_style, est_mu, est_lens = (shard.take(t) for t in (
-        est_prompt, est_style, est_mu, est_lens))
-    if seq is not None:
-        est_prompt, est_mu = seq.take(est_prompt), seq.take(est_mu)
-    n_local = est_mu.shape[0]
-
-    est_args = ()
-    if precompute_fn is not None and n_local:
-        x_shape = (n_local, est_mu.shape[1], noise.shape[-1])
-        with seq_shard_block(seq):
-            est_args = (precompute_fn(torch.zeros(x_shape, dtype=mu.dtype, device=mu.device),
-                                      est_prompt, est_lens, est_style, est_mu),)
-
-    est = (est_prompt, est_lens, est_style, est_mu)
-    t_span = cosine_t_span(n_timesteps)
-    for i in range(n_timesteps):
-        # trace-only spans (no events), as the v1 sampler's
-        with annotate("cfm.step"):
-            t_cur = float(t_span[i])
-            dt = float(t_span[i + 1] - t_span[i])
-            xx = shard.take(torch.cat([x] * n_br, 0))
-            if seq is not None:
-                xx = seq.take(xx)
-            with annotate("dit.estimate"):
-                v = estimate_rows(estimate_fn, seq, shard, xx, t_cur, est, est_args)
-            v = torch.tensordot(w, v.reshape(n_br, B, *v.shape[1:]), dims=1)
-            if keep is not None:
-                keep[0][i].copy_(x)
-                keep[1][i].copy_(v)
-            x = (x.float() + dt * v.float()).to(x.dtype)
-            x = torch.where(in_prompt, torch.zeros_like(x), x)
-    return x
+    # this module's cfg_branches, looked up at each call, so a patch on it applies
+    branches = functools.partial(cfg_branches, cfg_rates=cfg_rates, random_voice=random_voice)
+    return _euler_loop(estimate_fn, noise, mu, x_lens, prompt, prompt_len, style, n_timesteps,
+                       branches, precompute_fn, temperature, "cosine", shard_axis,
+                       seq_shard_axis, keep)
 
 
 def cfm_v2_loss(estimate_fn: Callable, x1: torch.Tensor, x_lens: torch.Tensor,

@@ -86,6 +86,69 @@ def join_chunk(prev_tail: Optional[np.ndarray], wave: np.ndarray, is_last: bool,
     return piece, (prev_tail if is_last else wave[-overlap:])
 
 
+def _context_window(chunk: torch.Tensor, prompt_cond: torch.Tensor, prompt_mel: torch.Tensor,
+                    prompt_len: int, context: int, dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sampler's condition [prompt ‖ chunk] and prompt mel in one
+    ``context``-frame window, in ``dtype``."""
+    W = chunk.shape[1]
+    cond = torch.zeros((1, context, chunk.shape[-1]), dtype=dtype, device=chunk.device)
+    cond[:, : prompt_cond.shape[1]] = prompt_cond.to(dtype)
+    cond[:, prompt_len: prompt_len + W] = chunk.to(dtype)
+    pm = torch.zeros((1, context, prompt_mel.shape[-1]), dtype=dtype, device=chunk.device)
+    pm[:, : prompt_mel.shape[1]] = prompt_mel.to(dtype)
+    return cond, pm
+
+
+def _chunks(sample_vocode: Callable, cond: torch.Tensor, prompt_cond: torch.Tensor,
+            prompt_mel: torch.Tensor, p_len: int, target_len: int, plan: tuple, hop: int, *,
+            seed: int, noise_fn: Optional[Callable], timer: StageTimer, sync: Callable,
+            per_chunk: Optional[Callable] = None, **kwargs):
+    """Both converters' chunk loop over ``cond`` after the prompt, by
+    ``plan`` (prompt_cap, context, W): each chunk's noise (from ``seed`` or
+    ``noise_fn``), then ``sample_vocode(..., **kwargs, **per_chunk(w))`` in
+    stage ``sample+vocode``; once all are dispatched, each is fetched and
+    joined. Yields (chunks so far, samples emitted so far, piece)."""
+    cap, context, W = plan
+    dev = cond.device
+    prompt_cond = F.pad(prompt_cond, (0, 0, 0, cap - p_len))
+    prompt_mel = F.pad(prompt_mel, (0, 0, 0, cap - p_len))
+    L = (-(-target_len // W) + 1) * W
+    cond = F.pad(cond, (0, 0, 0, L - target_len))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise_shape = (1, context, prompt_mel.shape[-1])
+    dispatched = []
+    processed = 0
+    while processed < target_len:
+        w = min(W, target_len - processed)
+        is_last = processed + W >= target_len
+        noise = (noise_fn(noise_shape).to(dev) if noise_fn is not None
+                 else torch.randn(noise_shape, generator=gen, device=dev))
+        extra = {} if per_chunk is None else per_chunk(w)
+        with timer("sample+vocode"):
+            dispatched.append((w, is_last, sync(sample_vocode(
+                noise, cond[:, processed: processed + W], prompt_cond,
+                torch.tensor([p_len + w], device=dev), prompt_mel, p_len, context,
+                timer=timer, **kwargs, **extra))))
+        processed += w if is_last else (w - OVERLAP_FRAMES)
+
+    prev_tail: Optional[np.ndarray] = None
+    emitted = 0
+    for n, (w, is_last, dev_wave) in enumerate(dispatched, 1):
+        with timer("fetch"):
+            wave = dev_wave[0].float().cpu().numpy()[: w * hop]
+        piece, prev_tail = join_chunk(prev_tail, wave, is_last, OVERLAP_FRAMES * hop)
+        emitted += len(piece)
+        yield n, emitted, piece
+
+
+def _drain(chunks, sr: int, stats: dict) -> tuple[int, np.ndarray, dict]:
+    """(sr, the pieces joined, the last stats) of ``(sr, piece, stats)``s."""
+    pieces = []
+    for sr, piece, stats in chunks:
+        pieces.append(piece)
+    return sr, (np.concatenate(pieces) if pieces else np.zeros(0, np.float32)), stats
+
+
 def campplus_style(campplus: CAMPPlus, wave_16k: np.ndarray, device) -> torch.Tensor:
     """CAMPPlus style from a kaldi fbank of the wave padded to a 1 s bucket,
     mean-subtracted and pooled over the true frame count."""
@@ -366,8 +429,8 @@ class VoiceConverter:
         return self.vocoder(mel)
 
     def _sample_vocode(self, noise, chunk, prompt_cond, total_len, prompt_mel,
-                       prompt_len: int, style, n_steps: int, cfg_rate: float,
-                       context: int, draws=None, *, timer: StageTimer) -> torch.Tensor:
+                       prompt_len: int, context: int, *, style, n_steps: int,
+                       cfg_rate: float, draws=None, timer: StageTimer) -> torch.Tensor:
         """CFM sampling over [prompt ‖ chunk] in one context window, the
         generated region sliced out and vocoded; returns the f16 wave. The
         two halves are ``timer``'s stages ``sample`` (counting its Euler
@@ -376,11 +439,8 @@ class VoiceConverter:
         cd = self.compute_dtype
         W = chunk.shape[1]
         with timer("sample"):
-            cond_cat = torch.zeros((1, context, chunk.shape[-1]), dtype=cd, device=self.device)
-            cond_cat[:, : prompt_cond.shape[1]] = prompt_cond.to(cd)
-            cond_cat[:, prompt_len: prompt_len + W] = chunk.to(cd)
-            pm = torch.zeros((1, context, self.n_mels), dtype=cd, device=self.device)
-            pm[:, : prompt_mel.shape[1]] = prompt_mel.to(cd)
+            cond_cat, pm = _context_window(chunk, prompt_cond, prompt_mel, prompt_len, context,
+                                           cd)
             args = (noise.to(cd), cond_cat, total_len, pm, prompt_len, style.to(cd))
             graphed = self._graphed()
             if graphed:
@@ -401,15 +461,10 @@ class VoiceConverter:
                 **kwargs) -> tuple[int, np.ndarray, dict]:
         """Full conversion; drains :meth:`convert_with_streaming`.
         Returns (sr, waveform, stats)."""
-        chunks = []
-        stats: dict = {"rtf": 0.0, "audio_seconds": 0.0, "wall_seconds": 0.0,
-                       "chunks": 0, "stages": {}}
-        sr = self.sr
-        for sr, piece, stats in self.convert_with_streaming(
-                source, source_sr, reference, reference_sr, **kwargs):
-            chunks.append(piece)
-        out = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
-        return sr, out, stats
+        return _drain(self.convert_with_streaming(source, source_sr, reference, reference_sr,
+                                                  **kwargs),
+                      self.sr, {"rtf": 0.0, "audio_seconds": 0.0, "wall_seconds": 0.0,
+                                "chunks": 0, "stages": {}})
 
     def convert_with_streaming(self, source: np.ndarray, source_sr: int,
                                reference: np.ndarray, reference_sr: int, *,
@@ -468,51 +523,22 @@ class VoiceConverter:
             cond = sync(self._regulate_bucketed(s_alt, target_len, f0_alt))
             prompt_cond = sync(self._regulate_bucketed(s_ori, p_len, f0_ori))
 
-        cap_b, context, W = self.plan_chunks(target_len, p_len)
-        prompt_cond_pad = F.pad(prompt_cond, (0, 0, 0, cap_b - p_len))
-        prompt_mel_cap = F.pad(mel2, (0, 0, 0, cap_b - p_len))
-        L = (-(-target_len // W) + 1) * W
-        cond_buf = F.pad(cond, (0, 0, 0, L - target_len))
-
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        noise_shape = (1, context, self.n_mels)
+        plan = self.plan_chunks(target_len, p_len)
         draws = None
         if self.vocoder_type == "hifigan":
-            shape = (1, W * self.hop, self.vocoder.cfg.nb_harmonics + 1)
+            shape = (1, plan[2] * self.hop, self.vocoder.cfg.nb_harmonics + 1)
             draws = tuple(d.to(self.device) for d in (
                 draws_fn(shape) if draws_fn is not None
                 else self.vocoder.default_draws(1, shape[1], self.device)))
-        dispatched = []
-        processed = 0
-        while processed < target_len:
-            w = min(W, target_len - processed)
-            is_last = processed + W >= target_len
-            if noise_fn is not None:
-                noise = noise_fn(noise_shape).to(self.device)
-            else:
-                noise = torch.randn(noise_shape, generator=gen, device=self.device)
-            with timer("sample+vocode"):
-                dev_wave = sync(self._sample_vocode(
-                    noise, cond_buf[:, processed: processed + W], prompt_cond_pad,
-                    torch.tensor([p_len + w], device=self.device), prompt_mel_cap, p_len,
-                    style, diffusion_steps, cfg_rate, context, draws, timer=timer))
-            dispatched.append((w, is_last, dev_wave))
-            processed += w if is_last else (w - OVERLAP_FRAMES)
-
-        prev_tail: Optional[np.ndarray] = None
-        overlap_wave = OVERLAP_FRAMES * self.hop
-        n_chunks = emitted = 0
-        for w, is_last, dev_wave in dispatched:
-            with timer("fetch"):
-                wave = dev_wave[0].float().cpu().numpy()[: w * self.hop]
-            n_chunks += 1
-            piece, prev_tail = join_chunk(prev_tail, wave, is_last, overlap_wave)
-            emitted += len(piece)
+        for n, emitted, piece in _chunks(
+                self._sample_vocode, cond, prompt_cond, mel2, p_len, target_len, plan,
+                self.hop, seed=seed, noise_fn=noise_fn, timer=timer, sync=sync, style=style,
+                n_steps=diffusion_steps, cfg_rate=cfg_rate, draws=draws):
             dt = time.time() - t_start
             yield self.sr, piece, {
                 "rtf": dt / max(emitted / self.sr, 1e-9),
                 "audio_seconds": emitted / self.sr,
                 "wall_seconds": dt,
-                "chunks": n_chunks,
+                "chunks": n,
                 "stages": timer.report(),
             }

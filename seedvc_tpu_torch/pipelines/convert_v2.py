@@ -42,7 +42,6 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from seedvc_tpu_torch.core.config import LengthRegulatorConfig, SpectConfig
 from seedvc_tpu_torch.core.profiling import StageTimer, probe_ready
@@ -58,8 +57,8 @@ from seedvc_tpu_torch.models.dit_v2 import DiTV2, DiTV2Config
 from seedvc_tpu_torch.models.regulator import InterpolateRegulator
 from seedvc_tpu_torch.models.ssl import HUBERT_LARGE_L18, SSLConfig, SSLEncoder
 from seedvc_tpu_torch.nn.bsq import duration_reduction, run_lengths
-from seedvc_tpu_torch.pipelines.convert import (OVERLAP_FRAMES, campplus_style, join_chunk,
-                                                plan_chunks)
+from seedvc_tpu_torch.pipelines.convert import (_chunks, _context_window, _drain,
+                                                campplus_style, plan_chunks)
 from seedvc_tpu_torch.weights import load_jax_params
 
 AR_MAX_CONTENT_LEN = 1500  # narrow tokens in one AR condition row
@@ -241,9 +240,8 @@ class VoiceConverterV2:
 
     @torch.no_grad()
     def _sample_vocode(self, noise, chunk, prompt_cond, total_len, prompt_mel, prompt_len: int,
-                       style, n_steps: int, rates, random_voice: bool,
-                       context: int, *, timer: StageTimer,
-                       keep: Optional[tuple] = None) -> torch.Tensor:
+                       context: int, *, style, n_steps: int, rates, random_voice: bool,
+                       timer: StageTimer, keep: Optional[tuple] = None) -> torch.Tensor:
         """Multi-condition CFG sampling over [prompt ‖ chunk] in one context
         window, the generated region vocoded; returns the f16 wave. The two
         halves are ``timer``'s stages ``sample`` (counting its Euler
@@ -253,11 +251,7 @@ class VoiceConverterV2:
         cd = self.compute_dtype
         W = chunk.shape[1]
         with timer("sample"):
-            cond = torch.zeros((1, context, chunk.shape[-1]), dtype=cd, device=self.device)
-            cond[:, : prompt_cond.shape[1]] = prompt_cond.to(cd)
-            cond[:, prompt_len: prompt_len + W] = chunk.to(cd)
-            pm = torch.zeros((1, context, self.n_mels), dtype=cd, device=self.device)
-            pm[:, : prompt_mel.shape[1]] = prompt_mel.to(cd)
+            cond, pm = _context_window(chunk, prompt_cond, prompt_mel, prompt_len, context, cd)
 
             def estimate(x, px, lens, t, s, m, sc=None):
                 return self.dit(x, px, lens, t, s, m, static_cond=sc)
@@ -280,14 +274,9 @@ class VoiceConverterV2:
     def convert_voice(self, source, source_sr, reference, reference_sr,
                       **kwargs) -> tuple[int, np.ndarray, dict]:
         """Full conversion; drains :meth:`convert_voice_with_streaming`."""
-        chunks = []
-        stats: dict = {"rtf": 0.0, "wall_seconds": 0.0, "wide_tokens": 0}
-        sr = self.sr
-        for sr, piece, stats in self.convert_voice_with_streaming(
-                source, source_sr, reference, reference_sr, **kwargs):
-            chunks.append(piece)
-        out = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
-        return sr, out, stats
+        return _drain(self.convert_voice_with_streaming(source, source_sr, reference,
+                                                        reference_sr, **kwargs),
+                      self.sr, {"rtf": 0.0, "wall_seconds": 0.0, "wide_tokens": 0})
 
     def convert_timbre(self, source, source_sr, reference, reference_sr, **kwargs):
         """Timbre-only conversion: no AR."""
@@ -378,49 +367,27 @@ class VoiceConverterV2:
         with timer("regulate"):
             cond = sync(self._regulate_tokens(self.cfm_reg, wide_tokens, target_len))
 
-        plan = cap, context, W = self.plan_chunks(target_len, p_len)
-        prompt_mel_cap = F.pad(mel2, (0, 0, 0, cap - p_len))
-        prompt_cond_pad = F.pad(prompt_cond, (0, 0, 0, cap - p_len))
-        L = (-(-target_len // W) + 1) * W
-        cond_buf = F.pad(cond, (0, 0, 0, L - target_len))
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        noise_shape = (1, context, cfg.n_mels)
-        rates = (float(intelligibility_cfg_rate), float(similarity_cfg_rate))
-        dispatched = []
-        processed = 0
-        while processed < target_len:
-            w = min(W, target_len - processed)
-            is_last = processed + W >= target_len
-            noise = (noise_fn(noise_shape).to(dev) if noise_fn is not None
-                     else torch.randn(noise_shape, generator=gen, device=dev))
-            steps = None
-            if kept is not None:
-                steps = torch.empty((2, diffusion_steps, *noise_shape), dtype=self.compute_dtype,
-                                    device=dev)
-                kept["chunks"].append({"p_len": p_len, "w": w, "states": steps[0],
-                                       "estimates": steps[1]})
-            with timer("sample+vocode"):
-                dispatched.append((w, is_last, sync(self._sample_vocode(
-                    noise, cond_buf[:, processed: processed + W], prompt_cond_pad,
-                    torch.tensor([p_len + w], device=dev), prompt_mel_cap, p_len, style,
-                    diffusion_steps, rates, bool(anonymization_only), context, timer=timer,
-                    keep=None if steps is None else (steps[0], steps[1])))))
-            processed += w if is_last else (w - OVERLAP_FRAMES)
-
-        extra = {}
+        plan = self.plan_chunks(target_len, p_len)
+        extra, per_chunk = {}, None
         if kept is not None:
             kept.update(ar_rows=ar_rows, tokens={
                 "src_narrow": src_n, "src_wide": src_w, "ref_narrow": tgt_n, "ref_wide": tgt_w,
                 "wide": wide_tokens})
             extra = {"kept": kept}
-        prev_tail: Optional[np.ndarray] = None
-        overlap_wave = OVERLAP_FRAMES * cfg.hop
-        emitted = 0
-        for n, (w, is_last, dev_wave) in enumerate(dispatched, 1):
-            with timer("fetch"):
-                wave = dev_wave[0].float().cpu().numpy()[: w * cfg.hop]
-            piece, prev_tail = join_chunk(prev_tail, wave, is_last, overlap_wave)
-            emitted += len(piece)
+
+            def per_chunk(w):
+                steps = torch.empty((2, diffusion_steps, 1, plan[1], cfg.n_mels),
+                                    dtype=self.compute_dtype, device=dev)
+                kept["chunks"].append({"p_len": p_len, "w": w, "states": steps[0],
+                                       "estimates": steps[1]})
+                return {"keep": (steps[0], steps[1])}
+
+        rates = (float(intelligibility_cfg_rate), float(similarity_cfg_rate))
+        for n, emitted, piece in _chunks(
+                self._sample_vocode, cond, prompt_cond, mel2, p_len, target_len, plan, cfg.hop,
+                seed=seed, noise_fn=noise_fn, timer=timer, sync=sync, per_chunk=per_chunk,
+                style=style, n_steps=diffusion_steps, rates=rates,
+                random_voice=bool(anonymization_only)):
             dt = time.time() - t_start
             yield cfg.sr, piece, {
                 "rtf": dt / max(emitted / cfg.sr, 1e-9), "wall_seconds": dt,

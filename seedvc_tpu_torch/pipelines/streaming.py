@@ -55,7 +55,7 @@ from seedvc_tpu_torch.dsp.sola import crossfade_add, sola_offset
 from seedvc_tpu_torch.dsp.vad import is_speech_block
 from seedvc_tpu_torch.dsp.whisper_mel import whisper_log_mel
 from seedvc_tpu_torch.models.cfm import euler_solve
-from seedvc_tpu_torch.ops import anti_alias, attention
+from seedvc_tpu_torch.ops import launches
 from seedvc_tpu_torch.pipelines.convert import VoiceConverter
 
 
@@ -77,11 +77,6 @@ class StreamConfig:
 # the block program's device parts, between consecutive timing events
 DEVICE_PARTS = ("encode_ms", "cfm_ms", "vocode_ms")
 TIMINGS_KEPT = 4096
-
-
-def _launch_counts() -> dict:
-    return {"k1": attention.LAUNCHES, "k2": anti_alias.LAUNCHES,
-            "k3": attention.DIT_ATTENTION_LAUNCHES}
 
 
 class StreamingConverter:
@@ -204,12 +199,12 @@ class StreamingConverter:
         with torch.cuda.stream(side):
             self._step()
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = _launch_counts()
+        before = launches.counts()
         marks = tuple(torch.cuda.Event(enable_timing=True, external=True) for _ in range(4))
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self._step(marks)
-        self.graph_launches = {k: v - before[k] for k, v in _launch_counts().items()}
+        self.graph_launches = {k: v - before[k] for k, v in launches.counts().items()}
         self._graph, self._marks = graph, marks
         self._buf["ring"].zero_()
         self._buf["ring16"].zero_()

@@ -1,5 +1,6 @@
-"""The v1 sampler's step, factored out of ``euler_solve``'s loop, and the
-graphed sampler around it (``models/cfm.py::EulerGraph``), on the CPU.
+"""The v1 sampler's step, factored out of ``euler_solve``'s loop, the
+graphed sampler around it (``models/cfm.py::EulerGraph``), and v2's
+``euler_solve_multicfg`` on the same loop, on the CPU.
 
 A CUDA graph cannot be captured here, so the graphed sampler runs with its
 capture stubbed: the stub runs the first step on the static buffers and its
@@ -19,6 +20,7 @@ from seedvc_tpu_torch.core import config as pc
 from seedvc_tpu_torch.models import cfm
 from seedvc_tpu_torch.models.bigvgan import BigVGANConfig
 from seedvc_tpu_torch.models.cfm import CFM, EulerGraph, StepGraph, euler_solve
+from seedvc_tpu_torch.models.cfm_v2 import euler_solve_multicfg
 from seedvc_tpu_torch.models.whisper import WhisperEncoderConfig
 from seedvc_tpu_torch.ops import anti_alias, attention, launches
 from seedvc_tpu_torch.pipelines import convert
@@ -84,6 +86,43 @@ def _old_euler_solve(estimate_fn, noise, mu, x_lens, prompt, prompt_len, style, 
     return x
 
 
+def _old_euler_solve_multicfg(estimate_fn, noise, mu, x_lens, prompt, prompt_len, style,
+                              n_timesteps, temperature=1.0, cfg_rates=(0.5, 0.5),
+                              random_voice=False, precompute_fn=None, keep=None):
+    """``euler_solve_multicfg`` as it was before it ran v1's loop, on one
+    device with no mesh axis: the branches combined by ``torch.tensordot``
+    with the weights in the compute dtype."""
+    B, T, _ = mu.shape
+    z = noise * temperature
+    in_prompt = (torch.arange(T, device=mu.device) < prompt_len)[None, :, None]
+    prompt_x = torch.where(in_prompt, prompt, torch.zeros_like(prompt))
+    x = torch.where(in_prompt, torch.zeros_like(z), z)
+    branches, weights = cfm.cfg_branches(prompt_x, style, mu, cfg_rates, random_voice)
+    n_br = len(branches)
+    est_prompt, est_style, est_mu = (torch.cat([b[i] for b in branches], 0) for i in range(3))
+    est_lens = None if x_lens is None else torch.cat([x_lens] * n_br, 0)
+    w = torch.tensor(weights, dtype=mu.dtype, device=mu.device)
+    est_args = ()
+    if precompute_fn is not None:
+        x_shape = (est_mu.shape[0], T, noise.shape[-1])
+        est_args = (precompute_fn(torch.zeros(x_shape, dtype=mu.dtype, device=mu.device),
+                                  est_prompt, est_lens, est_style, est_mu),)
+    t_span = cfm.cosine_t_span(n_timesteps)
+    for i in range(n_timesteps):
+        t_cur = float(t_span[i])
+        dt = float(t_span[i + 1] - t_span[i])
+        xx = torch.cat([x] * n_br, 0)
+        tt = torch.full((xx.shape[0],), t_cur, dtype=mu.dtype, device=mu.device)
+        v = estimate_fn(xx, est_prompt, est_lens, tt, est_style, est_mu, *est_args)
+        v = torch.tensordot(w, v.reshape(n_br, B, *v.shape[1:]), dims=1)
+        if keep is not None:
+            keep[0][i].copy_(x)
+            keep[1][i].copy_(v)
+        x = (x.float() + dt * v.float()).to(x.dtype)
+        x = torch.where(in_prompt, torch.zeros_like(x), x)
+    return x
+
+
 def _inputs(seed, T, dtype, lens=True, style_dim=192, content=64):
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(s, generator=g).to(dtype)  # noqa: E731
@@ -109,10 +148,10 @@ def _stub_capture(launched=None):
     replay (none of any kernel by default)."""
     launched = launched or {"k1": 0, "k2": 0, "k3": 0}
 
-    def capture(self, bufs, cfg_rate):
-        self.run(bufs, cfg_rate)
+    def capture(self, bufs, weights):
+        self.run(bufs, weights)
         self.captured = getattr(self, "captured", 0) + 1
-        return StepGraph(bufs, lambda: self.run(bufs, cfg_rate), launched)
+        return StepGraph(bufs, lambda: self.run(bufs, weights), launched)
     return capture
 
 
@@ -141,6 +180,76 @@ def test_factored_step_equals_the_previous_loop(preset, cfg_rate, lens, dtype, t
     assert new.dtype == dtype and torch.equal(new, old)
     x0 = euler_solve(model.estimate, *args, **{**kw, "n_timesteps": 0})
     assert (new.float() - x0.float()).abs().max() > 1e-2  # the steps moved the state
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("lens", [True, False], ids=["lens", "nolens"])
+@pytest.mark.parametrize("cfg_rate", [0.7, 0.0])
+def test_multicfg_at_one_rate_equals_the_v1_sampler(cfg_rate, lens, dtype):
+    """``euler_solve_multicfg(cfg_rates=(r, 0))`` is ``euler_solve(cfg_rate=r)``
+    on the cosine schedule, bit for bit: one loop, one combination."""
+    model = _cfm("whisper_small_wavenet", dtype)
+    a = _inputs(1, 40, dtype, lens)
+    args = (a["noise"], a["mu"], a["x_lens"], a["prompt"], a["prompt_len"], a["style"])
+    kw = dict(n_timesteps=4, precompute_fn=model.precompute_cond, temperature=0.9)
+    v2 = euler_solve_multicfg(model.estimate, *args, cfg_rates=(cfg_rate, 0.0), **kw)
+    v1 = euler_solve(model.estimate, *args, cfg_rate=cfg_rate, t_scheduler="cosine", **kw)
+    assert v2.dtype == dtype and torch.equal(v2, v1)
+
+
+# (cfg_rates, random_voice) of the five branch layouts
+LAYOUTS = {"three_way": ((0.3, 0.9), False), "full_text": ((0.0, 0.9), False),
+           "full_uncond": ((0.3, 0.0), False), "no_cfg": ((0.0, 0.0), False),
+           "random_voice": ((0.3, 0.9), True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_multicfg_against_its_previous_loop(layout, dtype):
+    """``euler_solve_multicfg`` on v1's loop against the loop it replaced,
+    which combined the branches by ``tensordot`` with the weights rounded to
+    the compute dtype (2.2 is 2.203125 in bf16). In f32 the two agree to 1e-6
+    relative, the samples and every step's kept state and estimate. In bf16,
+    at step 0 (both at the same state, on the same branch estimates v_i),
+    each combination is within the roundings of its own arithmetic of the
+    exact w0·v0 + w1·v1 (+ w2·v2): one bf16 unit roundoff (2^-8) of
+    Σ |w_i|·|v_i| a rounding, n_br of them for the new form (each product,
+    each sum), two for the old (the weights, the result); the steps after it
+    start from states that differ. With one branch nothing is combined and
+    the two are equal."""
+    rates, rv = LAYOUTS[layout]
+    model = _cfm("whisper_small_wavenet", dtype)
+    a = _inputs(2, 40, dtype)
+    args = (a["noise"], a["mu"], a["x_lens"], a["prompt"], a["prompt_len"], a["style"])
+    steps = 4
+    calls = []
+
+    @torch.no_grad()
+    def estimate(*e):
+        calls.append(model.estimate(*e))
+        return calls[-1]
+
+    kw = dict(n_timesteps=steps, temperature=0.9, cfg_rates=rates, random_voice=rv,
+              precompute_fn=model.precompute_cond)
+    kept = [torch.empty((2, steps, *a["noise"].shape), dtype=dtype) for _ in range(2)]
+    new = euler_solve_multicfg(model.estimate, *args, **kw, keep=(kept[0][0], kept[0][1]))
+    old = _old_euler_solve_multicfg(estimate, *args, **kw, keep=(kept[1][0], kept[1][1]))
+    assert new.dtype == dtype and (new[:, : a["prompt_len"]] == 0).all()
+    _, weights = cfm.cfg_branches(a["prompt"], a["style"], a["mu"], rates, rv)
+    if len(weights) == 1:
+        assert torch.equal(new, old) and torch.equal(kept[0], kept[1])
+        return
+    if dtype == torch.float32:
+        for got, want in ((new, old), (kept[0], kept[1])):
+            assert (got - want).norm() <= 1e-6 * want.norm()
+        return
+    assert torch.equal(kept[0][0, 0], kept[1][0, 0])  # step 0's state
+    v = calls[0].float().chunk(len(weights), dim=0)
+    exact = sum(w * vi for w, vi in zip(weights, v))
+    terms = sum(abs(w) * vi.abs() for w, vi in zip(weights, v))
+    for combined, roundings in ((kept[0][1, 0], len(weights)), (kept[1][1, 0], 2)):
+        assert ((combined.float() - exact).abs() <= roundings * 2.0 ** -8 * terms).all()
+    assert not torch.equal(kept[0][1, 0], kept[1][1, 0])  # the weights' rounding is gone
 
 
 @pytest.mark.parametrize("preset,cfg_rate,lens,dtype,temperature,sched", CASES, ids=IDS)
