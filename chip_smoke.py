@@ -4344,18 +4344,25 @@ def mg_train(rank: int, problems: list) -> dict:
 @contextlib.contextmanager
 def sampler_mels():
     """Every mel that the converters' samplers return inside the block, on
-    the host (the list yielded): the eager loops and the v1 converter's
-    graphed sampler, which an unsharded conversion on cuda takes."""
+    the host (the list yielded): the eager loops and the graphed sampler,
+    which an unsharded conversion on cuda takes (v2's through
+    ``euler_solve_multicfg``: a sampler called inside another counts once)."""
     from seedvc_tpu_torch.models.cfm import EulerGraph
     from seedvc_tpu_torch.pipelines import convert, convert_v2
 
     real = convert.euler_solve, convert_v2.euler_solve_multicfg, EulerGraph.__call__
     mels: list = []
+    depth = [0]
 
     def kept(fn):
         def run(*args, **kwargs):
-            out = fn(*args, **kwargs)
-            mels.append(out.float().cpu())
+            depth[0] += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+            if not depth[0]:
+                mels.append(out.float().cpu())
             return out
         return run
     convert.euler_solve, convert_v2.euler_solve_multicfg = kept(real[0]), kept(real[1])

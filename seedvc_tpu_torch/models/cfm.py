@@ -24,8 +24,9 @@ it a ``dit.estimate`` span.
 
 One step's math is :func:`euler_step`: :func:`euler_solve` (and v2's
 ``models/cfm_v2.py::euler_solve_multicfg``) calls it in one Python loop,
-and :class:`EulerGraph` captures it once per sampler shape as a CUDA graph
-that it replays every step (one device, no mesh axis).
+and :class:`EulerGraph` captures it once per sampler shape and CFG layout
+as a CUDA graph that it replays every step (one device, no mesh axis), for
+v1's layout or any other ``cfg_branches`` gives.
 """
 
 from __future__ import annotations
@@ -308,29 +309,37 @@ class StepGraph:
 
 
 MAX_GRAPHS = 8  # a 30 s window's five contexts at one CFG layout, and room
+KEPT = ("keep.x", "keep.v")  # the static buffers of a step's kept state and estimate
 
 
 class EulerGraph:
-    """:func:`euler_solve` on one device and no mesh axis, each Euler step
-    replayed from a CUDA graph: ``sampler(noise, mu, x_lens, prompt,
-    prompt_len, style, n_timesteps, cfg_rate)`` returns what
+    """:func:`euler_solve` (or, given ``branches``, the loop v2's
+    ``euler_solve_multicfg`` runs) on one device and no mesh axis, each
+    Euler step replayed from a CUDA graph: ``sampler(noise, mu, x_lens,
+    prompt, prompt_len, style, n_timesteps, cfg_rate)`` returns what
     ``euler_solve(estimate_fn, ..., precompute_fn=precompute_fn)`` returns,
-    bit for bit (the same kernels in the same order).
+    bit for bit (the same kernels in the same order). ``branches``: the CFG
+    layout ``_euler_loop`` takes, in place of ``cfg_rate``'s; ``keep``: two
+    (n_timesteps, B, T, n_mels) buffers, row i step i's state and combined
+    estimate, as ``_euler_loop`` fills them.
 
     A call copies x at t = 0, the prompt mask, the CFG stack and the
     conditioning (``precompute_fn`` runs eagerly, once a call) into static
     buffers, then for each step copies t_i and dt_i from a device table of
-    the schedule and replays the step, which updates x in place. A sampler
-    shape's first call runs its first step eagerly on a side stream (kernel
-    builds, cuBLAS and cuDNN plans, the RoPE tables), then captures the step
-    as one CUDA graph with a memory pool of its own, and replays the rest.
-    The returned mel is a copy, which no later replay overwrites.
+    the schedule and replays the step, which updates x in place (and with
+    ``keep`` writes the step's state and estimate into two static buffers,
+    copied into the step's rows after the replay). A sampler shape's first
+    call runs its first step eagerly on a side stream (kernel builds, cuBLAS
+    and cuDNN plans, the RoPE tables), then captures the step as one CUDA
+    graph with a memory pool of its own, and replays the rest. The returned
+    mel is a copy, which no later replay overwrites.
 
-    A graph is keyed by the shapes and dtypes of its inputs and the CFG
-    weights ``cfg_rate`` gives; the prompt length is data (the mask). The
-    ``MAX_GRAPHS`` most recently used are kept. The kernel counters count
-    what the device ran (``ops/launches.py``): the capture, which runs
-    nothing, adds nothing, and each replay what the captured step launches."""
+    A graph is keyed by the shapes and dtypes of its inputs (the ``keep``
+    rows among them) and the CFG weights of the layout; the prompt length is
+    data (the mask). The ``MAX_GRAPHS`` most recently used are kept. The
+    kernel counters count what the device ran (``ops/launches.py``): the
+    capture, which runs nothing, adds nothing, and each replay what the
+    captured step launches."""
 
     def __init__(self, estimate_fn: Callable, precompute_fn: Optional[Callable] = None):
         self.estimate_fn = estimate_fn
@@ -342,20 +351,23 @@ class EulerGraph:
     def __call__(self, noise: torch.Tensor, mu: torch.Tensor, x_lens: Optional[torch.Tensor],
                  prompt: torch.Tensor, prompt_len: int, style: torch.Tensor, n_timesteps: int,
                  cfg_rate: float = 0.7, temperature: float = 1.0,
-                 t_scheduler: str = "linear") -> torch.Tensor:
+                 t_scheduler: str = "linear", branches: Optional[Callable] = None,
+                 keep: Optional[tuple] = None) -> torch.Tensor:
         t_tab, dt_tab = self._schedule(n_timesteps, t_scheduler, mu.dtype, mu.device)
-        x, in_prompt, est, weights = sampler_inputs(noise, mu, x_lens, prompt, prompt_len,
-                                                    style, _v1_branches(cfg_rate), temperature)
+        x, in_prompt, est, weights = sampler_inputs(
+            noise, mu, x_lens, prompt, prompt_len, style,
+            _v1_branches(cfg_rate) if branches is None else branches, temperature)
         if not n_timesteps:
             return x
         inputs = dict(zip(("x", "in_prompt", "prompt", "lens", "style", "mu"),
                           (x, in_prompt, *est)))
         for args in precompute_args(self.precompute_fn, est, noise.shape[-1]):
             inputs.update((f"static.{k}", v) for k, v in args.items())
-        key = graph_key(inputs, weights)
+        kept = {} if keep is None else dict(zip(KEPT, (k[0] for k in keep)))
+        key = graph_key({**inputs, **kept}, weights)
         step, first = self.graphs.pop(key, None), 0
         if step is None:
-            bufs = self.buffers(inputs, t_tab[0], dt_tab[0])
+            bufs = self.buffers(inputs, t_tab[0], dt_tab[0], kept)
             with annotate("cfm.step"):
                 step, first = self._capture(bufs, weights), 1
             while len(self.graphs) >= MAX_GRAPHS:
@@ -365,11 +377,14 @@ class EulerGraph:
                 if v is not None:
                     step.bufs[name].copy_(v)
         self.graphs[key] = step
-        for i in range(first, n_timesteps):
-            with annotate("cfm.step"):
-                step.bufs["t"].copy_(t_tab[i])
-                step.bufs["dt"].copy_(dt_tab[i])
-                step.replay()
+        for i in range(n_timesteps):
+            if i >= first:
+                with annotate("cfm.step"):
+                    step.bufs["t"].copy_(t_tab[i])
+                    step.bufs["dt"].copy_(dt_tab[i])
+                    step.replay()
+            for rows, name in zip(keep or (), KEPT):
+                rows[i].copy_(step.bufs[name])
         launches.replayed(step.launches, n_timesteps - first)
         return step.bufs["x"].clone()
 
@@ -383,9 +398,13 @@ class EulerGraph:
                                  (span[1:] - span[:-1]).to(device))
         return self._tables[key]
 
-    def buffers(self, inputs: dict, t: torch.Tensor, dt: torch.Tensor) -> dict:
-        """Static buffers holding ``inputs`` and the first step's ``t`` and ``dt``."""
+    def buffers(self, inputs: dict, t: torch.Tensor, dt: torch.Tensor,
+                kept: Optional[dict] = None) -> dict:
+        """Static buffers holding ``inputs`` and the first step's ``t`` and
+        ``dt``, and one like each of ``kept`` (the kept rows, by name) that
+        the step writes."""
         bufs = {k: None if v is None else v.clone() for k, v in inputs.items()}
+        bufs.update((k, torch.empty_like(v)) for k, v in (kept or {}).items())
         bufs["t"], bufs["dt"] = t.clone(), dt.clone()
         return bufs
 
@@ -396,7 +415,8 @@ class EulerGraph:
         static = {k[len("static."):]: v for k, v in bufs.items() if k.startswith("static.")}
         x = euler_step(self.estimate_fn, bufs["x"], bufs["t"], bufs["dt"], est,
                        (static,) if static else (), bufs["in_prompt"], weights,
-                       StackShard(None, bufs["mu"].shape[0]))
+                       StackShard(None, bufs["mu"].shape[0]),
+                       keep=tuple(bufs[k] for k in KEPT) if KEPT[0] in bufs else None)
         bufs["x"].copy_(x)
 
     def _capture(self, bufs: dict, weights: tuple) -> StepGraph:

@@ -8,7 +8,8 @@ with either rate 0 the stack has two branches, with both none, and
 ``random_voice`` (anonymisation) stacks [text-only / unconditional]
 (``models/cfm.py::cfg_branches``). The sampler is v1's Euler loop: the
 update runs in f32 and is cast back; the prompt region is re-zeroed every
-step. The initial noise is an argument.
+step. The initial noise is an argument. Given ``graph`` (v1's
+``EulerGraph``), the same steps are replayed from CUDA graphs.
 
 :func:`cfm_v2_loss` is the OT-CFM loss with the prompt region given as the
 condition, zeroed in the noisy input and left out of the loss; ``t`` and the
@@ -35,7 +36,8 @@ def euler_solve_multicfg(estimate_fn: Callable, noise: torch.Tensor, mu: torch.T
                          precompute_fn: Optional[Callable] = None,
                          shard_axis: Optional[str] = None,
                          seq_shard_axis: Optional[str] = None,
-                         keep: Optional[tuple] = None) -> torch.Tensor:
+                         keep: Optional[tuple] = None,
+                         graph: Optional[Callable] = None) -> torch.Tensor:
     """``estimate_fn(x, prompt_x, x_lens, t, style, mu[, static_cond]) -> v``.
 
     v1's sampler (``models/cfm.py``) over the cosine schedule and the CFG
@@ -51,10 +53,16 @@ def euler_solve_multicfg(estimate_fn: Callable, noise: torch.Tensor, mu: torch.T
     (n_timesteps, B, T, n_mels) whose row i step i fills with the state it
     estimated at and its combined estimate (two copies a step, into memory
     allocated once: holding each step's own tensors instead makes the
-    allocator ask the device for more every step). Returns the generated
-    mel; the prompt region holds zeros."""
+    allocator ask the device for more every step). ``graph``: a
+    ``models/cfm.py::EulerGraph`` that runs the same steps, each replayed
+    from a CUDA graph (one device: the shard axes are not read). Returns the
+    generated mel; the prompt region holds zeros."""
     # this module's cfg_branches, looked up at each call, so a patch on it applies
     branches = functools.partial(cfg_branches, cfg_rates=cfg_rates, random_voice=random_voice)
+    if graph is not None:
+        return graph(noise, mu, x_lens, prompt, prompt_len, style, n_timesteps,
+                     temperature=temperature, t_scheduler="cosine", branches=branches,
+                     keep=keep)
     return _euler_loop(estimate_fn, noise, mu, x_lens, prompt, prompt_len, style, n_timesteps,
                        branches, precompute_fn, temperature, "cosine", shard_axis,
                        seq_shard_axis, keep)

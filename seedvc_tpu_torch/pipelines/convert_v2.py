@@ -52,13 +52,14 @@ from seedvc_tpu_torch.models.astral import (ASTRAL_NARROW, ASTRAL_WIDE, AstralCo
                                             AstralQuantizer)
 from seedvc_tpu_torch.models.bigvgan import BIGVGAN_22K_80, BigVGAN
 from seedvc_tpu_torch.models.campplus import CAMPPlus
+from seedvc_tpu_torch.models.cfm import EulerGraph
 from seedvc_tpu_torch.models.cfm_v2 import euler_solve_multicfg
 from seedvc_tpu_torch.models.dit_v2 import DiTV2, DiTV2Config
 from seedvc_tpu_torch.models.regulator import InterpolateRegulator
 from seedvc_tpu_torch.models.ssl import HUBERT_LARGE_L18, SSLConfig, SSLEncoder
 from seedvc_tpu_torch.nn.bsq import duration_reduction, run_lengths
-from seedvc_tpu_torch.pipelines.convert import (_chunks, _context_window, _drain,
-                                                campplus_style, plan_chunks)
+from seedvc_tpu_torch.pipelines.convert import (VoiceConverter, _chunks, _context_window,
+                                                _drain, campplus_style, plan_chunks)
 from seedvc_tpu_torch.weights import load_jax_params
 
 AR_MAX_CONTENT_LEN = 1500  # narrow tokens in one AR condition row
@@ -91,7 +92,13 @@ class VoiceConverterV2:
     CFG stack (up to three branches, unevenly too) over that axis of the
     ``set_mesh`` mesh, as the v1 converter's; ``seq_shard_axis`` splits its
     time axis, as the v1 converter's. ``vocoder_cfg``: BigVGAN's geometry
-    (default ``BIGVGAN_22K_80``)."""
+    (default ``BIGVGAN_22K_80``).
+
+    On cuda the sampler replays each Euler step from a CUDA graph
+    (``self.sampler``, an :class:`~seedvc_tpu_torch.models.cfm.EulerGraph`,
+    one capture per context and CFG layout), by the v1 converter's rule:
+    with neither shard axis set and outside another capture; elsewhere it
+    runs the same steps eagerly."""
 
     PARAM_NAMES = ("ssl", "narrow", "wide", "campplus", "cfm_reg", "ar_reg",
                    "dit", "ar", "vocoder")
@@ -104,6 +111,7 @@ class VoiceConverterV2:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VoiceConverterV2: no CUDA device; pass device='cpu' "
                                "to run on the CPU")
+        self._use_graph = self.device.type == "cuda"  # tests set it for an A/B
         self.cfg_shard_axis = cfg_shard_axis
         self.seq_shard_axis = seq_shard_axis
         if compute_dtype is None:
@@ -143,6 +151,7 @@ class VoiceConverterV2:
             setattr(self, name, module)
         self.generator = ARGenerator(self.ar, max_new_tokens=AR_MAX_NEW_TOKENS,
                                      device=self.device)
+        self.sampler = EulerGraph(self._estimate, self._precompute)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -238,6 +247,15 @@ class VoiceConverterV2:
         wide = np.concatenate([tokens[b, : int(n_tok[b])] for b in range(B)])[None]
         return wide, B, rows
 
+    _graphed = VoiceConverter._graphed
+
+    def _estimate(self, x, px, lens, t, s, m, sc=None):
+        return self.dit(x, px, lens, t, s, m, static_cond=sc)
+
+    def _precompute(self, x, px, lens, s, m):
+        return self.dit(x, px, lens, torch.zeros(x.shape[0], device=x.device), s, m,
+                        return_static=True)
+
     @torch.no_grad()
     def _sample_vocode(self, noise, chunk, prompt_cond, total_len, prompt_mel, prompt_len: int,
                        context: int, *, style, n_steps: int, rates, random_voice: bool,
@@ -245,27 +263,23 @@ class VoiceConverterV2:
         """Multi-condition CFG sampling over [prompt ‖ chunk] in one context
         window, the generated region vocoded; returns the f16 wave. The two
         halves are ``timer``'s stages ``sample`` (counting its Euler
-        ``steps``) and ``vocode``, with no synchronise between them.
+        ``steps``, and as ``graphed_steps`` those replayed from a CUDA
+        graph) and ``vocode``, with no synchronise between them.
         ``keep``: buffers for the sampler's state and estimate of each step
         (``euler_solve_multicfg``)."""
         cd = self.compute_dtype
         W = chunk.shape[1]
         with timer("sample"):
             cond, pm = _context_window(chunk, prompt_cond, prompt_mel, prompt_len, context, cd)
-
-            def estimate(x, px, lens, t, s, m, sc=None):
-                return self.dit(x, px, lens, t, s, m, static_cond=sc)
-
-            def precompute(x, px, lens, s, m):
-                return self.dit(x, px, lens, torch.zeros(x.shape[0], device=x.device), s, m,
-                                return_static=True)
-
+            graphed = self._graphed()
             mel_out = euler_solve_multicfg(
-                estimate, noise.to(cd), cond, total_len, pm, prompt_len, style.to(cd),
+                self._estimate, noise.to(cd), cond, total_len, pm, prompt_len, style.to(cd),
                 n_timesteps=n_steps, cfg_rates=rates, random_voice=random_voice,
-                precompute_fn=precompute, shard_axis=self.cfg_shard_axis,
-                seq_shard_axis=self.seq_shard_axis, keep=keep)
+                precompute_fn=self._precompute, shard_axis=self.cfg_shard_axis,
+                seq_shard_axis=self.seq_shard_axis, keep=keep,
+                graph=self.sampler if graphed else None)
             timer.count("steps", n_steps)
+            timer.count("graphed_steps", n_steps if graphed else 0)
         with timer("vocode"):
             gen = mel_out[:, prompt_len: prompt_len + W].float()
             return self.vocoder(gen).half()
@@ -302,8 +316,8 @@ class VoiceConverterV2:
         seconds by stage; with ``profile=True`` each stage ends in a device
         synchronise, and each is a recorded span with device time on cuda:
         ``ar`` holds ``ar.prefill`` and ``ar.decode`` with its counters,
-        ``sample+vocode`` holds ``sample`` (its Euler ``steps``) and
-        ``vocode``).
+        ``sample+vocode`` holds ``sample`` (its Euler ``steps`` and
+        ``graphed_steps``) and ``vocode``).
 
         ``cap_to_source``: each AR row stops at the 50 Hz length of its source
         span at the latest. ``keep_intermediates``: ``stats["kept"]`` holds
@@ -402,7 +416,8 @@ class VoiceConverterV2:
         ``(source_seconds, ref_seconds)`` pairs in ``specs`` (with
         ``warm_ar``, the first through the AR); returns the plans warmed.
         Eager PyTorch compiles nothing: this builds the kernels, cuDNN and
-        cuBLAS plans and the device tables the conversions use."""
+        cuBLAS plans and the device tables the conversions use, and on cuda
+        captures the sampler's step graph of each plan."""
         cfg = self.cfg
         warmed, seen = [], set()
         kw = dict(diffusion_steps=diffusion_steps,

@@ -6,6 +6,7 @@ installed: ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``.
 Each kernel is held to its plain PyTorch twin on the same CUDA inputs.
 """
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -616,6 +617,133 @@ def test_voice_converter_launch_counters_match_the_trace():
         assert counted["k3"] == 0, call
         assert traced == {"k1": counted["k1"], "k2": counted["k2"]}, (call, traced, counted)
         assert counted["k1"] == 20 * 13 and counted["k2"] > 0, call
+    assert len(vc.sampler.graphs) == 1
+
+
+def _full_dit_v2():
+    """``DiTV2Config()`` (512 wide, 13 layers, time and style as tokens),
+    bf16 on the card, its zero-initialised layers (AdaLN-Zero) drawn, and its
+    ``(estimate, precompute)`` as ``VoiceConverterV2`` hands them to the
+    sampler."""
+    from seedvc_tpu_torch.models.dit_v2 import DiTV2, DiTV2Config
+
+    torch.manual_seed(0)
+    dit = DiTV2(DiTV2Config()).eval()
+    with torch.no_grad():
+        for p in dit.parameters():
+            if not p.abs().sum():
+                p.normal_(0, 0.02)
+    dit = dit.requires_grad_(False).cuda().to(torch.bfloat16)
+
+    def estimate(x, px, lens, t, s, m, sc=None):
+        return dit(x, px, lens, t, s, m, static_cond=sc)
+
+    def precompute(x, px, lens, s, m):
+        return dit(x, px, lens, torch.zeros(x.shape[0], device=x.device), s, m,
+                   return_static=True)
+    return estimate, precompute
+
+
+V2_KW = dict(cfg_rates=(0.7, 0.7), random_voice=False)  # the 3-branch stack
+
+
+def test_v2_euler_graph_matches_eager_at_full_width():
+    """v2's sampler graphed (one CUDA graph an Euler step) against its eager
+    loop at ``DiTV2Config()``, the 3-branch CFG stack, 30 cosine steps, lens
+    set, keeping every step's state and combined estimate: bit for bit (the
+    same kernels on the same inputs, in the same order), the mel and every
+    kept row, at two contexts (2558, 2046) captured and replayed in turn
+    with new prompt lengths. K1 runs steps × 13 by the counter either way."""
+    from seedvc_tpu_torch.models.cfm import EulerGraph
+    from seedvc_tpu_torch.models.cfm_v2 import euler_solve_multicfg
+
+    estimate, precompute = _full_dit_v2()
+    sampler = EulerGraph(estimate, precompute)
+    steps = 30
+    kw = dict(n_timesteps=steps, precompute_fn=precompute, **V2_KW)
+    for seed, T, prompt_len in ((1, 2558, 768), (2, 2046, 300), (3, 2558, 401),
+                                (4, 2046, 768)):
+        args = _sampler_args(T, seed, prompt_len, T - 90)
+        kept = torch.zeros((2, 2, steps, 1, T, 80), dtype=torch.bfloat16, device="cuda")
+        n0 = attention.LAUNCHES
+        want = euler_solve_multicfg(estimate, *args, **kw, keep=tuple(kept[0]))
+        n1 = attention.LAUNCHES
+        got = euler_solve_multicfg(estimate, *args, **kw, keep=tuple(kept[1]), graph=sampler)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(kept[1], kept[0]), (seed, T)
+        assert not got[:, prompt_len:].isnan().any() and got[:, :prompt_len].abs().max() == 0
+        assert kept[1][1].abs().amax(dim=(1, 2, 3)).min() > 0  # every step kept an estimate
+        assert n1 - n0 == attention.LAUNCHES - n1 == steps * 13
+        assert len(sampler.graphs) == (1 if seed == 1 else 2)
+    assert all(g.launches == {"k1": 13, "k2": 0, "k3": 0} for g in sampler.graphs.values())
+
+
+def test_v2_euler_graph_launch_counters_match_the_trace():
+    """The kernel counters against the device's own record over v2's graphed
+    sampler (the call that captures, then one that only replays): K1's
+    counter advances by the K1 cores a ``torch.profiler`` trace shows ran
+    (steps × 13), K2's and K3's not at all. The profile is taken in a fresh
+    process: a session in a process that has already run many kernels can
+    drop its edge records."""
+    tests = Path(__file__).resolve().parent
+    code = f"""
+import json, sys
+sys.path[:0] = [{str(tests.parent)!r}, {str(tests)!r}]
+import torch
+from torch.profiler import ProfilerActivity, profile
+from seedvc_tpu_torch.models.cfm import EulerGraph
+from seedvc_tpu_torch.models.cfm_v2 import euler_solve_multicfg
+from seedvc_tpu_torch.ops import launches
+from test_torch_cuda import V2_KW, _full_dit_v2, _kernel_launches, _sampler_args
+estimate, precompute = _full_dit_v2()
+sampler = EulerGraph(estimate, precompute)
+args = _sampler_args(2558, 5, 512, 2400)
+kw = dict(precompute_fn=precompute, **V2_KW)
+euler_solve_multicfg(estimate, *args, n_timesteps=1, **kw)  # kernel builds, off the trace
+torch.cuda.synchronize()
+out = []
+for call in ("capture", "replay"):
+    n0 = launches.counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        euler_solve_multicfg(estimate, *args, n_timesteps=10, **kw, graph=sampler)
+        torch.cuda.synchronize()
+    counted = {{k: v - n0[k] for k, v in launches.counts().items()}}
+    out.append([call, counted, _kernel_launches(prof)])
+print(json.dumps(out))
+"""
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    for call, counted, traced in json.loads(run.stdout.splitlines()[-1]):
+        assert counted == {"k1": 130, "k2": 0, "k3": 0}, (call, counted)
+        assert traced == {"k1": counted["k1"], "k2": counted["k2"]}, (call, traced, counted)
+
+
+def test_voice_converter_v2_graph_matches_eager_conversion():
+    """A 2-chunk timbre conversion at ``V2Config()`` (random weights, 3 CFG
+    branches, intermediates kept): its wave and every kept state and
+    estimate with the graphed sampler equal the eager one's, and every step
+    counts as ``graphed_steps``."""
+    from seedvc_tpu_torch.pipelines.convert_v2 import VoiceConverterV2
+
+    vc = VoiceConverterV2(seed=3)
+    assert vc._use_graph
+    sr = vc.sr
+    t = np.arange(40 * sr) / sr
+    src = (0.3 * np.sin(2 * np.pi * 150 * t)).astype(np.float32)
+    ref = (0.3 * np.sin(2 * np.pi * 230 * t[: 4 * sr])).astype(np.float32)
+    out = {}
+    for graph in (False, True):
+        vc._use_graph = graph
+        _, wave, stats = vc.convert_timbre(src, sr, ref, sr, diffusion_steps=10, seed=1,
+                                           keep_intermediates=True)
+        sample = stats["stages"]["sample"]
+        assert stats["chunks"] == 2 and sample["steps"] == 20
+        assert sample["graphed_steps"] == (20 if graph else 0)
+        out[graph] = wave, stats["kept"]["chunks"]
+    assert np.array_equal(out[True][0], out[False][0]) and np.abs(out[True][0]).max() > 0
+    for g, e in zip(out[True][1], out[False][1]):
+        assert torch.equal(g["states"], e["states"]) and torch.equal(g["estimates"], e["estimates"])
     assert len(vc.sampler.graphs) == 1
 
 

@@ -1,6 +1,6 @@
 """The v1 sampler's step, factored out of ``euler_solve``'s loop, the
 graphed sampler around it (``models/cfm.py::EulerGraph``), and v2's
-``euler_solve_multicfg`` on the same loop, on the CPU.
+``euler_solve_multicfg`` on the same loop, eager and graphed, on the CPU.
 
 A CUDA graph cannot be captured here, so the graphed sampler runs with its
 capture stubbed: the stub runs the first step on the static buffers and its
@@ -19,11 +19,16 @@ import torch
 from seedvc_tpu_torch.core import config as pc
 from seedvc_tpu_torch.models import cfm
 from seedvc_tpu_torch.models.bigvgan import BigVGANConfig
+from seedvc_tpu_torch.models.ar import ARConfig
+from seedvc_tpu_torch.models.astral import AstralConfig
 from seedvc_tpu_torch.models.cfm import CFM, EulerGraph, StepGraph, euler_solve
 from seedvc_tpu_torch.models.cfm_v2 import euler_solve_multicfg
+from seedvc_tpu_torch.models.dit_v2 import DiTV2, DiTV2Config
+from seedvc_tpu_torch.models.ssl import SSLConfig
 from seedvc_tpu_torch.models.whisper import WhisperEncoderConfig
 from seedvc_tpu_torch.ops import anti_alias, attention, launches
-from seedvc_tpu_torch.pipelines import convert
+from seedvc_tpu_torch.pipelines import convert, convert_v2
+from vcbench.calibrate_v2 import FAULTS
 
 torch.set_num_threads(1)
 
@@ -131,15 +136,36 @@ def _inputs(seed, T, dtype, lens=True, style_dim=192, content=64):
                 prompt=r(1, T, 80), prompt_len=T // 4, style=r(1, style_dim))
 
 
-def _cfm(preset, dtype, seed=0):
-    torch.manual_seed(seed)
-    model = CFM(_tiny(preset).model_params).eval().to(dtype)
-    # the DiT's zero-initialised output layers would make every velocity 0
+def _drawn(model):
+    """``model`` with its zero-initialised parameters drawn: the DiTs'
+    zero-initialised output layers (and DiTV2's AdaLN-Zero gates) would make
+    every velocity 0."""
     with torch.no_grad():
         for p in model.parameters():
             if not p.abs().sum():
                 p.normal_(0, 0.05)
     return model
+
+
+def _cfm(preset, dtype, seed=0):
+    torch.manual_seed(seed)
+    return _drawn(CFM(_tiny(preset).model_params).eval().to(dtype))
+
+
+def _dit_v2(dtype, seed=0):
+    """DiTV2 64 wide (2 heads, depth 3) over 64-wide content, its
+    ``(estimate, precompute)`` as ``VoiceConverterV2`` hands them to the
+    sampler."""
+    torch.manual_seed(seed)
+    dit = _drawn(DiTV2(DiTV2Config(hidden_dim=64, depth=3, num_heads=2, content_dim=64))
+                 .eval().to(dtype))
+
+    def estimate(x, px, lens, t, s, m, sc=None):
+        return dit(x, px, lens, t, s, m, static_cond=sc)
+
+    def precompute(x, px, lens, s, m):
+        return dit(x, px, lens, torch.zeros(x.shape[0]), s, m, return_static=True)
+    return estimate, precompute
 
 
 def _stub_capture(launched=None):
@@ -417,3 +443,118 @@ def test_converter_graphed_conversion_equals_eager(converter, monkeypatch):
     assert np.array_equal(graphed, eager) and np.abs(eager).max() > 0
     assert g_sample["steps"] == g_sample["graphed_steps"] == sample["steps"] == 3 * chunks
     assert converter.sampler.captured == 1  # both chunks at one context
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_graphed_multicfg_equals_eager(monkeypatch, layout, dtype):
+    """v2's sampler through the graphed sampler (capture stubbed) against
+    its eager loop, bit for bit, at each CFG layout over DiTV2 on the cosine
+    schedule: the samples and each step's kept state and combined estimate,
+    row by row, with two contexts used in turn and a new prompt length on
+    each call. The kept rows are part of the key: the same shape without
+    them is a graph of its own, which writes nothing to keep."""
+    monkeypatch.setattr(EulerGraph, "_capture", _stub_capture())
+    rates, rv = LAYOUTS[layout]
+    estimate, precompute = _dit_v2(dtype)
+    sampler = EulerGraph(estimate, precompute)
+    steps = 4
+    kw = dict(n_timesteps=steps, temperature=0.9, cfg_rates=rates, random_voice=rv,
+              precompute_fn=precompute)
+    for seed, T in ((1, 40), (2, 24), (3, 40)):
+        a = _inputs(seed, T, dtype)
+        args = (a["noise"], a["mu"], a["x_lens"], a["prompt"], seed * 4, a["style"])
+        kept = torch.zeros((2, 2, steps, *a["noise"].shape), dtype=dtype)
+        want = euler_solve_multicfg(estimate, *args, **kw, keep=tuple(kept[0]))
+        got = euler_solve_multicfg(estimate, *args, **kw, keep=tuple(kept[1]), graph=sampler)
+        assert got.dtype == dtype and torch.equal(got, want)
+        for i in range(steps):
+            assert torch.equal(kept[1][0, i], kept[0][0, i]), i  # the state at step i
+            assert torch.equal(kept[1][1, i], kept[0][1, i]), i  # its combined estimate
+        assert (kept[1][1, steps - 1] != 0).any()
+    assert sampler.captured == 2 and len(sampler.graphs) == 2
+    assert torch.equal(euler_solve_multicfg(estimate, *args, **kw, graph=sampler), want)
+    assert sampler.captured == 3
+
+
+@pytest.fixture(scope="module")
+def converter_v2():
+    """A tiny ``VoiceConverterV2`` on the CPU: DiTV2 32 wide (4 heads, depth
+    2, its zero-initialised layers drawn); context 144, prompt cap 48."""
+    cfg = convert_v2.V2Config(
+        dit=DiTV2Config(hidden_dim=32, depth=2, num_heads=4, content_dim=32,
+                        style_encoder_dim=24),
+        ar=ARConfig(dim=32, n_layer=2, n_head=4, n_local_heads=2, head_dim=8,
+                    intermediate_size=64, vocab_size=33, max_seq_len=1024),
+        ssl=SSLConfig(conv_dim=16, d_model=32, n_layers=1, n_heads=4, ffn_dim=64),
+        narrow=AstralConfig(dim=24, intermediate_dim=48, num_blocks=1, input_dim=32,
+                            codebook_size=8),
+        wide=AstralConfig(dim=24, intermediate_dim=48, num_blocks=1, input_dim=32,
+                          codebook_size=32),
+        prompt_cap_frames=48, context_frames=144)
+    vc = convert_v2.VoiceConverterV2(cfg, vocoder_cfg=BigVGANConfig(**VOC), device="cpu",
+                                     seed=5)
+    _drawn(vc.dit)
+    return vc
+
+
+def _convert_v2(vc, steps=3):
+    """A 3-chunk timbre conversion (3 CFG branches), its intermediates kept."""
+    _, wave, stats = vc.convert_timbre(_audio(200, 150.0, 1), SR, _audio(50, 230.0, 2), SR,
+                                       diffusion_steps=steps, seed=7, keep_intermediates=True)
+    return wave, stats
+
+
+def _graph_on(vc, monkeypatch):
+    """``vc`` with the graph on, as on cuda, a fresh sampler and the capture
+    stubbed."""
+    monkeypatch.setattr(EulerGraph, "_capture", _stub_capture())
+    monkeypatch.setattr(vc, "_use_graph", True)
+    monkeypatch.setattr(vc, "sampler", EulerGraph(vc._estimate, vc._precompute))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+
+
+def test_converter_v2_graphed_conversion_equals_eager(converter_v2, monkeypatch):
+    """On the CPU the v2 converter samples eagerly (``graphed_steps`` 0);
+    with the graph on (capture stubbed) its conversion is the eager one bit
+    for bit, the wave and each chunk's kept states and estimates, and every
+    step counts as graphed. The chunks share one context: one capture."""
+    vc = converter_v2
+    assert vc._use_graph is False and not vc._graphed()
+    eager, e_stats = _convert_v2(vc)
+    _graph_on(vc, monkeypatch)
+    graphed, g_stats = _convert_v2(vc)
+    assert np.array_equal(graphed, eager) and np.abs(eager).max() > 0
+    chunks = g_stats["chunks"]
+    assert chunks == e_stats["chunks"] == 3 == len(g_stats["kept"]["chunks"])
+    for g, e in zip(g_stats["kept"]["chunks"], e_stats["kept"]["chunks"]):
+        assert (g["p_len"], g["w"]) == (e["p_len"], e["w"])
+        assert torch.equal(g["states"], e["states"]) and torch.equal(g["estimates"], e["estimates"])
+    e_sample, g_sample = e_stats["stages"]["sample"], g_stats["stages"]["sample"]
+    assert e_sample["steps"] == g_sample["steps"] == g_sample["graphed_steps"] == 3 * chunks
+    assert e_sample["graphed_steps"] == 0
+    assert vc.sampler.captured == 1
+
+
+@pytest.mark.parametrize("fault", ["branch", "prompt", "lens"])
+def test_planted_sampler_faults_reach_the_graphed_sampler(converter_v2, monkeypatch, fault):
+    """The benchmark's planted sampler faults (``vcbench/calibrate_v2.py``:
+    the text-only branch left out through ``cfm_v2.cfg_branches``, the
+    prompt's mel left out of every branch, the padded frames attended by
+    ``euler_solve_multicfg`` called without lens) reach the graphed sampler:
+    the faulty conversion differs from the sound one and equals the eager
+    faulty one. A changed layout or stack (two branches, no lens) is a new
+    graph; the prompt left out is data in the same graph."""
+    vc = converter_v2
+    _graph_on(vc, monkeypatch)
+    sound, _ = _convert_v2(vc)
+    undo = FAULTS[fault]()
+    try:
+        faulty, stats = _convert_v2(vc)
+        monkeypatch.setattr(vc, "_use_graph", False)
+        eager, _ = _convert_v2(vc)
+    finally:
+        undo()
+    assert stats["stages"]["sample"]["graphed_steps"] == 3 * stats["chunks"]
+    assert np.array_equal(faulty, eager) and not np.array_equal(faulty, sound)
+    assert vc.sampler.captured == len(vc.sampler.graphs) == (1 if fault == "prompt" else 2)
