@@ -18,11 +18,14 @@ convolutions for XLA; none of them is a TPU kernel, so here they are
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from seedvc_tpu_torch.core.profiling import StageTimer
 from seedvc_tpu_torch.dsp.mel import hann_window, mel_filterbank
 from seedvc_tpu_torch.dsp.stft import stft_magnitude
 
@@ -92,9 +95,9 @@ class RMVPE_E2E(nn.Module):
         self.gru_bwd = nn.GRU(3 * N_MELS, 256, batch_first=True)
         self.fc_linear = nn.Linear(512, N_CLASS)
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        """mel: (B, T, 128), T a multiple of 2^en_de_layers -> salience
-        (B, T, 360)."""
+    def features(self, mel: torch.Tensor) -> torch.Tensor:
+        """mel: (B, T, 128), T a multiple of 2^en_de_layers -> the U-Net's
+        3-channel map flattened channel-major, (B, T, 384): index c * 128 + f."""
         x = self.encoder_bn(mel[:, None])
         skips = []
         for i in range(self.en_de_layers):
@@ -110,11 +113,23 @@ class RMVPE_E2E(nn.Module):
             x = torch.cat([x, skips[-1 - i]], dim=1)
             for b in range(self.n_blocks):
                 x = getattr(self, f"dec_{i}_block_{b}")(x)
-        # (B, 3, T, 128) -> (B, T, 384), channel-major: index c * 128 + f
-        h = self.cnn(x).transpose(1, 2).flatten(-2)
+        return self.cnn(x).transpose(1, 2).flatten(-2)
+
+    def gru(self, h: torch.Tensor) -> torch.Tensor:
+        """The BiGRU: (B, T, 384) -> (B, T, 512), the forward scan's states
+        then the backward scan's (run over the time-reversed sequence)."""
         fwd = self.gru_fwd(h)[0]
         bwd = self.gru_bwd(h.flip(1))[0].flip(1)
-        return torch.sigmoid(self.fc_linear(torch.cat([fwd, bwd], dim=-1)))
+        return torch.cat([fwd, bwd], dim=-1)
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """(B, T, 512) -> the salience (B, T, 360): the linear layer, sigmoid."""
+        return torch.sigmoid(self.fc_linear(h))
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        """mel: (B, T, 128), T a multiple of 2^en_de_layers -> salience
+        (B, T, 360)."""
+        return self.head(self.gru(self.features(mel)))
 
 
 CENTS_MAPPING = 20 * np.arange(360) + 1997.3794084376191
@@ -139,22 +154,46 @@ def decode_f0(salience: np.ndarray, thred: float = 0.03) -> np.ndarray:
 
 class RMVPE:
     """Bundled mel + E2E + decode (reference RMVPE class) around a frozen
-    :class:`RMVPE_E2E` on its device."""
+    :class:`RMVPE_E2E` on its device.
+
+    Given a :class:`~seedvc_tpu_torch.core.profiling.StageTimer`, a call's
+    device work is its stage ``f0.salience`` (counting ``frames``, the real
+    frames, and ``padded_frames``), which holds ``f0.gru`` (counting
+    ``gru_steps``, both scans' steps); the host's decode is ``f0.decode``.
+    None of them synchronises: their device times are read once the copy of
+    the salience to the host has waited for it."""
 
     def __init__(self, model: RMVPE_E2E):
         self.model = model
         self.device = next(model.parameters()).device
 
     @torch.no_grad()
-    def salience(self, audio_16k) -> torch.Tensor:
+    def salience(self, audio_16k, timer: Optional[StageTimer] = None) -> torch.Tensor:
         """(B, T) 16 kHz audio (numpy or tensor) -> (B, n_frames, 360). The
         log-mel is zero-padded to a multiple of 32 frames after the log, and
         both GRU directions run over the padded length before the crop."""
-        mel = rmvpe_mel(torch.as_tensor(np.asarray(audio_16k, np.float32)).to(self.device))
-        n_frames = mel.shape[1]
-        mel = F.pad(mel, (0, 0, 0, -(-n_frames // 32) * 32 - n_frames))
-        return self.model(mel)[:, :n_frames]
+        timer = timer or StageTimer(enabled=False)
+        with timer("f0.salience"):
+            mel = rmvpe_mel(torch.as_tensor(np.asarray(audio_16k, np.float32)).to(self.device))
+            n_frames = mel.shape[1]
+            padded = -(-n_frames // 32) * 32
+            mel = F.pad(mel, (0, 0, 0, padded - n_frames))
+            timer.count("frames", mel.shape[0] * n_frames)
+            timer.count("padded_frames", mel.shape[0] * padded)
+            h = self.model.features(mel)
+            with timer("f0.gru"):
+                h = self.model.gru(h)
+                timer.count("gru_steps", 2 * padded)
+            return self.model.head(h)[:, :n_frames]
 
-    def infer_from_audio_batch(self, audio_16k, thred: float = 0.03) -> np.ndarray:
-        hidden = self.salience(audio_16k).float().cpu().numpy()
-        return np.stack([decode_f0(h, thred) for h in hidden])
+    def infer_from_audio_batch(self, audio_16k, thred: float = 0.03,
+                               timer: Optional[StageTimer] = None,
+                               keep: Optional[list] = None) -> np.ndarray:
+        """(B, T) 16 kHz audio -> (B, n_frames) F0 Hz; ``keep``: a list the
+        salience's host copy (B, n_frames, 360) f32 is appended to."""
+        timer = timer or StageTimer(enabled=False)
+        hidden = self.salience(audio_16k, timer).float().cpu().numpy()
+        if keep is not None:
+            keep.append(hidden)
+        with timer("f0.decode"):
+            return np.stack([decode_f0(h, thred) for h in hidden])

@@ -39,6 +39,7 @@ from seedvc_tpu_torch.models.bigvgan import BIGVGAN_22K_80, BIGVGAN_44K_128, Big
 from seedvc_tpu_torch.models.campplus import CAMPPlus
 from seedvc_tpu_torch.models.cfm import EulerGraph, euler_solve
 from seedvc_tpu_torch.models.hifigan import HiFTConfig, HiFTGenerator
+from seedvc_tpu_torch.models.regulator import f0_to_coarse
 from seedvc_tpu_torch.models.rmvpe import RMVPE, RMVPE_E2E
 from seedvc_tpu_torch.models.ssl import XLSR_300M_L12, SSLEncoder
 from seedvc_tpu_torch.models.vc import VCModel
@@ -386,13 +387,20 @@ class VoiceConverter:
         return warmed
 
     def extract_f0(self, src_16k: np.ndarray, ref_16k: np.ndarray, *,
-                   auto_f0_adjust: bool = True, pitch_shift: float = 0.0):
+                   auto_f0_adjust: bool = True, pitch_shift: float = 0.0,
+                   timer: Optional[StageTimer] = None, keep: Optional[dict] = None):
         """RMVPE F0 of reference and source; with ``auto_f0_adjust`` the
         source's voiced log-F0 is moved so its median meets the reference's,
         then voiced frames are shifted by ``pitch_shift`` semitones. Returns
-        (shifted source F0, reference F0), f32 numpy."""
-        f0_ori = self.rmvpe.infer_from_audio_batch(ref_16k[None])[0]
-        f0_alt = self.rmvpe.infer_from_audio_batch(src_16k[None])[0]
+        (shifted source F0, reference F0), f32 numpy. ``timer`` records
+        RMVPE's stages (:class:`~seedvc_tpu_torch.models.rmvpe.RMVPE`);
+        ``keep`` gets each side's salience (n_frames, 360) under
+        ``salience``."""
+        sal = []
+        f0_ori = self.rmvpe.infer_from_audio_batch(ref_16k[None], timer=timer, keep=sal)[0]
+        f0_alt = self.rmvpe.infer_from_audio_batch(src_16k[None], timer=timer, keep=sal)[0]
+        if keep is not None:
+            keep["salience"] = {"reference": sal[0][0], "source": sal[1][0]}
         voiced_alt = f0_alt > 1
         voiced_ori = f0_ori > 1
         shifted = f0_alt.copy()
@@ -472,7 +480,8 @@ class VoiceConverter:
                                cfg_rate: float = 0.7, auto_f0_adjust: bool = True,
                                pitch_shift: float = 0.0, seed: int = 0, profile: bool = False,
                                noise_fn: Optional[Callable] = None,
-                               draws_fn: Optional[Callable] = None):
+                               draws_fn: Optional[Callable] = None,
+                               keep_intermediates: bool = False):
         """Generator yielding ``(sr, wave_chunk, stats)`` per crossfaded chunk.
         ``auto_f0_adjust`` and ``pitch_shift`` act with F0 conditioning only
         (see :meth:`extract_f0`).
@@ -487,8 +496,23 @@ class VoiceConverter:
         request's stages are recorded as spans: each stage's entry then has
         its ``device_seconds`` (None without a card). ``sample+vocode``
         holds the stages ``sample`` (with its Euler ``steps``) and
-        ``vocode``, not synchronised apart."""
+        ``vocode``, not synchronised apart; with F0 conditioning ``f0``
+        holds RMVPE's ``f0.salience`` (and in it ``f0.gru``) and
+        ``f0.decode``, with their counters (see
+        :class:`~seedvc_tpu_torch.models.rmvpe.RMVPE`).
+
+        ``keep_intermediates``: ``stats["kept"]`` holds what the conversion
+        computed on its way, adding no synchronise and leaving the wave as
+        it is: ``features`` (the content encoder's, ``source`` and
+        ``reference``, device f32), ``cond`` and ``prompt_cond`` (the
+        regulator's, device f32), and with F0 conditioning ``salience``
+        (RMVPE's, host f32 (n_frames, 360)), ``f0`` (Hz after
+        ``auto_f0_adjust`` and ``pitch_shift``, host f32) and ``coarse``
+        (the regulator's F0 bins, device int64), each by side; else those
+        three are None."""
         timer = StageTimer(record=profile, device=self.device)
+        kept = ({"salience": None, "f0": None, "coarse": None} if keep_intermediates
+                else None)
 
         def sync(x):
             return probe_ready(x) if profile else x
@@ -516,12 +540,23 @@ class VoiceConverter:
         if self.f0_condition:
             with timer("f0"):
                 shifted_f0, f0_ori_np = self.extract_f0(
-                    src_16k, ref_16k, auto_f0_adjust=auto_f0_adjust, pitch_shift=pitch_shift)
+                    src_16k, ref_16k, auto_f0_adjust=auto_f0_adjust, pitch_shift=pitch_shift,
+                    timer=timer, keep=kept)
                 f0_alt = torch.from_numpy(shifted_f0[None]).to(self.device)
                 f0_ori = torch.from_numpy(f0_ori_np[None]).to(self.device)
         with timer("regulate"):
             cond = sync(self._regulate_bucketed(s_alt, target_len, f0_alt))
             prompt_cond = sync(self._regulate_bucketed(s_ori, p_len, f0_ori))
+        extra = {}
+        if kept is not None:
+            kept.update(features={"source": s_alt, "reference": s_ori}, cond=cond,
+                        prompt_cond=prompt_cond)
+            if self.f0_condition:
+                n_bins = self.cfg.model_params.length_regulator.n_f0_bins
+                kept["f0"] = {"source": shifted_f0, "reference": f0_ori_np}
+                kept["coarse"] = {side: torch.clamp(f0_to_coarse(f0[0], n_bins), 0, n_bins - 1)
+                                  for side, f0 in (("source", f0_alt), ("reference", f0_ori))}
+            extra = {"kept": kept}
 
         plan = self.plan_chunks(target_len, p_len)
         draws = None
@@ -541,4 +576,5 @@ class VoiceConverter:
                 "wall_seconds": dt,
                 "chunks": n,
                 "stages": timer.report(),
+                **extra,
             }

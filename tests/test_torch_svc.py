@@ -158,7 +158,7 @@ class StubRMVPE:
     def __init__(self):
         self.calls = []
 
-    def infer_from_audio_batch(self, waves, thred=0.03):
+    def infer_from_audio_batch(self, waves, thred=0.03, timer=None, keep=None):
         n = 1 + waves.shape[-1] // 160
         self.calls.append(n)
         return _track(n, seed=n)[None]
